@@ -1,0 +1,463 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of FastFabric (src/repro_torch) on one card.
+
+    python3 chip_smoke.py          # from the root of a checkout, one CUDA card
+
+Phases; any failure raises and exits nonzero, and no result line is printed:
+
+1. Build the three kernels from src/repro_torch/kernels/csrc with nvcc for
+   sm_90a (one nvcc process per source, all at once).
+2. Hold each kernel against its plain PyTorch version on the card, at the
+   main path's shapes and on adversarial inputs (words 0 and 0xFFFFFFFF,
+   empty keys, full buckets, duplicate keys, conflicting transactions).
+   Tolerance: none; every output is an integer and must be bit-equal.
+3. Time each kernel with CUDA events over many launches after a warm-up,
+   beside its plain version, its bound (the larger of bytes over 3.35 TB/s
+   and operations over 67 T/s) and, from the profiler, its device time.
+4. Run the FASTFABRIC engine on the card at PAPER_DIMS (2.9 KB
+   transactions), blocks of 100, a 2^20-bucket x 8-slot world state, and
+   proposals from 2^22 accounts: one warm-up round, then two timed rounds of
+   1,000 transactions. Every launch counter is set to 0 just before and read
+   just after; every kernel must have run, and verify() must be all True.
+5. Run the same rounds on the CPU (plain versions) and require the store
+   chain, log head, journal head and both state digests to be identical.
+6. Profile one more round on the card for the device's busy share.
+
+The lines before the last give the card's name and power limit (as
+nvidia-smi prints them), an engine summary and the kernels; the last line
+is {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+ALU_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores; the
+# data sheet gives no integer-ALU rate, and 32-bit integer work runs on the
+# same units at no more than this rate
+ROUND_TXS = 1000
+N_ACCOUNTS = 1 << 22
+SEEDS = (0, 1, 2)  # warm-up round, then the two timed rounds
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / ALU_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def event_ms(fn, iters: int, warmup: int = 10) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, kernel_name: str, iters: int = 50) -> float | None:
+    """Mean device time of the CUDA kernel ``kernel_name`` over ``iters``
+    calls of ``fn``, from the profiler; None when it records no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in _device_events(prof):
+        if kernel_name in ev.key:
+            total += ev.self_device_time_total
+            count += ev.count
+    return total / count / 1e3 if count else None
+
+
+def _device_events(prof):
+    """The profiler's device-side events (kernels, copies, memsets); the
+    host-side ops that launched them are left out, not counted twice."""
+    from torch.autograd import DeviceType
+    return [ev for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA]
+
+
+def max_abs_err(got, want) -> int:
+    """Largest |kernel - plain| over the outputs, as unsigned integers."""
+    from repro_torch.core import u32
+    err = 0
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, (g.shape, w.shape)
+        if g.dtype == torch.bool:
+            g, w = g.long(), w.long()
+        else:
+            g, w = u32.to_u64(g), u32.to_u64(w)
+        if g.numel():
+            err = max(err, int((g - w).abs().max()))
+    return err
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.core import (crypto, engine, ledger, types, u32,
+                                  unmarshal)
+    from repro_torch.core import world_state as ws
+    from repro_torch.kernels import build
+    from repro_torch.kernels.hash_table import ops as ht_ops, ref as ht_ref
+    from repro_torch.kernels.mvcc_validate import ops as mv_ops
+    from repro_torch.kernels.mvcc_validate import ref as mv_ref
+    from repro_torch.kernels.sig_mac import ops as mac_ops, ref as mac_ref
+    from repro_torch.storage import journal
+
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    log("card:", card, "| torch", torch.__version__, "cuda",
+        torch.version.cuda)
+    rng = np.random.default_rng(0)
+    dims = types.PAPER_DIMS
+    nb, slots = 1 << 20, 8
+    T = lambda a: u32.from_numpy(np.asarray(a), dev)
+
+    # -- 1. build ---------------------------------------------------------
+    t0 = time.perf_counter()
+    build.libraries()
+    log(f"[build] {time.perf_counter() - t0:.2f} s in {build.build_dir()}")
+    for name in build.SOURCES:
+        for line in build.build_log(name).splitlines():
+            if "Used" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+
+    # -- 2. kernels against their plain versions ----------------------------
+    errs = {"mac_many": 0, "lookup": 0, "validate": 0}
+
+    def check(name, got, want, what):
+        e = max_abs_err(got, want)
+        errs[name] = max(errs[name], e)
+        log(f"[check] {name} {what}: max_abs_err {e}")
+        if e:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"on {what}")
+
+    # K1: verify (100 x 22 x 3), admission (1000 x 3 x 1), endorse
+    # (1000 x 22 x 3), and extreme words and keys.
+    block = types.make_transfer_batch(dims, 100, seed=1, device=dev)
+    msg_block = types.message_words(block)
+    r3, s3 = crypto.endorser_keys(3, dev)
+    r1, s1 = crypto.endorser_keys(1, dev)
+    p31 = (1 << 31) - 1
+    edge = rng.integers(0, 1 << 32, (1000, 22), dtype=np.uint32)
+    edge[:300] = 0
+    edge[300:600] = 0xFFFFFFFF
+    keys_edge = (T(np.array([0, 1, p31 - 1, 12345], np.uint32)),
+                 T(np.array([p31 - 1, 0, 1, 777], np.uint32)))
+    for what, msg, (r, s) in (
+            ("verify 100x22x3", msg_block, (r3, s3)),
+            ("admission 1000x3x1",
+             T(rng.integers(0, 1 << 32, (1000, 3), dtype=np.uint32)),
+             (r1, s1)),
+            ("endorse 1000x22x3", T(edge), (r3, s3)),
+            ("extreme words and keys 1000x22x4", T(edge), keys_edge)):
+        check("mac_many", [mac_ops.mac_many(msg, r, s)],
+              [mac_ref.mac_many_ref(msg, r, s)], what)
+
+    # K2: a full-size table: ~2M keys in 2^20 buckets (some buckets full),
+    # buckets forced full, a key stored twice; 200 queries as on the path.
+    n_keys = 2 * nb
+    kk = rng.integers(1, 1 << 32, (n_keys, 2), dtype=np.uint32)
+    hot = rng.integers(0, nb, 16)
+    kk[:16 * slots, 0] = ((kk[:16 * slots, 0] & ~np.uint32(nb - 1))
+                          | np.repeat(hot, slots).astype(np.uint32))
+    bkt = (kk[:, 0] & (nb - 1)).astype(np.int64)
+    order = np.argsort(bkt, kind="stable")
+    sb = bkt[order]
+    rank = np.arange(n_keys) - np.searchsorted(sb, sb, side="left")
+    keep = order[rank < slots]
+    tkeys = np.zeros((nb, slots, 2), np.uint32)
+    tkeys[bkt[keep], rank[rank < slots]] = kk[keep]
+    occ = tkeys[..., 0] != 0
+    tvers = np.zeros((nb, slots), np.uint32)
+    tvers[occ] = rng.integers(1, 1 << 32, occ.sum(), dtype=np.uint32)
+    tvals = np.zeros((nb, slots, dims.vw), np.uint32)
+    tvals[occ] = rng.integers(0, 1 << 32, (occ.sum(), dims.vw),
+                              dtype=np.uint32)
+    full = np.argwhere(occ.all(axis=1))[:, 0]
+    dup_b = np.argwhere(occ[:, 1])[0, 0]
+    tkeys[dup_b, 1] = tkeys[dup_b, 0]
+    table = ws.HashState(T(tkeys), T(tvers), T(tvals))
+    log(f"[check] table: {int(occ.sum())} entries, {len(full)} full buckets")
+
+    def queries(q, seed):
+        g = np.random.default_rng(seed)
+        occ_idx = np.argwhere(occ)
+        hits = tkeys[tuple(occ_idx[g.integers(0, len(occ_idx), q // 2)].T)]
+        qs = np.concatenate([hits, g.integers(1, 1 << 32, (q - q // 2, 2),
+                                              dtype=np.uint32)])
+        qs[0] = (0, hits[1, 1])  # empty key
+        qs[1] = tkeys[full[0], -1]  # last slot of a full bucket
+        qs[2] = (tkeys[full[0], 0, 0], tkeys[full[0], 0, 1] ^ 1)
+        qs[3] = tkeys[dup_b, 0]  # stored twice
+        return T(qs)
+
+    q200 = queries(200, 1)
+    for what, qs in (("200 queries", q200), ("8192 queries",
+                                             queries(8192, 2))):
+        check("lookup", ht_ops.lookup(*table, qs),
+              ht_ref.lookup_ref(*table, qs), what)
+
+    # K4: a main-path block with conflicts and stale reads, and the extremes
+    # (1 and 1024 txs, empty keys, a tx writing one key twice).
+    def mvcc_inputs(b, seed, conflict_rate):
+        g = np.random.default_rng(seed)
+        tb = types.make_transfer_batch(dims, b, seed=seed, n_accounts=64,
+                                       conflict_rate=conflict_rate,
+                                       device=dev)
+        rk, wk = tb.read_keys.clone(), tb.write_keys.clone()
+        rk[T(g.random(b) < 0.05), 1] = 0
+        wk[T(g.random(b) < 0.05), 0] = 0
+        twice = T(g.random(b) < 0.05)  # one key written twice
+        wk[twice, 1] = wk[twice, 0]
+        rv = T(g.integers(0, 3, (b, dims.rk)).astype(np.uint32))
+        cur = torch.where(T(g.random((b, dims.rk)) < 0.9), rv,
+                          u32.add(rv, 1))
+        ok0 = torch.from_numpy(g.random(b) < 0.95).to(dev)
+        return [t.contiguous() for t in (rk, rv, wk, cur)] + [ok0]
+
+    mv_block = mvcc_inputs(100, 3, 0.5)
+    for what, ins in (("block of 100", mv_block),
+                      ("block of 1", mvcc_inputs(1, 4, 0.0)),
+                      ("block of 1024", mvcc_inputs(1024, 5, 0.3))):
+        got = mv_ops.validate(*ins)
+        check("validate", [got], [mv_ref.validate_ref(*ins)], what)
+        log(f"[check] validate {what}: {int(got.sum())} valid")
+    try:
+        mv_ops.validate(*mvcc_inputs(1025, 6, 0.0))
+    except ValueError:
+        log("[check] validate refuses a block of 1025")
+    else:
+        raise AssertionError("validate took a block of 1025 transactions")
+    torch.cuda.synchronize()
+
+    # -- 3. timing at the main path's shapes -------------------------------
+    ne, w = r3.shape[0], msg_block.shape[1]
+    q = q200.shape[0]
+    qn = q200[:, 0] != 0
+    found = ht_ops.lookup(*table, q200)[0]
+    b, nr, _ = mv_block[0].shape
+    nw = mv_block[2].shape[1]
+    valid = mv_ops.validate(*mv_block)
+    valid_before = torch.cumsum(valid.long(), 0) - valid.long()
+    timing = {
+        "mac_many": dict(
+            name="sig_mac.mac_many", kernel="mac_kernel",
+            source="src/repro_torch/kernels/csrc/sig_mac.cu",
+            replaces="src/repro/kernels/sig_mac/kernel.py:79",
+            fn=lambda: mac_ops.mac_many(msg_block, r3, s3),
+            plain=lambda: mac_ref.mac_many_ref(msg_block, r3, s3),
+            bound=bound_ms(4 * (msg_block.numel() + 2 * ne + 100 * ne),
+                           2 * 100 * ne * w),
+            shape="verify: 100 tx x 22 words x 3 keys"),
+        "lookup": dict(
+            name="hash_table.lookup", kernel="lookup_kernel",
+            source="src/repro_torch/kernels/csrc/hash_table.cu",
+            replaces="src/repro/kernels/hash_table/kernel.py:90",
+            fn=lambda: ht_ops.lookup(*table, q200),
+            plain=lambda: ht_ref.lookup_ref(*table, q200),
+            bound=bound_ms(
+                8 * q + 8 * slots * int(qn.sum())
+                + 4 * (1 + dims.vw) * int(found.sum())
+                + q * (1 + 4 + 4 * dims.vw + 4),
+                2 * slots * int(qn.sum())),
+            shape="200 queries on a 2^20 x 8 table"),
+        "validate": dict(
+            name="mvcc_validate.validate", kernel="mvcc_kernel",
+            source="src/repro_torch/kernels/csrc/mvcc_validate.cu",
+            replaces="src/repro/kernels/mvcc_validate/kernel.py:71",
+            fn=lambda: mv_ops.validate(*mv_block),
+            plain=lambda: mv_ref.validate_ref(*mv_block),
+            bound=bound_ms(4 * b * (2 * nr + 2 * nr + 2 * nw) + 2 * b,
+                           2 * nw * (nr + nw) * int(valid_before.sum())),
+            shape="block of 100, RK = WK = 2"),
+    }
+    for key, t in timing.items():
+        t["ms"] = event_ms(t["fn"], 500)
+        t["plain_ms"] = event_ms(t["plain"], 20, warmup=3)
+        t["device_ms"] = device_ms(t["fn"], t["kernel"])
+        log(f"[time] {t['name']} ({t['shape']}): {t['ms']:.5f} ms per call, "
+            f"device {t['device_ms']} ms, plain {t['plain_ms']:.4f} ms, "
+            f"bound {t['bound'][0]:.7f} ms ({t['bound'][1]})")
+    # K4's scan is b dependent barrier steps, which no byte or operation
+    # count sees: report the device time per step beside its byte bound.
+    mv_dev = timing["validate"]["device_ms"]
+    log(f"[time] mvcc_validate.validate: {b} dependent scan steps, "
+        f"{mv_dev / b * 1e3 if mv_dev else None} us of device time each")
+    # hash_words is plain PyTorch, one small launch per word: time one
+    # block's digests as the commit path computes them.
+    wire_b = unmarshal.marshal(block, dims)
+    valid_b = torch.ones(100, dtype=torch.bool, device=dev)
+    head = torch.zeros(2, dtype=u32.WORD, device=dev)
+    bno = torch.zeros((), dtype=u32.WORD, device=dev)
+
+    def digests():
+        unmarshal.payload_checksum(unmarshal.wire_words(wire_b))
+        d = ledger.block_body_digest(wire_b, valid_b)
+        ledger.append_hash(head, bno, d)
+        journal.update_head(head, bno, journal.write_set_digest(
+            block.write_keys, block.write_vals, valid_b))
+
+    digest_block_ms = event_ms(digests, 3, warmup=1)
+    log(f"[time] one block's checksum + body/journal digests "
+        f"(plain hash_words): {digest_block_ms:.2f} ms")
+
+    # -- 4. the engine on the card ------------------------------------------
+    cfg = engine.EngineConfig(dims=dims, n_buckets=nb, slots=slots)
+    counters = {"mac_many": mac_ops, "lookup": ht_ops, "validate": mv_ops}
+    for mod in counters.values():
+        mod.launches = 0
+    eng = engine.FabricEngine(cfg)
+    stats = [eng.run_round(eng.make_proposals(ROUND_TXS, seed=s,
+                                              n_accounts=N_ACCOUNTS))
+             for s in SEEDS]
+    t0 = time.perf_counter()
+    verdict = eng.verify()
+    verify_s = time.perf_counter() - t0
+    launches = {k: mod.launches for k, mod in counters.items()}
+    for s, st in zip(SEEDS, stats):
+        log(f"[engine] round seed {s}: {st.n_txs} txs, {st.n_valid} valid, "
+            f"{st.tps:.1f} tx/s, wall {st.wall_s:.4f} s = order "
+            f"{st.order_s:.4f} + commit {st.commit_s:.4f}; replay "
+            f"{st.replay_s:.4f} s")
+    timed = stats[1:]
+    wall = sum(st.wall_s for st in timed)
+    summary = {
+        "tps": sum(st.n_txs for st in timed) / wall,
+        "wall_s": wall,
+        "order_s": sum(st.order_s for st in timed),
+        "commit_s": sum(st.commit_s for st in timed),
+        "replay_s": sum(st.replay_s for st in timed),
+        "digest_s_est": digest_block_ms / 1e3 * sum(st.n_blocks
+                                                     for st in timed),
+        "verify_s": verify_s,
+        "launches": launches,
+        "verify": verdict,
+    }
+    log(f"[engine] verify {verdict} in {verify_s:.2f} s; launches {launches}")
+    if not all(verdict.values()):
+        raise AssertionError(f"verify() failed on the card: {verdict}")
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel never ran on the main path: "
+                             f"{launches}")
+    if any(st.n_valid != st.n_txs for st in stats):
+        raise AssertionError("a disjoint-transfer round had invalid txs")
+
+    def results(e):
+        e.store.drain()
+        return {
+            "chain": [(sb.block_no, sb.prev_hash, sb.block_hash, sb.valid)
+                      for sb in e.store.chain],
+            "log_head": u32.to_numpy(e.log_head),
+            "journal_head": u32.to_numpy(e.peer_state.journal_head),
+            "peer": u32.to_numpy(ws.state_digest(e.peer_state.hash_state)),
+            "replica": u32.to_numpy(ws.state_digest(e.endorser_state)),
+        }
+
+    on_card = results(eng)
+    eng.store.close()
+    del eng
+
+    # -- 5. the same rounds on the CPU, plain versions -----------------------
+    t0 = time.perf_counter()
+    eng_cpu = engine.FabricEngine(cfg, device="cpu")
+    cpu_stats = [eng_cpu.run_round(eng_cpu.make_proposals(
+        ROUND_TXS, seed=s, n_accounts=N_ACCOUNTS)) for s in SEEDS]
+    cpu_verdict = eng_cpu.verify()
+    on_cpu = results(eng_cpu)
+    eng_cpu.store.close()
+    del eng_cpu
+    cpu_s = time.perf_counter() - t0
+    if len(on_card["chain"]) != len(on_cpu["chain"]):
+        raise AssertionError("chains differ in length")
+    for a, c in zip(on_card["chain"], on_cpu["chain"]):
+        if a[0] != c[0] or not all(np.array_equal(x, y)
+                                   for x, y in zip(a[1:], c[1:])):
+            raise AssertionError(f"block {a[0]} differs between card and CPU")
+    for k in ("log_head", "journal_head", "peer", "replica"):
+        if not np.array_equal(on_card[k], on_cpu[k]):
+            raise AssertionError(f"{k} differs between card and CPU")
+    if cpu_verdict != verdict:
+        raise AssertionError(f"CPU verify {cpu_verdict} != {verdict}")
+    summary["cpu_tps"] = (sum(st.n_txs for st in cpu_stats[1:])
+                          / sum(st.wall_s for st in cpu_stats[1:]))
+    log(f"[cpu] {len(on_cpu['chain'])} blocks identical to the card's "
+        f"(chain, log head {on_card['log_head']}, journal head "
+        f"{on_card['journal_head']}, digests {on_card['peer']}); "
+        f"{cpu_s:.1f} s, {summary['cpu_tps']:.1f} tx/s (CPU, plain versions)")
+
+    # -- 6. one profiled round on the card: device busy share ----------------
+    from torch.profiler import ProfilerActivity, profile
+    eng_p = engine.FabricEngine(cfg)
+    eng_p.run_round(eng_p.make_proposals(ROUND_TXS, seed=0,
+                                         n_accounts=N_ACCOUNTS))
+    props = eng_p.make_proposals(ROUND_TXS, seed=1, n_accounts=N_ACCOUNTS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        st = eng_p.run_round(props)
+    eng_p.store.close()
+    dev_events = _device_events(prof)
+    busy_us = sum(ev.self_device_time_total for ev in dev_events)
+    n_kernels = sum(ev.count for ev in dev_events)
+    round_s = st.wall_s + st.replay_s
+    # the same span (order + commit + replay) of an unprofiled timed round
+    plain_round_s = sum(s.wall_s + s.replay_s for s in timed) / len(timed)
+    summary["profiled_round"] = {
+        "wall_s": round_s, "unprofiled_wall_s": plain_round_s,
+        "device_busy_s": busy_us / 1e6,
+        "busy_share": busy_us / 1e6 / round_s if busy_us else None,
+        "device_ops": n_kernels}
+    log(f"[profile] round under the profiler: {round_s:.3f} s (unprofiled "
+        f"{plain_round_s:.3f} s), device busy {busy_us / 1e6:.4f} s over "
+        f"{n_kernels} device ops")
+    top = sorted(dev_events, key=lambda ev: -ev.self_device_time_total)[:8]
+    for ev in top:
+        log(f"[profile]   {ev.self_device_time_total / 1e3:9.2f} ms "
+            f"{ev.count:7d}x {ev.key[:90]}")
+
+    kernels = [{
+        "name": t["name"], "route": "cuda", "source": t["source"],
+        "replaces": t["replaces"], "launches": launches[key],
+        "max_abs_err": errs[key], "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+        "library_ms": None, "device_ms": t["device_ms"],
+    } for key, t in timing.items()]
+    log(json.dumps({"engine": summary}, default=str))
+    log(card)
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

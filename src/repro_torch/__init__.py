@@ -1,0 +1,25 @@
+"""FastFabric on PyTorch and CUDA: the port of ``src/repro`` to an NVIDIA H100.
+
+Same subpackage layout as the JAX package (``core/``, ``storage/``,
+``kernels/<name>/``), plain functions on tensors, u32 words stored as int32
+(see :mod:`repro_torch.core.u32`). Entry points take an explicit ``device``
+and default to the card; see :func:`resolve_device`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller names
+    another. Raises when no card is present and none was named, so a run
+    never drops to the CPU unasked."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions on the CPU"
+        )
+    return torch.device("cuda")

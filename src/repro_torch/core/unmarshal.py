@@ -1,0 +1,101 @@
+"""Marshal / unmarshal: the wire format (port of repro.core.unmarshal).
+
+A marshaled transaction is a row of u8 wire bytes. Decoding is a byte->u32
+reinterpretation plus field slicing, and an integrity pass: an FNV chain
+over every payload word checked against the header checksum, so decode cost
+scales with payload size as protobuf parsing does.
+
+Wire layout per transaction, in u32 words (little-endian bytes):
+  [0:2] tx_id   [2] client   [3] channel   [4] payload checksum
+  [5:5+RK*3]    read_keys (RK,2) + read_vers (RK)
+  [...]         write_keys (WK,2) + write_vals (WK,VW)
+  [...]         endorse_tags (NE)
+  [rest]        opaque application payload
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import hashing, types, u32
+
+_CHECK_SEED = 0x811C9DC5
+_FIELDS = ("tx_id", "client", "channel", "read_keys", "read_vers",
+           "write_keys", "write_vals", "endorse_tags")
+
+
+def _layout(dims: types.FabricDims) -> dict:
+    """Word offsets (start, end) of each field group."""
+    sizes = (("tx_id", 2), ("client", 1), ("channel", 1), ("checksum", 1),
+             ("read_keys", dims.rk * 2), ("read_vers", dims.rk),
+             ("write_keys", dims.wk * 2), ("write_vals", dims.wk * dims.vw),
+             ("endorse_tags", dims.ne))
+    o, pos = {}, 0
+    for name, n in sizes:
+        o[name] = (pos, pos + n)
+        pos += n
+    o["opaque"] = (pos, dims.payload_words)
+    return o
+
+
+# Word index of the header checksum, in the dims-independent header prefix.
+CHECKSUM_WORD: int = _layout(types.FabricDims())["checksum"][0]
+
+
+def payload_checksum(words: torch.Tensor) -> torch.Tensor:
+    """FNV chain over the words after the checksum: (B, P) -> (B,)."""
+    return hashing.hash_words(words[:, CHECKSUM_WORD + 1:], seed=_CHECK_SEED)
+
+
+def marshal(txb: types.TxBatch, dims: types.FabricDims, *, fill_seed: int = 1
+            ) -> torch.Tensor:
+    """TxBatch -> wire bytes (B, 4*payload_words) u8."""
+    b = txb.batch
+    dev = txb.tx_id.device
+    lay = _layout(dims)
+    words = torch.zeros((b, dims.payload_words), dtype=u32.WORD, device=dev)
+    for name in _FIELDS:
+        s, e = lay[name]
+        words[:, s:e] = getattr(txb, name).reshape(b, e - s)
+    # Opaque application body: pseudo-random filler the committer must still
+    # checksum, as protobuf must walk unparsed submessages.
+    s, e = lay["opaque"]
+    if e > s:
+        idx = torch.arange(b * (e - s), dtype=u32.WORD, device=dev)
+        words[:, s:e] = hashing.hash_u32(u32.add(idx, fill_seed)).reshape(
+            b, e - s)
+    words[:, CHECKSUM_WORD] = payload_checksum(words)
+    return words.view(torch.uint8)
+
+
+def wire_words(wire: torch.Tensor) -> torch.Tensor:
+    """(B, 4P) u8 -> (B, P) u32 words, a view (little-endian, as the JAX
+    bitcast): the wire must be contiguous."""
+    return wire.contiguous().view(u32.WORD)
+
+
+class Unmarshaled(NamedTuple):
+    txb: types.TxBatch
+    checksum_ok: torch.Tensor  # (B,) bool
+
+
+def unmarshal(wire: torch.Tensor, dims: types.FabricDims) -> Unmarshaled:
+    """Wire bytes -> TxBatch (views into the wire) + integrity flag."""
+    words = wire_words(wire)
+    b = words.shape[0]
+    lay = _layout(dims)
+    shapes = {"tx_id": (2,), "client": (), "channel": (),
+              "read_keys": (dims.rk, 2), "read_vers": (dims.rk,),
+              "write_keys": (dims.wk, 2), "write_vals": (dims.wk, dims.vw),
+              "endorse_tags": (dims.ne,)}
+
+    def get(name):
+        s, e = lay[name]
+        return (words[:, s:e].reshape(b, *shapes[name]) if shapes[name]
+                else words[:, s])
+
+    txb = types.TxBatch(*(get(name) for name in _FIELDS))
+    ok = payload_checksum(words) == words[:, CHECKSUM_WORD]
+    return Unmarshaled(txb=txb, checksum_ok=ok)

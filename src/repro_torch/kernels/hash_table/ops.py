@@ -1,0 +1,46 @@
+"""Wrapper of the hash-table probe kernel (``csrc/hash_table.cu``).
+
+A CUDA tensor launches the kernel, a CPU tensor takes the plain version in
+``ref.py``; there is no fallback between them. ``launches`` counts kernel
+launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import u32
+from repro_torch.kernels import build
+from repro_torch.kernels.hash_table import ref
+
+launches = 0
+
+
+def lookup(tkeys, tvers, tvals, queries):
+    """Probe (Q, 2) paired keys: (found (Q,) bool, versions (Q,),
+    values (Q, VW), slots (Q,) int32)."""
+    global launches
+    dev = queries.device
+    nb, s, vw = tvals.shape
+    q = queries.shape[0]
+    if nb & (nb - 1):
+        raise ValueError(f"n_buckets={nb} must be a power of two")
+    build.check("tkeys", tkeys, u32.WORD, (nb, s, 2), dev)
+    build.check("tvers", tvers, u32.WORD, (nb, s), dev)
+    build.check("tvals", tvals, u32.WORD, (nb, s, vw), dev)
+    build.check("queries", queries, u32.WORD, (q, 2), dev)
+    if not build.dispatch(dev):
+        return ref.lookup_ref(tkeys, tvers, tvals, queries)
+    found = torch.empty((q,), dtype=torch.bool, device=dev)
+    vers = torch.empty((q,), dtype=u32.WORD, device=dev)
+    vals = torch.empty((q, vw), dtype=u32.WORD, device=dev)
+    slots = torch.empty((q,), dtype=torch.int32, device=dev)
+    if q == 0:
+        return found, vers, vals, slots
+    f = build.c_function("hash_table", "ht_lookup", 8, 4)
+    build.launch(f, "ht_lookup", dev, tkeys.data_ptr(), tvers.data_ptr(),
+                 tvals.data_ptr(), queries.data_ptr(), found.data_ptr(),
+                 vers.data_ptr(), vals.data_ptr(), slots.data_ptr(),
+                 q, nb, s, vw)
+    launches += 1
+    return found, vers, vals, slots

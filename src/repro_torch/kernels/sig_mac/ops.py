@@ -1,0 +1,39 @@
+"""Wrapper of the endorsement-MAC kernel (``csrc/sig_mac.cu``).
+
+A CUDA tensor launches the kernel, a CPU tensor takes the plain version in
+``ref.py``; there is no fallback between them. ``launches`` counts kernel
+launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import u32
+from repro_torch.kernels import build
+from repro_torch.kernels.sig_mac import ref
+
+launches = 0
+
+
+def mac_many(msg: torch.Tensor, rs: torch.Tensor, ss: torch.Tensor
+             ) -> torch.Tensor:
+    """Tags of every message under every key: (B, W) u32 messages x (NE,)
+    keys (r, s) in [0, p) -> (B, NE) u32, one launch for all keys."""
+    global launches
+    dev = msg.device
+    b, w = msg.shape
+    ne = rs.shape[0]
+    build.check("msg", msg, u32.WORD, (None, None), dev)
+    build.check("rs", rs, u32.WORD, (ne,), dev)
+    build.check("ss", ss, u32.WORD, (ne,), dev)
+    if not build.dispatch(dev):
+        return ref.mac_many_ref(msg, rs, ss)
+    tags = torch.empty((b, ne), dtype=u32.WORD, device=dev)
+    if b * ne == 0:
+        return tags
+    f = build.c_function("sig_mac", "mac_many", 4, 3)
+    build.launch(f, "mac_many", dev, msg.data_ptr(), rs.data_ptr(),
+                 ss.data_ptr(), tags.data_ptr(), b, w, ne)
+    launches += 1
+    return tags

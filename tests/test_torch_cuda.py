@@ -1,0 +1,86 @@
+"""Each CUDA kernel of the port against its plain PyTorch version, on a card:
+bit-equal. Imports no JAX, so it also runs where only PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
+
+Without a card every test here skips."""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import types, u32
+from repro_torch.core import world_state as ws
+from repro_torch.kernels.hash_table import ops as ht_ops, ref as ht_ref
+from repro_torch.kernels.mvcc_validate import ops as mv_ops, ref as mv_ref
+from repro_torch.kernels.sig_mac import ops as mac_ops, ref as mac_ref
+
+P31 = (1 << 31) - 1
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _same(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,w,ne", [(100, 22, 3), (1000, 3, 1), (7, 1, 4)])
+def test_mac_kernel(cuda, b, w, ne):
+    rng = np.random.default_rng(b)
+    msg = rng.integers(0, 1 << 32, (b, w), dtype=np.uint32)
+    msg[0], msg[-1] = 0, 0xFFFFFFFF
+    rs = rng.integers(0, P31, ne, dtype=np.uint32)
+    ss = rng.integers(0, P31, ne, dtype=np.uint32)
+    rs[0], ss[-1] = P31 - 1, 0
+    args = [u32.from_numpy(a, cuda) for a in (msg, rs, ss)]
+    _same([mac_ops.mac_many(*args)],
+          [mac_ref.mac_many_ref(*(a.cpu() for a in args))])
+
+
+@pytest.mark.gpu
+def test_lookup_kernel(cuda):
+    """Inserts that fill some buckets, then hits, misses and empty keys."""
+    tb = types.make_transfer_batch(types.TEST_DIMS, 600, seed=2,
+                                   n_accounts=1 << 12, conflict_rate=0.2,
+                                   device=cuda)
+    st = ws.create(64, 8, 4, cuda)
+    ws.commit_vectorized(st, tb.write_keys, tb.write_vals,
+                         torch.ones(600, dtype=torch.bool, device=cuda))
+    rng = np.random.default_rng(3)
+    qs = torch.cat([tb.read_keys.reshape(-1, 2), u32.from_numpy(
+        rng.integers(0, 1 << 32, (300, 2), dtype=np.uint32), cuda)])
+    qs[:5, 0] = 0
+    _same(ht_ops.lookup(*st, qs),
+          ht_ref.lookup_ref(*(t.cpu() for t in st), qs.cpu()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 100, 1024])
+def test_mvcc_kernel(cuda, b):
+    rng = np.random.default_rng(b)
+    tb = types.make_transfer_batch(types.TEST_DIMS, b, seed=b, n_accounts=64,
+                                   conflict_rate=0.5, device=cuda)
+    rv = u32.from_numpy(rng.integers(0, 3, (b, 2)).astype(np.uint32), cuda)
+    cur = torch.where(torch.from_numpy(rng.random((b, 2)) < 0.9).to(cuda),
+                      rv, u32.add(rv, 1))
+    ok0 = torch.from_numpy(rng.random(b) < 0.95).to(cuda)
+    args = [t.contiguous() for t in (tb.read_keys, rv, tb.write_keys, cur)]
+    args.append(ok0)
+    _same([mv_ops.validate(*args)],
+          [mv_ref.validate_ref(*(a.cpu() for a in args))])
+
+
+@pytest.mark.gpu
+def test_mvcc_kernel_refuses_blocks_over_1024(cuda):
+    keys = torch.zeros((1025, 2, 2), dtype=torch.int32, device=cuda)
+    vers = torch.zeros((1025, 2), dtype=torch.int32, device=cuda)
+    ok0 = torch.ones(1025, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="at most 1024"):
+        mv_ops.validate(keys, vers, keys, vers, ok0)
