@@ -5,27 +5,37 @@
 
 Phases; any failure raises and exits nonzero, and no result line is printed:
 
-1. Build the three kernels from src/repro_torch/kernels/csrc with nvcc for
+1. Build the four kernels from src/repro_torch/kernels/csrc with nvcc for
    sm_90a (one nvcc process per source, all at once).
 2. Hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and on adversarial inputs (words 0 and 0xFFFFFFFF,
-   empty keys, full buckets, duplicate keys, conflicting transactions).
-   Tolerance: none; every output is an integer and must be bit-equal.
+   paths' shapes and on adversarial inputs (words 0 and 0xFFFFFFFF, empty
+   keys, full buckets, duplicate keys, conflicting transactions, inactive
+   writes). Tolerance: none; every output is an integer and must be
+   bit-equal.
 3. Time each kernel with CUDA events over many launches after a warm-up,
    beside its plain version, its bound (the larger of bytes over 3.35 TB/s
    and operations over 67 T/s) and, from the profiler, its device time.
 4. Run the FASTFABRIC engine on the card at PAPER_DIMS (2.9 KB
    transactions), blocks of 100, a 2^20-bucket x 8-slot world state, and
-   proposals from 2^22 accounts: one warm-up round, then two timed rounds of
+   proposals from 2^22 accounts: one warm-up round, then a timed round of
    1,000 transactions. Every launch counter is set to 0 just before and read
-   just after; every kernel must have run, and verify() must be all True.
+   just after; every kernel of the path must have run, and verify() must be
+   all True.
 5. Run the same rounds on the CPU (plain versions) and require the store
    chain, log head, journal head and both state digests to be identical.
-6. Profile one more round on the card for the device's busy share.
+6. Profile one more round on the card, of 500 transactions, for the
+   device's busy share.
+7. The peer ladder: Fabric 1.2 (sorted store, staged serial validation),
+   P-I and P-I+II (hash table, sequential commit kernel), each behind the
+   Fabric 1.2 orderer, at the same size: a warm-up round of one block, a
+   timed round of 1,000 disjoint transfers and a conflicting round of 1,000
+   transfers among 256 accounts (src != dst), counters set to 0 before each
+   configuration and read after it; verify() all True, every kernel of the
+   configuration launched, and the same rounds on the CPU identical.
 
-The lines before the last give the card's name and power limit (as
-nvidia-smi prints them), an engine summary and the kernels; the last line
-is {"ok": true, "device": {...}}.
+The lines before the last give each phase's seconds, the card's name and
+power limit (as nvidia-smi prints them), an engine summary, the ladder and
+the kernels; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -45,7 +55,9 @@ ALU_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores; the
 # same units at no more than this rate
 ROUND_TXS = 1000
 N_ACCOUNTS = 1 << 22
-SEEDS = (0, 1, 2)  # warm-up round, then the two timed rounds
+SEEDS = (0, 1)  # warm-up round, then the timed round
+PROFILED_TXS = 500  # the profiled round (its trace takes minutes to read)
+LADDER_POOL = 256  # accounts of the ladder's conflicting round
 
 
 def log(*a):
@@ -113,13 +125,29 @@ def max_abs_err(got, want) -> int:
     return err
 
 
+def conflicting_proposals(n: int, seed: int, device):
+    """n transfers among LADDER_POOL accounts with src != dst: in-block
+    conflicts and stale reads, but no transaction writes one key twice, so
+    the sequential and vectorized commits agree and verify() holds."""
+    from repro_torch.core import endorser, u32
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, LADDER_POOL, n, dtype=np.uint32)
+    dst = ((src + rng.integers(1, LADDER_POOL, n, dtype=np.uint32))
+           % LADDER_POOL).astype(np.uint32)
+    return endorser.Proposal(*(u32.from_numpy(a, device) for a in (
+        src, dst, rng.integers(1, 1000, n, dtype=np.uint32),
+        rng.integers(0, 64, n, dtype=np.uint32),
+        np.arange(n, dtype=np.uint32) + np.uint32(seed << 16))))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from repro_torch.core import (crypto, engine, ledger, types, u32,
-                                  unmarshal)
+    import dataclasses
+    from repro_torch.core import (committer, crypto, engine, ledger, types,
+                                  u32, unmarshal)
     from repro_torch.core import world_state as ws
     from repro_torch.kernels import build
     from repro_torch.kernels.hash_table import ops as ht_ops, ref as ht_ref
@@ -136,6 +164,22 @@ def main() -> int:
     log("card:", card, "| torch", torch.__version__, "cuda",
         torch.version.cuda)
     rng = np.random.default_rng(0)
+    t_start = time.perf_counter()
+    phase_s = {}
+
+    def phase_done(name, t0):
+        phase_s[name] = time.perf_counter() - t0
+        log(f"[phase] {name}: {phase_s[name]:.1f} s")
+
+    def counts():
+        return {"mac_many": mac_ops.launches, "lookup": ht_ops.launches,
+                "commit": ht_ops.commit_launches,
+                "validate": mv_ops.launches}
+
+    def zero_counts():
+        mac_ops.launches = ht_ops.launches = ht_ops.commit_launches = 0
+        mv_ops.launches = 0
+
     dims = types.PAPER_DIMS
     nb, slots = 1 << 20, 8
     T = lambda a: u32.from_numpy(np.asarray(a), dev)
@@ -146,11 +190,14 @@ def main() -> int:
     log(f"[build] {time.perf_counter() - t0:.2f} s in {build.build_dir()}")
     for name in build.SOURCES:
         for line in build.build_log(name).splitlines():
-            if "Used" in line or "spill" in line:
+            if ("Used" in line or "spill" in line
+                    or "Compiling entry" in line):
                 log(f"[build] {name}: {line.strip()}")
+    phase_done("1 build", t0)
 
     # -- 2. kernels against their plain versions ----------------------------
-    errs = {"mac_many": 0, "lookup": 0, "validate": 0}
+    t0 = time.perf_counter()
+    errs = {"mac_many": 0, "lookup": 0, "commit": 0, "validate": 0}
 
     def check(name, got, want, what):
         e = max_abs_err(got, want)
@@ -226,6 +273,53 @@ def main() -> int:
         check("lookup", ht_ops.lookup(*table, qs),
               ht_ref.lookup_ref(*table, qs), what)
 
+    # K3: on copies of the full-size table, the kernel and the plain version
+    # apply the same writes; tables and flag must be bit-equal.
+    occ_idx = np.argwhere(occ)
+    three_free = np.argwhere((~occ).sum(axis=1) == 3)[:, 0]
+
+    def writes(k, seed, n_upd, p_inactive=0.03, p_empty=0.0):
+        g = np.random.default_rng(seed)
+        wk = g.integers(1, 1 << 32, (k, 2), dtype=np.uint32)
+        pick = occ_idx[g.choice(len(occ_idx), n_upd, replace=False)]
+        wk[:n_upd] = tkeys[tuple(pick.T)]
+        wk = wk[g.permutation(k)]
+        wk[g.random(k) < p_empty, 0] = 0
+        wv = g.integers(0, 1 << 32, (k, dims.vw), dtype=np.uint32)
+        return wk, wv, g.random(k) >= p_inactive
+
+    def in_bucket(wk, bkts):
+        wk[:, 0] = (wk[:, 0] & ~np.uint32(nb - 1)) | bkts.astype(np.uint32)
+        return wk
+
+    g = np.random.default_rng(7)
+    w_full = writes(64, 8, 16)
+    w_full[0][16:] = in_bucket(w_full[0][16:], g.choice(full, 48))
+    hot_pool = in_bucket(g.integers(1, 1 << 32, (6, 2), dtype=np.uint32),
+                         np.full(6, three_free[0]))
+    w_hot = writes(64, 9, 0, p_inactive=0.1)
+    w_hot[0][:] = hot_pool[g.integers(0, 6, 64)]
+    w_path = writes(200, 10, 100)  # updates and inserts, as on the path
+    commit_cases = (
+        ("200 writes as on the path", w_path, None),
+        ("64 writes into full buckets", w_full, True),
+        ("64 writes of 6 keys into one bucket", w_hot, True),
+        ("200 writes, inactive and empty keys",
+         writes(200, 11, 80, p_inactive=0.3, p_empty=0.2), None),
+        ("K = 2048", writes(2048, 12, 1024), None),
+    )
+    for what, (wk, wv, act), want_ovf in commit_cases:
+        ins = (T(wk), T(wv), torch.from_numpy(act).to(dev))
+        kern = [t.clone() for t in table]
+        plain = [t.clone() for t in table]
+        ovf = ht_ops.commit(*kern, *ins)
+        check("commit", kern + [ovf],
+              plain + [ht_ref.commit_ref(*plain, *ins)], what)
+        log(f"[check] commit {what}: overflow {bool(ovf)}")
+        if want_ovf is not None and bool(ovf) != want_ovf:
+            raise AssertionError(f"commit {what}: overflow {bool(ovf)}")
+        del kern, plain
+
     # K4: a main-path block with conflicts and stale reads, and the extremes
     # (1 and 1024 txs, empty keys, a tx writing one key twice).
     def mvcc_inputs(b, seed, conflict_rate):
@@ -258,8 +352,10 @@ def main() -> int:
     else:
         raise AssertionError("validate took a block of 1025 transactions")
     torch.cuda.synchronize()
+    phase_done("2 kernels vs plain", t0)
 
     # -- 3. timing at the main path's shapes -------------------------------
+    t0 = time.perf_counter()
     ne, w = r3.shape[0], msg_block.shape[1]
     q = q200.shape[0]
     qn = q200[:, 0] != 0
@@ -268,6 +364,12 @@ def main() -> int:
     nw = mv_block[2].shape[1]
     valid = mv_ops.validate(*mv_block)
     valid_before = torch.cumsum(valid.long(), 0) - valid.long()
+    wk_path, wv_path, act_path = w_path
+    ins_path = (T(wk_path), T(wv_path), torch.from_numpy(act_path).to(dev))
+    applied = act_path & (wk_path[:, 0] != 0)
+    n_applied = int(applied.sum())
+    chain = int(np.bincount(wk_path[applied, 0] & (nb - 1)).max())
+    t_commit = [t.clone() for t in table]  # written by every timed call
     timing = {
         "mac_many": dict(
             name="sig_mac.mac_many", kernel="mac_kernel",
@@ -290,6 +392,17 @@ def main() -> int:
                 + q * (1 + 4 + 4 * dims.vw + 4),
                 2 * slots * int(qn.sum())),
             shape="200 queries on a 2^20 x 8 table"),
+        "commit": dict(
+            name="hash_table.commit", kernel="commit_kernel",
+            source="src/repro_torch/kernels/csrc/hash_table.cu",
+            replaces="src/repro/kernels/hash_table/kernel.py:167",
+            fn=lambda: ht_ops.commit(*t_commit, *ins_path),
+            plain=lambda: ht_ref.commit_ref(*t_commit, *ins_path),
+            bound=bound_ms(
+                wk_path.size * 4 + wv_path.size * 4 + act_path.size + 4
+                + n_applied * (8 * slots + 8 + 4 + 4 * dims.vw),
+                2 * slots * n_applied),
+            shape="200 writes into a 2^20 x 8 table"),
         "validate": dict(
             name="mvcc_validate.validate", kernel="mvcc_kernel",
             source="src/repro_torch/kernels/csrc/mvcc_validate.cu",
@@ -302,7 +415,8 @@ def main() -> int:
     }
     for key, t in timing.items():
         t["ms"] = event_ms(t["fn"], 500)
-        t["plain_ms"] = event_ms(t["plain"], 20, warmup=3)
+        t["plain_ms"] = (event_ms(t["plain"], 5, warmup=1) if key == "commit"
+                         else event_ms(t["plain"], 20, warmup=3))
         t["device_ms"] = device_ms(t["fn"], t["kernel"])
         log(f"[time] {t['name']} ({t['shape']}): {t['ms']:.5f} ms per call, "
             f"device {t['device_ms']} ms, plain {t['plain_ms']:.4f} ms, "
@@ -312,6 +426,11 @@ def main() -> int:
     mv_dev = timing["validate"]["device_ms"]
     log(f"[time] mvcc_validate.validate: {b} dependent scan steps, "
         f"{mv_dev / b * 1e3 if mv_dev else None} us of device time each")
+    # K3's same-bucket writes are a dependent chain on one thread.
+    log(f"[time] hash_table.commit: {n_applied} applied writes, longest "
+        f"same-bucket chain {chain}; bound "
+        f"{timing['commit']['bound'][0]:.7f} ms")
+    del t_commit
     # hash_words is plain PyTorch, one small launch per word: time one
     # block's digests as the commit path computes them.
     wire_b = unmarshal.marshal(block, dims)
@@ -329,12 +448,12 @@ def main() -> int:
     digest_block_ms = event_ms(digests, 3, warmup=1)
     log(f"[time] one block's checksum + body/journal digests "
         f"(plain hash_words): {digest_block_ms:.2f} ms")
+    phase_done("3 kernel timing", t0)
 
     # -- 4. the engine on the card ------------------------------------------
+    t0 = time.perf_counter()
     cfg = engine.EngineConfig(dims=dims, n_buckets=nb, slots=slots)
-    counters = {"mac_many": mac_ops, "lookup": ht_ops, "validate": mv_ops}
-    for mod in counters.values():
-        mod.launches = 0
+    zero_counts()
     eng = engine.FabricEngine(cfg)
     stats = [eng.run_round(eng.make_proposals(ROUND_TXS, seed=s,
                                               n_accounts=N_ACCOUNTS))
@@ -342,7 +461,8 @@ def main() -> int:
     t0 = time.perf_counter()
     verdict = eng.verify()
     verify_s = time.perf_counter() - t0
-    launches = {k: mod.launches for k, mod in counters.items()}
+    launches = counts()
+    path_launches = {"fastfabric": launches}
     for s, st in zip(SEEDS, stats):
         log(f"[engine] round seed {s}: {st.n_txs} txs, {st.n_valid} valid, "
             f"{st.tps:.1f} tx/s, wall {st.wall_s:.4f} s = order "
@@ -365,7 +485,7 @@ def main() -> int:
     log(f"[engine] verify {verdict} in {verify_s:.2f} s; launches {launches}")
     if not all(verdict.values()):
         raise AssertionError(f"verify() failed on the card: {verdict}")
-    if not all(launches.values()):
+    if not all(v for k, v in launches.items() if k != "commit"):
         raise AssertionError(f"a kernel never ran on the main path: "
                              f"{launches}")
     if any(st.n_valid != st.n_txs for st in stats):
@@ -373,18 +493,40 @@ def main() -> int:
 
     def results(e):
         e.store.drain()
+        ps = e.peer_state
+        peer = ([u32.to_numpy(ws.state_digest(ps.hash_state))]
+                if ps.sorted_state is None else
+                [u32.to_numpy(t) for t in ps.sorted_state])
         return {
             "chain": [(sb.block_no, sb.prev_hash, sb.block_hash, sb.valid)
                       for sb in e.store.chain],
             "log_head": u32.to_numpy(e.log_head),
-            "journal_head": u32.to_numpy(e.peer_state.journal_head),
-            "peer": u32.to_numpy(ws.state_digest(e.peer_state.hash_state)),
+            "journal_head": u32.to_numpy(ps.journal_head),
+            "peer": peer,
             "replica": u32.to_numpy(ws.state_digest(e.endorser_state)),
         }
+
+    def same_results(a, c, what):
+        if len(a["chain"]) != len(c["chain"]):
+            raise AssertionError(f"{what}: chains differ in length")
+        for x, y in zip(a["chain"], c["chain"]):
+            if x[0] != y[0] or not all(np.array_equal(u, v)
+                                       for u, v in zip(x[1:], y[1:])):
+                raise AssertionError(f"{what}: block {x[0]} differs between "
+                                     f"card and CPU")
+        for k in ("log_head", "journal_head", "replica"):
+            if not np.array_equal(a[k], c[k]):
+                raise AssertionError(f"{what}: {k} differs between card and "
+                                     f"CPU")
+        if len(a["peer"]) != len(c["peer"]) or not all(
+                np.array_equal(u, v) for u, v in zip(a["peer"], c["peer"])):
+            raise AssertionError(f"{what}: peer state differs between card "
+                                 f"and CPU")
 
     on_card = results(eng)
     eng.store.close()
     del eng
+    phase_done("4 engine on the card", t0)
 
     # -- 5. the same rounds on the CPU, plain versions -----------------------
     t0 = time.perf_counter()
@@ -396,15 +538,7 @@ def main() -> int:
     eng_cpu.store.close()
     del eng_cpu
     cpu_s = time.perf_counter() - t0
-    if len(on_card["chain"]) != len(on_cpu["chain"]):
-        raise AssertionError("chains differ in length")
-    for a, c in zip(on_card["chain"], on_cpu["chain"]):
-        if a[0] != c[0] or not all(np.array_equal(x, y)
-                                   for x, y in zip(a[1:], c[1:])):
-            raise AssertionError(f"block {a[0]} differs between card and CPU")
-    for k in ("log_head", "journal_head", "peer", "replica"):
-        if not np.array_equal(on_card[k], on_cpu[k]):
-            raise AssertionError(f"{k} differs between card and CPU")
+    same_results(on_card, on_cpu, "fastfabric")
     if cpu_verdict != verdict:
         raise AssertionError(f"CPU verify {cpu_verdict} != {verdict}")
     summary["cpu_tps"] = (sum(st.n_txs for st in cpu_stats[1:])
@@ -413,13 +547,16 @@ def main() -> int:
         f"(chain, log head {on_card['log_head']}, journal head "
         f"{on_card['journal_head']}, digests {on_card['peer']}); "
         f"{cpu_s:.1f} s, {summary['cpu_tps']:.1f} tx/s (CPU, plain versions)")
+    phase_done("5 same rounds on the CPU", t0)
 
     # -- 6. one profiled round on the card: device busy share ----------------
+    t0 = time.perf_counter()
     from torch.profiler import ProfilerActivity, profile
     eng_p = engine.FabricEngine(cfg)
-    eng_p.run_round(eng_p.make_proposals(ROUND_TXS, seed=0,
+    eng_p.run_round(eng_p.make_proposals(PROFILED_TXS, seed=0,
                                          n_accounts=N_ACCOUNTS))
-    props = eng_p.make_proposals(ROUND_TXS, seed=1, n_accounts=N_ACCOUNTS)
+    props = eng_p.make_proposals(PROFILED_TXS, seed=1,
+                                 n_accounts=N_ACCOUNTS)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         st = eng_p.run_round(props)
@@ -428,8 +565,10 @@ def main() -> int:
     busy_us = sum(ev.self_device_time_total for ev in dev_events)
     n_kernels = sum(ev.count for ev in dev_events)
     round_s = st.wall_s + st.replay_s
-    # the same span (order + commit + replay) of an unprofiled timed round
-    plain_round_s = sum(s.wall_s + s.replay_s for s in timed) / len(timed)
+    # the same span (order + commit + replay) of the unprofiled timed
+    # round, scaled to the profiled round's size
+    plain_round_s = (sum(s.wall_s + s.replay_s for s in timed) / len(timed)
+                     * PROFILED_TXS / ROUND_TXS)
     summary["profiled_round"] = {
         "wall_s": round_s, "unprofiled_wall_s": plain_round_s,
         "device_busy_s": busy_us / 1e6,
@@ -442,15 +581,91 @@ def main() -> int:
     for ev in top:
         log(f"[profile]   {ev.self_device_time_total / 1e3:9.2f} ms "
             f"{ev.count:7d}x {ev.key[:90]}")
+    del eng_p
+    phase_done("6 profiled round", t0)
+
+    # -- 7. the peer ladder on the card, then on the CPU ---------------------
+    ladder = {}
+    for name, peer in (("fabric-1.2", committer.FABRIC_V12_PEER),
+                       ("P-I", committer.OPT_P1),
+                       ("P-I+II", committer.OPT_P2)):
+        t0 = time.perf_counter()
+        lcfg = dataclasses.replace(engine.FABRIC_V12, dims=dims, peer=peer,
+                                   n_buckets=nb, slots=slots)
+
+        def rounds(e):
+            bs = lcfg.orderer.block_size
+            return [
+                e.run_round(e.make_proposals(bs, seed=0,
+                                             n_accounts=N_ACCOUNTS)),
+                e.run_round(e.make_proposals(ROUND_TXS, seed=1,
+                                             n_accounts=N_ACCOUNTS)),
+                e.run_round(conflicting_proposals(ROUND_TXS, 3, e.device)),
+            ]
+
+        torch.cuda.empty_cache()
+        zero_counts()
+        e = engine.FabricEngine(lcfg)
+        st = rounds(e)
+        lverdict = e.verify()
+        got = counts()
+        path_launches[name] = got
+        card_res = results(e)
+        e.store.close()
+        del e
+        card_s = time.perf_counter() - t0
+        need = {"mac_many", "lookup", "validate"} | (
+            {"commit"} if peer.hash_state else set())
+        if not all(got[k] for k in need):
+            raise AssertionError(f"{name}: a kernel of the path never ran: "
+                                 f"{got}")
+        if not all(lverdict.values()):
+            raise AssertionError(f"{name}: verify() failed on the card: "
+                                 f"{lverdict}")
+        if st[1].n_valid != st[1].n_txs or not 0 < st[2].n_valid < ROUND_TXS:
+            raise AssertionError(f"{name}: valid counts "
+                                 f"{[s.n_valid for s in st]}")
+        t1 = time.perf_counter()
+        e_cpu = engine.FabricEngine(lcfg, device="cpu")
+        cst = rounds(e_cpu)
+        if e_cpu.verify() != lverdict:
+            raise AssertionError(f"{name}: CPU verify() differs")
+        same_results(card_res, results(e_cpu), name)
+        e_cpu.store.close()
+        del e_cpu
+        cpu_s = time.perf_counter() - t1
+        if [s.n_valid for s in cst] != [s.n_valid for s in st]:
+            raise AssertionError(f"{name}: valid counts differ on the CPU")
+        ladder[name] = {
+            "timed_tps": st[1].tps, "conflicting_tps": st[2].tps,
+            "peer_tps": st[1].n_txs / st[1].commit_s,
+            "rounds": [s._asdict() for s in st],
+            "cpu_timed_tps": cst[1].tps,
+            "launches": got, "verify": lverdict,
+            "card_s": card_s, "cpu_s": cpu_s,
+        }
+        for label, s in zip(("warm-up", "timed", "conflicting"), st):
+            log(f"[ladder] {name} {label}: {s.n_txs} txs, {s.n_valid} valid, "
+                f"{s.tps:.2f} tx/s, order {s.order_s:.4f} s, commit "
+                f"{s.commit_s:.4f} s, replay {s.replay_s:.4f} s")
+        log(f"[ladder] {name}: peer {ladder[name]['peer_tps']:.1f} tx/s "
+            f"(timed round, commit only); launches {got}; verify all True; "
+            f"CPU identical ({cst[1].tps:.2f} tx/s timed, {cpu_s:.1f} s)")
+        phase_done(f"7 ladder {name}", t0)
 
     kernels = [{
         "name": t["name"], "route": "cuda", "source": t["source"],
-        "replaces": t["replaces"], "launches": launches[key],
+        "replaces": t["replaces"],
+        "launches": sum(c[key] for c in path_launches.values()),
+        "launches_by_path": {p: c[key] for p, c in path_launches.items()},
         "max_abs_err": errs[key], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
         "library_ms": None, "device_ms": t["device_ms"],
     } for key, t in timing.items()]
     log(json.dumps({"engine": summary}, default=str))
+    log(json.dumps({"ladder": ladder}, default=str))
+    log(json.dumps({"phase_s": phase_s,
+                    "total_s": time.perf_counter() - t_start}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -30,6 +30,9 @@ class EngineState(NamedTuple):
     next_block_no: int  # the engine's next block number
     overflow: bool  # sticky bucket overflow
     chain: tuple = ()  # stored blocks: (block_no, prev, hash, wire, valid)
+    # The sorted store of a peer without P-I: (key_hi (N,), key_lo (N,),
+    # versions (N,), values (N,VW), count int, wal_head (2,)); else None.
+    sorted: tuple | None = None
 
 
 def hash_state(keys, versions, values, device) -> ws.HashState:
@@ -37,12 +40,30 @@ def hash_state(keys, versions, values, device) -> ws.HashState:
                           for a in (keys, versions, values)))
 
 
+def sorted_state(key_hi, key_lo, versions, values, count, wal_head, device
+                 ) -> ws.SortedState:
+    word = lambda a: u32.from_numpy(np.asarray(a, np.uint32), device)
+    return ws.SortedState(
+        word(key_hi), word(key_lo), word(versions), word(values),
+        torch.tensor(int(count), dtype=torch.int32, device=device),
+        word(wal_head))
+
+
 def load_engine(eng: engine.FabricEngine, st: EngineState) -> None:
-    """Replace ``eng``'s state with ``st``, on ``eng.device``."""
+    """Replace ``eng``'s state with ``st``, on ``eng.device``. An engine
+    whose peer has no hash table (P-I off) needs ``st.sorted``; other
+    engines ignore it."""
     dev = eng.device
     word = lambda a: u32.from_numpy(np.asarray(a, np.uint32), dev)
+    sstate = None
+    if not eng.cfg.peer.hash_state:
+        if st.sorted is None:
+            raise ValueError("the engine's peer keeps the sorted store; "
+                             "EngineState.sorted is None")
+        sstate = sorted_state(*st.sorted, dev)
     eng.peer_state = committer.PeerState(
         hash_state=hash_state(*st.peer, dev),
+        sorted_state=sstate,
         ledger_head=word(st.ledger_head),
         block_no=word(np.uint32(st.block_no)).reshape(()),
         journal_head=word(st.journal_head),
@@ -64,6 +85,9 @@ def export_engine(eng: engine.FabricEngine) -> EngineState:
     """``eng``'s state as numpy."""
     ps = eng.peer_state
     arrays = lambda h: tuple(u32.to_numpy(t) for t in h)
+    srt = ps.sorted_state
+    if srt is not None:
+        srt = (*arrays(srt[:4]), int(srt.count), u32.to_numpy(srt.wal_head))
     chain = ()
     if eng.store is not None:
         eng.store.drain()
@@ -78,4 +102,5 @@ def export_engine(eng: engine.FabricEngine) -> EngineState:
         next_block_no=eng.next_block_no,
         overflow=eng.overflowed(),
         chain=chain,
+        sorted=srt,
     )

@@ -1,12 +1,19 @@
 """Committer peer: the validation/commit pipeline, Opt P-I..P-III (port of
-repro.core.committer, the fused P-III path).
+repro.core.committer).
 
-Per block: decode once, verify the endorsement MACs (sig_mac kernel), look
-up the read set (hash-table kernel), run MVCC (mvcc_validate kernel), commit
-the valid writes to the hash table, and advance the ledger and journal
-heads. The staged baseline (``stage_*``), the sorted store, tiled/serial
-endorsement checks and the sequential commit belong to the next slice of the
-port; their configurations raise ``NotImplementedError`` here.
+Per block: syntactic check (payload checksum), endorsement MACs (sig_mac
+kernel), read-set lookup (hash-table kernel, or a bisection of the sorted
+store), MVCC (mvcc_validate kernel), commit of the valid writes (the
+vectorized commit, the sequential commit kernel, or the sorted store's
+merge), and the ledger and journal heads.
+
+* P-III (``cache=True``, :func:`commit_block_fused`) decodes the block once
+  and the stages share the decoded block.
+* The baseline (``cache=False``) runs the stages as separate functions,
+  :func:`stage_syntax`, :func:`stage_endorse` and :func:`stage_mvcc_commit`,
+  each decoding the wire again, as Fabric 1.2's modules exchange protobuf.
+* Without P-II (``parallel=False``) the endorsements are checked one
+  transaction at a time; ``tx_par > 0`` checks tiles of that many.
 """
 
 from __future__ import annotations
@@ -20,9 +27,6 @@ from repro_torch import resolve_device
 from repro_torch.core import crypto, ledger, mvcc, types, u32, unmarshal
 from repro_torch.core import world_state as ws
 from repro_torch.storage import journal as state_journal
-
-_NEXT_SLICE = "the baseline-ladder slice of the port (FABRIC_V12/OPT_P1/OPT_P2)"
-
 
 @dataclasses.dataclass(frozen=True)
 class PeerConfig:
@@ -55,42 +59,33 @@ OPT_P3 = dataclasses.replace(OPT_P2, cache=True, sequential_commit=False)
 FASTFABRIC_PEER = OPT_P3
 
 
-def check_supported(cfg: PeerConfig) -> None:
-    """Raise ``NotImplementedError`` for a configuration this slice of the
-    port does not run."""
-    missing = [what for what, off in (
-        ("cache=False (the staged stage_* committer)", not cfg.cache),
-        ("hash_state=False (the sorted store)", not cfg.hash_state),
-        ("sequential_commit=True (commit_sequential and its kernel)",
-         cfg.sequential_commit),
-        ("parallel=False or tx_par>0 (serial or tiled endorsement checks)",
-         not cfg.parallel or cfg.tx_par > 0),
-    ) if off]
-    if missing:
-        raise NotImplementedError(
-            f"PeerConfig {cfg.name}: {'; '.join(missing)} belongs to "
-            f"{_NEXT_SLICE}")
-
-
 class PeerState(NamedTuple):
     """World state + authentication heads, threaded through block commits.
-    The hash table is updated in place; the heads are new tensors per block.
+    The hash table is updated in place; the sorted store and the heads are
+    new tensors per block. ``sorted_state`` exists only for a peer without
+    P-I (``hash_state=False``); its hash table then stays empty.
     """
 
     hash_state: ws.HashState
+    sorted_state: ws.SortedState | None
     ledger_head: torch.Tensor  # (2,) u32
     block_no: torch.Tensor  # () u32
     journal_head: torch.Tensor  # (2,) u32
 
 
 def create_peer_state(dims: types.FabricDims, *, n_buckets: int = 1 << 12,
-                      slots: int = 8, device=None) -> PeerState:
+                      slots: int = 8, hash_state: bool = True, device=None
+                      ) -> PeerState:
     """Fresh peer state on ``device`` (default: the card; raises without
-    one unless ``device='cpu'``)."""
+    one unless ``device='cpu'``). ``hash_state=False`` adds the sorted
+    store, of capacity ``n_buckets * slots``."""
     dev = resolve_device(device)
     z = lambda *shape: torch.zeros(shape, dtype=u32.WORD, device=dev)
+    sorted_state = (None if hash_state else
+                    ws.sorted_create(n_buckets * slots, dims.vw, dev))
     return PeerState(hash_state=ws.create(n_buckets, slots, dims.vw, dev),
-                     ledger_head=z(2), block_no=z(), journal_head=z(2))
+                     sorted_state=sorted_state, ledger_head=z(2),
+                     block_no=z(), journal_head=z(2))
 
 
 class BlockResult(NamedTuple):
@@ -102,10 +97,17 @@ class BlockResult(NamedTuple):
 
 def _verify_endorsements(txb: types.TxBatch, parallel: bool, tx_par: int
                          ) -> torch.Tensor:
+    """(B,) bool: every endorsement tag verifies. The whole block in one
+    MAC launch (P-II), tiles of ``tx_par`` transactions, or one transaction
+    at a time: without P-II that is B launches of the MAC kernel a block,
+    the baseline's serial validation on the card. All three give the same
+    bits."""
     if parallel and tx_par <= 0:
         return crypto.verify_tags(txb)
-    raise NotImplementedError(
-        f"serial or tiled endorsement checks belong to {_NEXT_SLICE}")
+    step = tx_par if parallel else 1
+    return torch.cat([
+        crypto.verify_tags(types.TxBatch(*(f[i:i + step] for f in txb)))
+        for i in range(0, txb.batch, step)])
 
 
 def _advance_journal_head(state: PeerState, txb: types.TxBatch, valid,
@@ -118,32 +120,81 @@ def _advance_journal_head(state: PeerState, txb: types.TxBatch, valid,
         state_journal.write_set_digest(txb.write_keys, txb.write_vals, valid))
 
 
+def _mvcc_commit(state: PeerState, wire, txb: types.TxBatch, checksum_ok,
+                 endorse_ok, hash_state: bool, sequential_commit: bool,
+                 journal: bool):
+    """MVCC validation + state commit + ledger append on a decoded block.
+    Returns (new state, valid, block hash, overflow)."""
+    flat_reads = txb.read_keys.reshape(-1, 2)
+    if hash_state:
+        cur = ws.lookup(state.hash_state, flat_reads).versions
+    else:
+        cur = ws.sorted_lookup(state.sorted_state, flat_reads).versions
+    res = mvcc.validate(txb, cur.reshape(txb.batch, -1),
+                        checksum_ok=checksum_ok, endorse_ok=endorse_ok)
+    sstate = state.sorted_state
+    if hash_state:
+        overflow = ws.commit(state.hash_state, txb.write_keys,
+                             txb.write_vals, res.valid,
+                             sequential=sequential_commit).overflow
+    else:
+        sstate = ws.sorted_commit(sstate, txb.write_keys, txb.write_vals,
+                                  res.valid)
+        overflow = torch.zeros((), dtype=torch.bool, device=wire.device)
+    digest = ledger.block_body_digest(wire, res.valid)
+    bh = ledger.append_hash(state.ledger_head, state.block_no, digest)
+    jh = _advance_journal_head(state, txb, res.valid, journal)
+    new_state = state._replace(sorted_state=sstate, ledger_head=bh,
+                               block_no=u32.add(state.block_no, 1),
+                               journal_head=jh)
+    return new_state, res.valid, bh, overflow
+
+
+def stage_syntax(wire: torch.Tensor, dims: types.FabricDims) -> torch.Tensor:
+    """Stage 1: syntactic verification (decodes the block). (B,) bool."""
+    return unmarshal.unmarshal(wire, dims).checksum_ok
+
+
+def stage_endorse(wire: torch.Tensor, dims: types.FabricDims, parallel: bool,
+                  tx_par: int) -> torch.Tensor:
+    """Stage 2: endorsement policy validation (decodes again). (B,) bool."""
+    return _verify_endorsements(unmarshal.unmarshal(wire, dims).txb,
+                                parallel, tx_par)
+
+
+def stage_mvcc_commit(state: PeerState, wire: torch.Tensor, checksum_ok,
+                      endorse_ok, dims: types.FabricDims, hash_state: bool,
+                      sequential_commit: bool, journal: bool):
+    """Stages 3+4: MVCC validation + state commit + ledger append, on a
+    third decode of the block. Returns (new state, valid, block hash,
+    overflow)."""
+    txb = unmarshal.unmarshal(wire, dims).txb
+    return _mvcc_commit(state, wire, txb, checksum_ok, endorse_ok,
+                        hash_state, sequential_commit, journal)
+
+
 def commit_block_fused(state: PeerState, wire: torch.Tensor,
                        dims: types.FabricDims, cfg: PeerConfig):
     """P-III path: one decode; the stages share the decoded block.
     Returns (new state, valid, block hash, overflow)."""
     dec = unmarshal.unmarshal(wire, dims)
-    txb = dec.txb
-    endorse_ok = _verify_endorsements(txb, cfg.parallel, cfg.tx_par)
-    cur = ws.lookup(state.hash_state, txb.read_keys.reshape(-1, 2)
-                    ).versions.reshape(txb.batch, -1)
-    res = mvcc.validate(txb, cur, checksum_ok=dec.checksum_ok,
-                        endorse_ok=endorse_ok)
-    cres = ws.commit(state.hash_state, txb.write_keys, txb.write_vals,
-                     res.valid, sequential=cfg.sequential_commit)
-    digest = ledger.block_body_digest(wire, res.valid)
-    bh = ledger.append_hash(state.ledger_head, state.block_no, digest)
-    jh = _advance_journal_head(state, txb, res.valid, cfg.journal)
-    new_state = PeerState(hash_state=cres.state, ledger_head=bh,
-                          block_no=u32.add(state.block_no, 1),
-                          journal_head=jh)
-    return new_state, res.valid, bh, cres.overflow
+    endorse_ok = _verify_endorsements(dec.txb, cfg.parallel, cfg.tx_par)
+    return _mvcc_commit(state, wire, dec.txb, dec.checksum_ok, endorse_ok,
+                        cfg.hash_state, cfg.sequential_commit, cfg.journal)
 
 
 def commit_block(state: PeerState, wire: torch.Tensor,
                  dims: types.FabricDims, cfg: PeerConfig) -> BlockResult:
-    """Run one block through the validation pipeline under ``cfg``."""
-    check_supported(cfg)
-    new_state, valid, bh, ovf = commit_block_fused(state, wire, dims, cfg)
+    """Run one block through the validation pipeline under ``cfg``: the
+    fused single-decode path under P-III, else the three stages, each
+    decoding the wire again."""
+    if cfg.cache:
+        new_state, valid, bh, ovf = commit_block_fused(state, wire, dims, cfg)
+    else:
+        checksum_ok = stage_syntax(wire, dims)
+        endorse_ok = stage_endorse(wire, dims, cfg.parallel, cfg.tx_par)
+        new_state, valid, bh, ovf = stage_mvcc_commit(
+            state, wire, checksum_ok, endorse_ok, dims, cfg.hash_state,
+            cfg.sequential_commit, cfg.journal)
     return BlockResult(state=new_state, valid=valid, block_hash=bh,
                        overflow=ovf)

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import hashing, types, u32
 from repro_torch.kernels.sig_mac import ops as mac_ops
 from repro_torch.kernels.sig_mac.ref import P31, addmod31, mod31, mulmod31
@@ -21,8 +22,10 @@ __all__ = ["P31", "mod31", "addmod31", "mulmod31", "endorser_keys",
 
 
 def endorser_keys(n_endorsers: int, device=None):
-    """(r, s) MAC keys of each endorser: two (NE,) u32 tensors in [1, p)."""
-    e = torch.arange(n_endorsers, dtype=u32.WORD, device=device)
+    """(r, s) MAC keys of each endorser: two (NE,) u32 tensors in [1, p),
+    on ``device`` (default: the card)."""
+    e = torch.arange(n_endorsers, dtype=u32.WORD,
+                     device=resolve_device(device))
     r = mod31(hashing.hash_u32(e, seed=0x1234ABCD))
     s = mod31(hashing.hash_u32(e, seed=0xFEED5EED))
     return r.clamp_min(1), s.clamp_min(1)

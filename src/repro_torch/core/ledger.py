@@ -17,6 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import hashing, types, u32, unmarshal, world_state
 
 
@@ -130,8 +131,9 @@ class BlockStore:
 
     def replay_state(self, dims: types.FabricDims, n_buckets: int,
                      slots: int, device=None) -> world_state.HashState:
-        """Rebuild the world state on ``device`` from the chain (crash
-        recovery for P-I)."""
+        """Rebuild the world state on ``device`` (default: the card) from
+        the chain (crash recovery for P-I)."""
+        device = resolve_device(device)
         st = world_state.create(n_buckets, slots, dims.vw, device=device)
         for sb in self.chain:
             dec = unmarshal.unmarshal(torch.from_numpy(sb.wire).to(device),

@@ -77,11 +77,9 @@ def _log_chain(head: torch.Tensor, words: torch.Tensor, *, serial: bool
     folded into the head in one sequential pass (a single leader append).
     """
     if serial:
+        # Both lanes of the head in one chain: row i, seeded by head[i].
         for row in words:
-            head = torch.stack([
-                hashing.hash_words(row[None, :], seed=head[0])[0],
-                hashing.hash_words(row[None, :], seed=head[1])[0],
-            ])
+            head = hashing.hash_words(row.expand(2, -1), seed=head)
         return head
     for d in hashing.hash_words(words, seed=hashing.SEED_A):
         head = hashing.combine(head, d)

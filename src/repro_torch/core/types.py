@@ -14,6 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import hashing, u32
 
 
@@ -111,9 +112,12 @@ def make_transfer_batch(
     ``conflict_rate=0`` gives disjoint account pairs; otherwise the first
     ``batch * conflict_rate`` transactions share one hot account.
     ``versions``: optional (B, RK) expected versions (default zeros).
+    ``device``: default the card; without one this raises unless
+    ``device='cpu'``.
     """
     if dims.rk < 2 or dims.wk < 2:
         raise ValueError("transfer workload needs rk>=2 and wk>=2")
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     if conflict_rate > 0.0:
         src = rng.integers(0, n_accounts, size=batch, dtype=np.uint32)

@@ -1,14 +1,18 @@
-"""World state: the FastFabric in-memory hash table, Opt P-I (port of the
-hash-table half of repro.core.world_state).
+"""World state (port of repro.core.world_state): the FastFabric in-memory
+hash table (Opt P-I) and the LevelDB-like sorted store of the Fabric 1.2
+baseline.
 
-Keys are paired u32 hashes; (0, *) marks an empty slot. Versions: 0 means
-absent, a first commit writes version 1. Probes go through the hash-table
-kernel (kernels/hash_table).
-
+Hash table: keys are paired u32 hashes; (0, *) marks an empty slot.
+Versions: 0 means absent, a first commit writes version 1. Probes and the
+sequential commit go through the hash-table kernels (kernels/hash_table).
 Unlike the JAX package, whose commits return new arrays (and donate the
-old), :func:`commit_vectorized` updates the table's tensors IN PLACE and
-returns the same :class:`HashState`: a 2^20-bucket table is 224 MiB, and a
-copy per block would move more bytes than the block does.
+old), :func:`commit_vectorized` and :func:`commit_sequential` update the
+table's tensors IN PLACE and return the same :class:`HashState`: a
+2^20-bucket table is 224 MiB, and a copy per block would move more bytes
+than the block does.
+
+Sorted store: a sorted run searched by bisection; each commit merges the
+block's writes and re-sorts the whole run (:func:`sorted_commit`).
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import hashing, u32
 from repro_torch.kernels.hash_table import ops as ht_ops
 
@@ -44,10 +49,12 @@ class HashState(NamedTuple):
 
 def create(n_buckets: int, slots: int, value_width: int, device=None
            ) -> HashState:
-    """Empty table on ``device``."""
+    """Empty table on ``device`` (default: the card; raises without one
+    unless ``device='cpu'``)."""
     if n_buckets & (n_buckets - 1):
         raise ValueError("n_buckets must be a power of two")
-    z = lambda *shape: torch.zeros(shape, dtype=u32.WORD, device=device)
+    dev = resolve_device(device)
+    z = lambda *shape: torch.zeros(shape, dtype=u32.WORD, device=dev)
     return HashState(keys=z(n_buckets, slots, 2),
                      versions=z(n_buckets, slots),
                      values=z(n_buckets, slots, value_width))
@@ -141,13 +148,23 @@ def commit_vectorized(state: HashState, write_keys, write_vals, active
     return CommitResult(state, overflow)
 
 
+def commit_sequential(state: HashState, write_keys, write_vals, active
+                      ) -> CommitResult:
+    """Paper-faithful sequential insert-or-update, one write at a time in
+    flat order, through the hash-table commit kernel, in place: a matched
+    key gets version + 1, a new key the first empty slot of its bucket and
+    version 1, and a write that finds neither is dropped and reported as
+    ``overflow``. Duplicate keys apply in turn (no first-wins dedup)."""
+    fk, fv, act = _flatten_writes(write_keys, write_vals, active)
+    overflow = ht_ops.commit(state.keys, state.versions, state.values,
+                             fk.contiguous(), fv.contiguous(), act)
+    return CommitResult(state, overflow)
+
+
 def commit(state, write_keys, write_vals, active, *, sequential=False
            ) -> CommitResult:
-    if sequential:
-        raise NotImplementedError(
-            "commit_sequential (and its kernel, hash_table.commit) belongs "
-            "to the baseline-ladder slice of the port (OPT_P1/OPT_P2)")
-    return commit_vectorized(state, write_keys, write_vals, active)
+    fn = commit_sequential if sequential else commit_vectorized
+    return fn(state, write_keys, write_vals, active)
 
 
 def occupancy(state: HashState) -> torch.Tensor:
@@ -176,3 +193,110 @@ def state_digest(state: HashState) -> torch.Tensor:
         _xor_fold(torch.where(occ, hashing.hash_words(entry, seed=seed), 0))
         for seed in (hashing.SEED_A, hashing.SEED_B)
     ])
+
+
+# -- LevelDB-like sorted store: the Fabric 1.2 baseline state database ------
+
+_DEAD = u32.s32(0xFFFFFFFF)  # key word of a dead entry; dead entries sort last
+
+
+class SortedState(NamedTuple):
+    """Log-structured sorted store: entries lexsorted by the unsigned
+    (key_hi, key_lo) pair, ``count`` live ones first and dead ones (key
+    (DEAD, DEAD)) after them. Reads bisect; commits merge the write batch
+    into the run and chain its words into a write-ahead-log head."""
+
+    key_hi: torch.Tensor  # (N,) u32
+    key_lo: torch.Tensor  # (N,) u32
+    versions: torch.Tensor  # (N,) u32
+    values: torch.Tensor  # (N, VW) u32
+    count: torch.Tensor  # () int32, unclamped: inserts past N are cut
+    wal_head: torch.Tensor  # (2,) u32 write-ahead-log chain hash
+
+    @property
+    def capacity(self) -> int:
+        return self.key_hi.shape[0]
+
+
+def sorted_create(capacity: int, value_width: int, device=None
+                  ) -> SortedState:
+    """Empty store on ``device`` (default: the card)."""
+    dev = resolve_device(device)
+    return SortedState(
+        key_hi=u32.full((capacity,), _DEAD, dev),
+        key_lo=u32.full((capacity,), _DEAD, dev),
+        versions=torch.zeros((capacity,), dtype=u32.WORD, device=dev),
+        values=torch.zeros((capacity, value_width), dtype=u32.WORD,
+                           device=dev),
+        count=torch.zeros((), dtype=torch.int32, device=dev),
+        wal_head=torch.zeros((2,), dtype=u32.WORD, device=dev),
+    )
+
+
+def sorted_lookup(state: SortedState, keys: torch.Tensor) -> Lookup:
+    """Exact search for (B, 2) paired keys; ``slots`` is the clamped left
+    insertion point, the entry a hit reads. A key whose first word is empty
+    or DEAD never matches."""
+    pos = hashing.lex_searchsorted(state.key_hi, state.key_lo, keys[:, 0],
+                                   keys[:, 1])
+    idx = pos.clamp(0, state.capacity - 1).long()
+    hit = ((state.key_hi[idx] == keys[:, 0])
+           & (state.key_lo[idx] == keys[:, 1])
+           & (pos < state.capacity)
+           & (keys[:, 0] != _DEAD)
+           & (keys[:, 0] != hashing.EMPTY_KEY))
+    return Lookup(found=hit,
+                  versions=torch.where(hit, state.versions[idx], 0),
+                  values=torch.where(hit[:, None], state.values[idx], 0),
+                  slots=idx.to(torch.int32))
+
+
+def sorted_commit(state: SortedState, write_keys, write_vals, active
+                  ) -> SortedState:
+    """Merge the write batch into the sorted run + WAL chain hash; returns
+    a new store.
+
+    As in the reference, every write, active or not, writes its lookup slot:
+    the new version and value if it is an active update, else the slot's
+    pre-block contents. Where several writes share a slot the last one in
+    flat order decides (the reference's CPU scatter), so an inactive or
+    new-key write after an update at the same slot undoes that update.
+    """
+    fk, fv, act = _flatten_writes(write_keys, write_vals, active)
+    k = fk.shape[0]
+    dev = fk.device
+    earlier = earlier_mask(k, dev)
+    act = act & ~(same_key_matrix(fk) & earlier & act[None, :]).any(dim=1)
+
+    # WAL: both seeds' chains over the K x (2+VW) flat words in one pass.
+    wal = torch.cat([fk, fv], dim=1).reshape(1, -1).expand(2, -1)
+    wal_head = hashing.hash_words(wal, seed=state.wal_head)
+
+    look = sorted_lookup(state, fk)
+    is_update = look.found & act
+    is_new = act & ~look.found
+    slot = look.slots.long()
+    # Every write at a slot stores what the slot's last write decides, so
+    # the duplicate indices of the scatter below all carry one value.
+    same_slot = slot[None, :] == slot[:, None]
+    last = torch.where(same_slot, torch.arange(k, device=dev), -1).amax(dim=1)
+    upd = is_update[last]
+    old_vers = state.versions[slot]
+    upd_vers = torch.where(upd, u32.add(old_vers, 1), old_vers)
+    upd_vals = torch.where(upd[:, None], fv[last], state.values[slot])
+
+    # Inserts: append the new keys, then a stable re-sort of the whole run
+    # (compaction), cut to capacity.
+    all_hi = torch.cat([state.key_hi, torch.where(is_new, fk[:, 0], _DEAD)])
+    all_lo = torch.cat([state.key_lo, torch.where(is_new, fk[:, 1], _DEAD)])
+    all_vers = torch.cat([state.versions, is_new.to(u32.WORD)])
+    all_vals = torch.cat([state.values, torch.where(is_new[:, None], fv, 0)])
+    all_vers[slot] = upd_vers
+    all_vals[slot] = upd_vals
+    order = torch.argsort(u32.pair_key(all_hi, all_lo), stable=True
+                          )[:state.capacity]
+    return SortedState(
+        key_hi=all_hi[order], key_lo=all_lo[order],
+        versions=all_vers[order], values=all_vals[order],
+        count=state.count + is_new.sum(dtype=torch.int32),
+        wal_head=wal_head)

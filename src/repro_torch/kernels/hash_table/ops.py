@@ -1,8 +1,9 @@
-"""Wrapper of the hash-table probe kernel (``csrc/hash_table.cu``).
+"""Wrappers of the hash-table kernels (``csrc/hash_table.cu``): the probe
+and the sequential commit.
 
 A CUDA tensor launches the kernel, a CPU tensor takes the plain version in
-``ref.py``; there is no fallback between them. ``launches`` counts kernel
-launches.
+``ref.py``; there is no fallback between them. ``launches`` counts probe
+launches and ``commit_launches`` commit launches.
 """
 
 from __future__ import annotations
@@ -14,6 +15,17 @@ from repro_torch.kernels import build
 from repro_torch.kernels.hash_table import ref
 
 launches = 0
+commit_launches = 0
+
+
+def _check_table(tkeys, tvers, tvals, dev):
+    nb, s, vw = tvals.shape
+    if nb & (nb - 1):
+        raise ValueError(f"n_buckets={nb} must be a power of two")
+    build.check("tkeys", tkeys, u32.WORD, (nb, s, 2), dev)
+    build.check("tvers", tvers, u32.WORD, (nb, s), dev)
+    build.check("tvals", tvals, u32.WORD, (nb, s, vw), dev)
+    return nb, s, vw
 
 
 def lookup(tkeys, tvers, tvals, queries):
@@ -21,13 +33,8 @@ def lookup(tkeys, tvers, tvals, queries):
     values (Q, VW), slots (Q,) int32)."""
     global launches
     dev = queries.device
-    nb, s, vw = tvals.shape
+    nb, s, vw = _check_table(tkeys, tvers, tvals, dev)
     q = queries.shape[0]
-    if nb & (nb - 1):
-        raise ValueError(f"n_buckets={nb} must be a power of two")
-    build.check("tkeys", tkeys, u32.WORD, (nb, s, 2), dev)
-    build.check("tvers", tvers, u32.WORD, (nb, s), dev)
-    build.check("tvals", tvals, u32.WORD, (nb, s, vw), dev)
     build.check("queries", queries, u32.WORD, (q, 2), dev)
     if not build.dispatch(dev):
         return ref.lookup_ref(tkeys, tvers, tvals, queries)
@@ -44,3 +51,26 @@ def lookup(tkeys, tvers, tvals, queries):
                  q, nb, s, vw)
     launches += 1
     return found, vers, vals, slots
+
+
+def commit(tkeys, tvers, tvals, wkeys, wvals, active):
+    """Sequential insert-or-update of (K, 2) keys, (K, VW) values and (K,)
+    bool ``active`` into the table, IN PLACE. Returns the () bool overflow
+    flag (some active write found neither its key nor an empty slot)."""
+    global commit_launches
+    dev = wkeys.device
+    nb, s, vw = _check_table(tkeys, tvers, tvals, dev)
+    k = wkeys.shape[0]
+    build.check("wkeys", wkeys, u32.WORD, (k, 2), dev)
+    build.check("wvals", wvals, u32.WORD, (k, vw), dev)
+    build.check("active", active, torch.bool, (k,), dev)
+    if not build.dispatch(dev):
+        return ref.commit_ref(tkeys, tvers, tvals, wkeys, wvals, active)
+    flag = torch.zeros((1,), dtype=u32.WORD, device=dev)
+    if k:
+        f = build.c_function("hash_table", "ht_commit", 7, 4)
+        build.launch(f, "ht_commit", dev, tkeys.data_ptr(), tvers.data_ptr(),
+                     tvals.data_ptr(), wkeys.data_ptr(), wvals.data_ptr(),
+                     active.data_ptr(), flag.data_ptr(), k, nb, s, vw)
+        commit_launches += 1
+    return flag[0] != 0

@@ -84,3 +84,31 @@ def test_mvcc_kernel_refuses_blocks_over_1024(cuda):
     ok0 = torch.ones(1025, dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError, match="at most 1024"):
         mv_ops.validate(keys, vers, keys, vers, ok0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb,s,k", [(1 << 12, 8, 200), (4, 2, 64),
+                                    (64, 8, 2048)])
+def test_commit_kernel(cuda, nb, s, k):
+    """Updates, inserts, full buckets (overflow), duplicate keys, inactive
+    and empty-key writes: the kernel on the card against the plain version
+    on a copy of the same table, bit-equal, overflow flag included."""
+    rng = np.random.default_rng(k)
+    table = [torch.zeros(shape, dtype=torch.int32)
+             for shape in ((nb, s, 2), (nb, s), (nb, s, 4))]
+    fill = u32.from_numpy(rng.integers(1, 1 << 32, (nb * s // 2, 2),
+                                       dtype=np.uint32))
+    ht_ref.commit_ref(*table, fill, torch.ones((len(fill), 4),
+                                               dtype=torch.int32),
+                      torch.ones(len(fill), dtype=torch.bool))
+    wk = rng.integers(1, 1 << 32, (k, 2), dtype=np.uint32)
+    wk[: k // 4] = u32.to_numpy(fill)[rng.integers(0, len(fill), k // 4)]
+    wk[k // 4: k // 2] = wk[rng.integers(0, k // 4, k // 4)]  # duplicates
+    wk[rng.random(k) < 0.05, 0] = 0
+    wv = rng.integers(0, 1 << 32, (k, 4), dtype=np.uint32)
+    act = rng.random(k) < 0.85
+    args = [u32.from_numpy(a) for a in (wk, wv)] + [torch.from_numpy(act)]
+    on_card = [t.to(cuda) for t in table]
+    ovf = ht_ops.commit(*on_card, *(a.to(cuda) for a in args))
+    want = ht_ref.commit_ref(*table, *args)
+    _same(on_card + [ovf], table + [want])

@@ -13,8 +13,9 @@ import torch
 from repro.core import endorser as je, engine as jeng, orderer as jo
 from repro.core import types as jt, world_state as jws
 from repro_torch import convert
-from repro_torch.core import committer as tcm, endorser as te, engine as teng
-from repro_torch.core import orderer as to, types as tt, u32
+from repro_torch.core import committer as tcm, crypto as tc, endorser as te
+from repro_torch.core import engine as teng, ledger as tl, orderer as to
+from repro_torch.core import types as tt, u32
 from repro_torch.core import world_state as tws
 from repro_torch.core import unmarshal as tu
 
@@ -218,12 +219,24 @@ def test_entry_points_need_a_device(monkeypatch):
         tcm.create_peer_state(tt.TEST_DIMS)
 
 
-@pytest.mark.parametrize("peer", ["FABRIC_V12_PEER", "OPT_P1", "OPT_P2"])
-def test_later_slices_raise(peer):
-    cfg = dataclasses.replace(teng.FASTFABRIC, peer=getattr(tcm, peer))
-    with pytest.raises(NotImplementedError, match="baseline-ladder slice"):
-        teng.FabricEngine(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tws.commit(tws.create(8, 2, 4, "cpu"), *(torch.zeros(
-            (1, 2, k), dtype=torch.int32) for k in (2, 4)),
-            torch.ones(1, dtype=torch.bool), sequential=True)
+def _replay_default_device():
+    store = tl.BlockStore()
+    try:
+        store.replay_state(tt.TEST_DIMS, 8, 2)
+    finally:
+        store.close()
+
+
+@pytest.mark.parametrize("call", [
+    lambda: tws.create(8, 2, 4),
+    lambda: tws.sorted_create(8, 4),
+    _replay_default_device,
+    lambda: tt.make_transfer_batch(tt.TEST_DIMS, 4),
+    lambda: tc.endorser_keys(3),
+], ids=["create", "sorted_create", "replay_state", "make_transfer_batch",
+        "endorser_keys"])
+def test_device_defaults_need_a_card(monkeypatch, call):
+    """Without ``device`` these run on the card, and raise without one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()

@@ -1,7 +1,8 @@
-"""The port's three kernels (endorsement MAC, hash-table probe, MVCC scan):
-their plain versions, reached through the wrappers on CPU tensors, against
-both the JAX Pallas kernel (interpret mode) and the JAX ``core/`` function
-the JAX engine runs; bit-equal. The CUDA kernels themselves are held
+"""The port's kernels (endorsement MAC, hash-table probe, MVCC scan; the
+sequential commit is in test_torch_commit.py): their plain versions,
+reached through the wrappers on CPU tensors, against both the JAX Pallas
+kernel (interpret mode) and the JAX ``core/`` function the JAX engine runs;
+bit-equal. The CUDA kernels themselves are held
 against these plain versions in test_torch_cuda.py, on a card."""
 
 import numpy as np
@@ -273,4 +274,15 @@ def test_wrappers_reject_bad_inputs():
     rk, rv, wk, cur, ok0 = (T(a) for a in _mvcc_inputs(0, 8, 0.0))
     with pytest.raises(TypeError):
         mv_ops.validate(rk, rv, wk, cur, ok0.to(u32.WORD))
+    wkeys, wvals = keys[0], vals[0]
+    with pytest.raises(TypeError):
+        ht_ops.commit(keys, vers, vals, wkeys, wvals,
+                      torch.ones(4, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        ht_ops.commit(keys, vers, vals, wkeys, wvals[:, :1],
+                      torch.ones(4, dtype=torch.bool))
+    with pytest.raises(ValueError):
+        ht_ops.commit(keys[:12], vers[:12], vals[:12], wkeys, wvals,
+                      torch.ones(4, dtype=torch.bool))
     assert mac_ops.launches == ht_ops.launches == mv_ops.launches == 0
+    assert ht_ops.commit_launches == 0
