@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of FastFabric (src/repro_torch) on one card.
 
-    python3 chip_smoke.py          # from the root of a checkout, one CUDA card
+    python3 chip_smoke.py [--seed N]   # from the root of a checkout, one card
 
 Phases; any failure raises and exits nonzero, and no result line is printed:
 
-1. Build the four kernels from src/repro_torch/kernels/csrc with nvcc for
+1. Build the five kernels from src/repro_torch/kernels/csrc with nvcc for
    sm_90a (one nvcc process per source, all at once).
 2. Hold each kernel against its plain PyTorch version on the card, at the
    paths' shapes and on adversarial inputs (words 0 and 0xFFFFFFFF, empty
    keys, full buckets, duplicate keys, conflicting transactions, inactive
-   writes). Tolerance: none; every output is an integer and must be
-   bit-equal.
+   writes). Tolerance: none for K1-K4, whose outputs are integers and must
+   be bit-equal; flash attention (K5) within atol = rtol = 2e-5 in f32
+   (TF32 off) and 3e-2 in bf16, the JAX kernel tests' tolerances.
 3. Time each kernel with CUDA events over many launches after a warm-up,
    beside its plain version, its bound (the larger of bytes over 3.35 TB/s
-   and operations over 67 T/s) and, from the profiler, its device time.
+   and operations over 67 T/s, or 989 TFLOP/s for K5's bf16 products),
+   from the profiler its device time and, for K5, SDPA's time.
 4. Run the FASTFABRIC engine on the card at PAPER_DIMS (2.9 KB
    transactions), blocks of 100, a 2^20-bucket x 8-slot world state, and
    proposals from 2^22 accounts: one warm-up round, then a timed round of
@@ -28,18 +30,32 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
 7. The peer ladder: Fabric 1.2 (sorted store, staged serial validation),
    P-I and P-I+II (hash table, sequential commit kernel), each behind the
    Fabric 1.2 orderer, at the same size: a warm-up round of one block, a
-   timed round of 1,000 disjoint transfers and a conflicting round of 1,000
+   timed round of 500 disjoint transfers and a conflicting round of 500
    transfers among 256 accounts (src != dst), counters set to 0 before each
    configuration and read after it; verify() all True, every kernel of the
    configuration launched, and the same rounds on the CPU identical.
+8. Serving at full width: Qwen2-7B (28 layers, bf16, weights drawn on the
+   card from --seed), ServeEngine with 4 slots of 2,080 positions, 8
+   requests of 64-2,048 random tokens, 16 new tokens each; counters set to
+   0 before and read after. Every request done with 16 tokens and ledger
+   version 2, every logit finite, K5 launched 28 times a prefill; one
+   request re-run by its own prefill + decode_step must give the same first
+   token. Then one prefill and one decode step are profiled for the
+   device's busy time.
+9. Serving, card against CPU: the same architecture cut to 2 layers, f32,
+   weights drawn once on the CPU and moved to the card, 2 requests (777
+   and 256 tokens, 4 new each): prefill logits within 1e-4, greedy tokens
+   and request-ledger words identical.
 
 The lines before the last give each phase's seconds, the card's name and
-power limit (as nvidia-smi prints them), an engine summary, the ladder and
-the kernels; the last line is {"ok": true, "device": {...}}.
+power limit (as nvidia-smi prints them), the engine, ladder and serving
+summaries and the kernels; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -53,20 +69,39 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 ALU_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores; the
 # data sheet gives no integer-ALU rate, and 32-bit integer work runs on the
 # same units at no more than this rate
+TC_BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 ROUND_TXS = 1000
+LADDER_TXS = 500  # the ladder's timed and conflicting rounds
 N_ACCOUNTS = 1 << 22
 SEEDS = (0, 1)  # warm-up round, then the timed round
 PROFILED_TXS = 500  # the profiled round (its trace takes minutes to read)
 LADDER_POOL = 256  # accounts of the ladder's conflicting round
+SERVE_ARCH = "qwen2-7b"
+SERVE_PROMPTS = (2048, 1531, 1024, 777, 2000, 300, 1999, 64)
+SERVE_NEW = 16
+SERVE_SLOTS, SERVE_MAX_LEN = 4, 2080
+CHECK_PROMPTS, CHECK_NEW = (777, 256), 4  # card against CPU, 2 layers
+# K5 against its plain version: (B, S, H, Hkv, D), dtype
+FLASH_CASES = (((1, 2048, 28, 4, 128), "bfloat16"),
+               ((1, 777, 28, 4, 128), "bfloat16"),
+               ((2, 300, 32, 32, 96), "float32"),
+               ((2, 64, 4, 1, 16), "float32"))
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# Prefill logits, card (K5, cuBLAS) against CPU (plain, MKL), f32 with
+# TF32 off: both sides sum the same f32 products in other orders, ~1e-6
+# relative through two layers and a 3,584-term head product on logits of
+# size ~1; 1e-4 leaves two orders of magnitude.
+LOGITS_TOL = 1e-4
 
 
 def log(*a):
     print(*a, flush=True)
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = ALU_OPS_PER_S
+             ) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / ALU_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -140,23 +175,35 @@ def conflicting_proposals(n: int, seed: int, device):
         np.arange(n, dtype=np.uint32) + np.uint32(seed << 16))))
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the serving phases' weights and prompts")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    import dataclasses
+    import torch.nn.functional as F
+    from repro_torch.configs import base as cfg_base
     from repro_torch.core import (committer, crypto, engine, ledger, types,
                                   u32, unmarshal)
     from repro_torch.core import world_state as ws
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.hash_table import ops as ht_ops, ref as ht_ref
     from repro_torch.kernels.mvcc_validate import ops as mv_ops
     from repro_torch.kernels.mvcc_validate import ref as mv_ref
     from repro_torch.kernels.sig_mac import ops as mac_ops, ref as mac_ref
+    from repro_torch.models.lm import LM, Batch
+    from repro_torch.serving.engine import Request, ServeEngine
     from repro_torch.storage import journal
 
     dev = torch.device("cuda")
+    # Every f32 product in full f32, on both sides of every comparison.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -174,11 +221,12 @@ def main() -> int:
     def counts():
         return {"mac_many": mac_ops.launches, "lookup": ht_ops.launches,
                 "commit": ht_ops.commit_launches,
-                "validate": mv_ops.launches}
+                "validate": mv_ops.launches,
+                "flash_attention": fa_ops.launches}
 
     def zero_counts():
         mac_ops.launches = ht_ops.launches = ht_ops.commit_launches = 0
-        mv_ops.launches = 0
+        mv_ops.launches = fa_ops.launches = 0
 
     dims = types.PAPER_DIMS
     nb, slots = 1 << 20, 8
@@ -197,7 +245,8 @@ def main() -> int:
 
     # -- 2. kernels against their plain versions ----------------------------
     t0 = time.perf_counter()
-    errs = {"mac_many": 0, "lookup": 0, "commit": 0, "validate": 0}
+    errs = {"mac_many": 0, "lookup": 0, "commit": 0, "validate": 0,
+            "flash_attention": 0.0}
 
     def check(name, got, want, what):
         e = max_abs_err(got, want)
@@ -351,6 +400,36 @@ def main() -> int:
         log("[check] validate refuses a block of 1025")
     else:
         raise AssertionError("validate took a block of 1025 transactions")
+
+    # K5: the serving shapes (a 2,048-token Qwen2-7B prompt, a ragged one),
+    # MHA at D = 96 and MQA in f32; SDPA's distance from the plain version
+    # for information.
+    def qkv(shape, dtype, seed):
+        b_, s_, h_, kv_, d_ = shape
+        g_ = torch.Generator(device=dev).manual_seed(seed)
+        return [torch.randn((b_, s_, n, d_), generator=g_, device=dev
+                            ).to(getattr(torch, dtype))
+                for n in (h_, kv_, kv_)]
+
+    def sdpa(q_, k_, v_):
+        return F.scaled_dot_product_attention(
+            q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+
+    for i, (shape, dtype) in enumerate(FLASH_CASES):
+        q_, k_, v_ = qkv(shape, dtype, i)
+        got = fa_ops.flash_attention(q_, k_, v_, causal=True).float()
+        want = fa_ref.flash_attention_ref(q_, k_, v_, causal=True).float()
+        tol = FLASH_TOL[dtype]
+        e = float((got - want).abs().max())
+        e_lib = float((sdpa(q_, k_, v_).float() - want).abs().max())
+        errs["flash_attention"] = max(errs["flash_attention"], e)
+        log(f"[check] flash_attention {shape} {dtype}: max_abs_err {e} "
+            f"(tolerance {tol}); SDPA's max_abs_err {e_lib}")
+        if not torch.allclose(got, want, atol=tol, rtol=tol):
+            raise AssertionError(f"flash_attention disagrees with its plain "
+                                 f"version at {shape} {dtype}")
+        del q_, k_, v_, got, want
     torch.cuda.synchronize()
     phase_done("2 kernels vs plain", t0)
 
@@ -413,14 +492,39 @@ def main() -> int:
                            2 * nw * (nr + nw) * int(valid_before.sum())),
             shape="block of 100, RK = WK = 2"),
     }
+    # K5 at one Qwen2-7B layer's prefill of a 2,048-token prompt: Q, K, V
+    # read and O written once; 4 operations (QK^T and PV multiply-adds) for
+    # each of the S(S+1)/2 causal (query, key) pairs of each head and dim.
+    (fb, fs, fh, fkv, fd), _ = FLASH_CASES[0]
+    fq, fk, fv = qkv(FLASH_CASES[0][0], "bfloat16", 100)
+    fq_t, fk_t, fv_t = (x.transpose(1, 2).contiguous() for x in (fq, fk, fv))
+    timing["flash_attention"] = dict(
+        name="flash_attention", kernel="flash_fwd_bf16_kernel",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:94",
+        fn=lambda: fa_ops.flash_attention(fq, fk, fv, causal=True),
+        plain=lambda: fa_ref.flash_attention_ref(fq, fk, fv, causal=True),
+        library=lambda: F.scaled_dot_product_attention(
+            fq_t, fk_t, fv_t, is_causal=True, enable_gqa=True),
+        bound=bound_ms(2 * fb * fs * (2 * fh + 2 * fkv) * fd,
+                       4 * fb * fs * (fs + 1) // 2 * fh * fd,
+                       TC_BF16_OPS_PER_S),
+        shape=f"(B, S, H, Hkv, D) = {FLASH_CASES[0][0]} bf16, causal")
     for key, t in timing.items():
         t["ms"] = event_ms(t["fn"], 500)
         t["plain_ms"] = (event_ms(t["plain"], 5, warmup=1) if key == "commit"
                          else event_ms(t["plain"], 20, warmup=3))
+        t["library_ms"] = (event_ms(t["library"], 500) if "library" in t
+                           else None)
         t["device_ms"] = device_ms(t["fn"], t["kernel"])
         log(f"[time] {t['name']} ({t['shape']}): {t['ms']:.5f} ms per call, "
             f"device {t['device_ms']} ms, plain {t['plain_ms']:.4f} ms, "
+            f"library {t['library_ms']} ms, "
             f"bound {t['bound'][0]:.7f} ms ({t['bound'][1]})")
+    fa_t = timing["flash_attention"]
+    log(f"[time] flash_attention: {fa_t['bound'][0] / fa_t['ms'] * 100:.2f} "
+        f"% of its bound; {fa_t['ms'] / fa_t['library_ms']:.2f}x SDPA's time")
+    del fq, fk, fv, fq_t, fk_t, fv_t
     # K4's scan is b dependent barrier steps, which no byte or operation
     # count sees: report the device time per step beside its byte bound.
     mv_dev = timing["validate"]["device_ms"]
@@ -485,7 +589,7 @@ def main() -> int:
     log(f"[engine] verify {verdict} in {verify_s:.2f} s; launches {launches}")
     if not all(verdict.values()):
         raise AssertionError(f"verify() failed on the card: {verdict}")
-    if not all(v for k, v in launches.items() if k != "commit"):
+    if not all(launches[k] for k in ("mac_many", "lookup", "validate")):
         raise AssertionError(f"a kernel never ran on the main path: "
                              f"{launches}")
     if any(st.n_valid != st.n_txs for st in stats):
@@ -598,9 +702,9 @@ def main() -> int:
             return [
                 e.run_round(e.make_proposals(bs, seed=0,
                                              n_accounts=N_ACCOUNTS)),
-                e.run_round(e.make_proposals(ROUND_TXS, seed=1,
+                e.run_round(e.make_proposals(LADDER_TXS, seed=1,
                                              n_accounts=N_ACCOUNTS)),
-                e.run_round(conflicting_proposals(ROUND_TXS, 3, e.device)),
+                e.run_round(conflicting_proposals(LADDER_TXS, 3, e.device)),
             ]
 
         torch.cuda.empty_cache()
@@ -622,7 +726,8 @@ def main() -> int:
         if not all(lverdict.values()):
             raise AssertionError(f"{name}: verify() failed on the card: "
                                  f"{lverdict}")
-        if st[1].n_valid != st[1].n_txs or not 0 < st[2].n_valid < ROUND_TXS:
+        if (st[1].n_valid != st[1].n_txs
+                or not 0 < st[2].n_valid < LADDER_TXS):
             raise AssertionError(f"{name}: valid counts "
                                  f"{[s.n_valid for s in st]}")
         t1 = time.perf_counter()
@@ -653,6 +758,206 @@ def main() -> int:
             f"CPU identical ({cst[1].tps:.2f} tx/s timed, {cpu_s:.1f} s)")
         phase_done(f"7 ladder {name}", t0)
 
+    # -- 8. serving at full width: Qwen2-7B, bf16, on the card -------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    scfg = cfg_base.get(SERVE_ARCH)
+    t1 = time.perf_counter()
+    model = LM(scfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(args.seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t1
+    n_weights = sum(p.numel() for p in model.parameters())
+    if n_weights != scfg.n_params():
+        raise AssertionError(f"{n_weights} weights, config says "
+                             f"{scfg.n_params()}")
+    srng = np.random.default_rng(args.seed)
+    reqs = [Request(rid=i, prompt=srng.integers(0, scfg.vocab, n
+                                                ).astype(np.int32),
+                    max_new=SERVE_NEW) for i, n in enumerate(SERVE_PROMPTS)]
+    eng = ServeEngine(model, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN)
+    finite = []  # every prefill's and decode step's logits, checked after
+
+    def finite_logits(fn):
+        def call(*a):
+            logits, cache = fn(*a)
+            finite.append(torch.isfinite(logits).all())
+            return logits, cache
+        return call
+
+    eng.prefill_fn = finite_logits(eng.prefill_fn)
+    eng.decode_fn = finite_logits(eng.decode_fn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t1 = time.perf_counter()
+    eng.submit(reqs)
+    prefill_s, decode_ms = 0.0, []
+    while True:  # ServeEngine.run, with admission and decode timed apart
+        torch.cuda.synchronize()
+        ta = time.perf_counter()
+        eng.admit()
+        torch.cuda.synchronize()
+        tb = time.perf_counter()
+        n_active = eng.decode()  # ends in a host copy of the tokens
+        prefill_s += tb - ta
+        if n_active:
+            decode_ms.append((time.perf_counter() - tb) * 1e3)
+        elif not eng.queue:
+            break
+    serve_s = time.perf_counter() - t1
+    got = counts()
+    path_launches["serving"] = got
+    peak = torch.cuda.max_memory_allocated()
+    if not all(r.done and len(r.out) == SERVE_NEW for r in reqs):
+        raise AssertionError(f"serving: outputs "
+                             f"{[len(r.out) for r in reqs]}")
+    versions = [eng.request_version(r.rid) for r in reqs]
+    if versions != [2] * len(reqs):
+        raise AssertionError(f"serving: ledger versions {versions}")
+    if not bool(torch.stack(finite).all()):
+        raise AssertionError("serving: non-finite logits")
+    if got["flash_attention"] != len(reqs) * scfg.n_layers or not \
+            got["lookup"]:
+        raise AssertionError(f"serving: launches {got}")
+    # One request again, by its own prefill + decode_step (batch 1).
+    r = reqs[3]
+    prompt = torch.as_tensor(r.prompt.astype(np.int64), device=dev)[None]
+    cache = model.init_cache(1, len(r.prompt) + SERVE_NEW)
+    logits, cache = model.prefill(Batch(tokens=prompt), cache)
+    alone = [int(torch.argmax(logits[0]))]
+    for i in range(SERVE_NEW - 1):
+        logits, cache = model.decode_step(
+            cache, torch.tensor([alone[-1]], device=dev),
+            len(r.prompt) + i)
+        alone.append(int(torch.argmax(logits[0])))
+    if alone[0] != r.out[0]:
+        raise AssertionError(f"serving: request {r.rid}'s first token "
+                             f"{r.out[0]}, alone {alone[0]}")
+    agree = sum(a == b for a, b in zip(alone, r.out))
+    decode_sorted = sorted(decode_ms)
+    serving = {
+        "arch": SERVE_ARCH, "dtype": scfg.dtype, "n_layers": scfg.n_layers,
+        "weights": n_weights, "init_s": init_s,
+        "requests": len(reqs), "prompt_tokens": sum(SERVE_PROMPTS),
+        "prefill_s": prefill_s,
+        "prompt_tokens_per_s": sum(SERVE_PROMPTS) / prefill_s,
+        "decode_steps": len(decode_ms),
+        "decode_ms_p50": float(np.median(decode_ms)),
+        "decode_ms_min": decode_sorted[0], "decode_ms_max": decode_sorted[-1],
+        "output_tokens": eng.tokens_out,
+        "output_tokens_per_s": eng.tokens_out / (sum(decode_ms) / 1e3),
+        "wall_s": serve_s, "peak_mem_bytes": peak, "launches": got,
+        "alone_agree": agree,
+    }
+    log(f"[serve] {SERVE_ARCH} bf16 at full width ({n_weights} weights, "
+        f"drawn in {init_s:.2f} s): {len(reqs)} requests, "
+        f"{sum(SERVE_PROMPTS)} prompt tokens prefilled in {prefill_s:.4f} s "
+        f"({serving['prompt_tokens_per_s']:.1f} tokens/s); {len(decode_ms)} "
+        f"decode steps, p50 {serving['decode_ms_p50']:.3f} ms (min "
+        f"{decode_sorted[0]:.3f}, max {decode_sorted[-1]:.3f}), "
+        f"{eng.tokens_out} tokens, {serving['output_tokens_per_s']:.1f} "
+        f"tokens/s; wall {serve_s:.3f} s; peak memory {peak / 2**30:.3f} "
+        f"GiB; launches {got}; ledger versions all 2; request {r.rid} alone "
+        f"agrees on {agree} of {SERVE_NEW} tokens")
+    # Where the time goes: one prefill (the 2,048-token prompt) and one
+    # decode step over the 4 slots, each timed alone, then under the
+    # profiler for the device's busy time and its largest ops.
+    from torch.profiler import ProfilerActivity, profile
+    p2048 = torch.as_tensor(reqs[0].prompt.astype(np.int64), device=dev)[None]
+    step_args = (torch.zeros(SERVE_SLOTS, dtype=torch.long, device=dev),
+                 torch.as_tensor(eng.pos.astype(np.int64), device=dev),
+                 torch.ones(SERVE_SLOTS, dtype=torch.bool, device=dev))
+    calls = {
+        "prefill 2048": lambda: model.prefill(
+            Batch(tokens=p2048), model.init_cache(1, p2048.shape[1])),
+        "decode step": lambda: eng.decode_fn(eng.cache, *step_args),
+    }
+    serving["profile"] = {}
+    for what, fn in calls.items():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = _device_events(prof)
+        busy_s = sum(ev.self_device_time_total for ev in evs) / 1e6
+        n_ops = sum(ev.count for ev in evs)
+        serving["profile"][what] = {"wall_s": wall, "device_busy_s": busy_s,
+                                    "device_ops": n_ops}
+        log(f"[serve-profile] {what}: {wall:.4f} s alone; under the "
+            f"profiler device busy {busy_s:.4f} s over {n_ops} device ops "
+            f"({busy_s / wall * 100:.1f} % of the unprofiled time)")
+        for ev in sorted(evs, key=lambda e: -e.self_device_time_total)[:6]:
+            log(f"[serve-profile]   {ev.self_device_time_total / 1e3:9.3f} ms "
+                f"{ev.count:6d}x {ev.key[:90]}")
+    del eng, model, cache, logits, finite, p2048, step_args, calls
+    torch.cuda.empty_cache()
+    phase_done("8 serving at full width", t0)
+
+    # -- 9. serving, card against CPU: 2 layers, full width, f32 ------------
+    t0 = time.perf_counter()
+    ccfg = dataclasses.replace(scfg, n_layers=2, dtype="float32")
+    model = LM(ccfg, device="cpu").init(
+        torch.Generator().manual_seed(args.seed))
+    crng = np.random.default_rng(args.seed + 1)
+    cspecs = [(i, crng.integers(0, ccfg.vocab, n).astype(np.int32))
+              for i, n in enumerate(CHECK_PROMPTS)]
+
+    def serve_check():
+        e = ServeEngine(model, slots=len(cspecs),
+                        max_len=max(CHECK_PROMPTS) + 2 * CHECK_NEW)
+        prefill_logits = []
+
+        def keep(*a):
+            logits, cache = model.prefill(*a)
+            prefill_logits.append(logits.cpu())
+            return logits, cache
+
+        e.prefill_fn = keep
+        rs = [Request(rid=i, prompt=p, max_new=CHECK_NEW) for i, p in cspecs]
+        e.run(rs)
+        return ([r.out for r in rs], torch.cat(prefill_logits),
+                [u32.to_numpy(t) for t in e.state])
+
+    t1 = time.perf_counter()
+    cpu_res = serve_check()
+    cpu_s = time.perf_counter() - t1
+    model.to(dev)
+    zero_counts()
+    t1 = time.perf_counter()
+    card_res = serve_check()
+    card_s = time.perf_counter() - t1
+    got = counts()
+    path_launches["serving_vs_cpu"] = got
+    lerr = float((card_res[1] - cpu_res[1]).abs().max())
+    log(f"[serve-check] {SERVE_ARCH} cut to 2 layers, f32: prefill logits "
+        f"max_abs_err {lerr} (tolerance {LOGITS_TOL}); tokens card "
+        f"{card_res[0]} CPU {cpu_res[0]}; card {card_s:.2f} s, CPU "
+        f"{cpu_s:.2f} s; launches {got}")
+    if not torch.allclose(card_res[1], cpu_res[1], atol=LOGITS_TOL,
+                          rtol=LOGITS_TOL):
+        raise AssertionError("serving: prefill logits differ between card "
+                             "and CPU")
+    if card_res[0] != cpu_res[0]:
+        raise AssertionError("serving: greedy tokens differ between card "
+                             "and CPU")
+    if not all(np.array_equal(a, c) for a, c in zip(card_res[2],
+                                                    cpu_res[2])):
+        raise AssertionError("serving: request ledgers differ between card "
+                             "and CPU")
+    if got["flash_attention"] != len(cspecs) * ccfg.n_layers:
+        raise AssertionError(f"serving check: launches {got}")
+    serving["vs_cpu"] = {"logits_max_abs_err": lerr, "tokens": card_res[0],
+                         "card_s": card_s, "cpu_s": cpu_s, "launches": got}
+    del model
+    torch.cuda.empty_cache()
+    phase_done("9 serving, card against CPU", t0)
+
     kernels = [{
         "name": t["name"], "route": "cuda", "source": t["source"],
         "replaces": t["replaces"],
@@ -660,10 +965,11 @@ def main() -> int:
         "launches_by_path": {p: c[key] for p, c in path_launches.items()},
         "max_abs_err": errs[key], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
-        "library_ms": None, "device_ms": t["device_ms"],
+        "library_ms": t["library_ms"], "device_ms": t["device_ms"],
     } for key, t in timing.items()]
     log(json.dumps({"engine": summary}, default=str))
     log(json.dumps({"ladder": ladder}, default=str))
+    log(json.dumps({"serving": serving}, default=str))
     log(json.dumps({"phase_s": phase_s,
                     "total_s": time.perf_counter() - t_start}))
     log(card)

@@ -1,10 +1,11 @@
-"""Carry engine state across packages as numpy arrays.
+"""Carry engine state and model weights across packages as numpy arrays.
 
 The JAX package's state, as numpy (u32 arrays, Python ints, stored blocks),
 goes into a port :class:`~repro_torch.core.engine.FabricEngine` on its
-device, and back out. Nothing here imports JAX: the caller turns JAX arrays
-into numpy (``np.asarray``) first. The tests use this to start both engines
-from one state.
+device, and back out; the JAX ``LM.init`` weights go into a port
+:class:`~repro_torch.models.lm.LM`. Nothing here imports JAX: the caller
+turns JAX arrays into numpy (``np.asarray``) first. The tests use this to
+start both packages from one state and one set of weights.
 """
 
 from __future__ import annotations
@@ -14,8 +15,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core import committer, engine, ledger, u32
 from repro_torch.core import world_state as ws
+from repro_torch.models.lm import LM
 
 
 class EngineState(NamedTuple):
@@ -104,3 +107,22 @@ def export_engine(eng: engine.FabricEngine) -> EngineState:
         chain=chain,
         sorted=srt,
     )
+
+
+def lm_params(np_params: dict, cfg: ModelConfig, device, **lm_kwargs) -> LM:
+    """The JAX ``LM.init`` pytree as numpy (``layers`` stacked on a leading
+    layer axis) -> a port :class:`LM` on ``device`` with those weights, in
+    ``cfg.torch_dtype``. ``lm_kwargs`` go to :class:`LM`."""
+    def tensor(a):
+        return torch.from_numpy(np.asarray(a, np.float32).copy()).to(
+            device=device, dtype=cfg.torch_dtype)
+
+    def tree(d, index=None):
+        return {k: tree(v, index) if isinstance(v, dict)
+                else tensor(v if index is None else v[index])
+                for k, v in d.items()}
+
+    top = {k: v for k, v in np_params.items() if k != "layers"}
+    per_layer = [tree(np_params["layers"], i) for i in range(cfg.n_layers)]
+    return LM(cfg, device=device, **lm_kwargs).load_params(
+        {**tree(top), "layers": per_layer})

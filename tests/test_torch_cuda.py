@@ -1,19 +1,27 @@
 """Each CUDA kernel of the port against its plain PyTorch version, on a card:
-bit-equal. Imports no JAX, so it also runs where only PyTorch is installed:
+bit-equal for the integer kernels; flash attention within f32 ``atol=rtol=
+2e-5`` (TF32 off) and bf16 ``3e-2``, the JAX kernel tests' tolerances. Also
+one smoke-config LM prefill on the card against the CPU. Imports no JAX, so
+it also runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 
 Without a card every test here skips."""
 
+import copy
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import base as cfg_base
 from repro_torch.core import types, u32
 from repro_torch.core import world_state as ws
+from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
 from repro_torch.kernels.hash_table import ops as ht_ops, ref as ht_ref
 from repro_torch.kernels.mvcc_validate import ops as mv_ops, ref as mv_ref
 from repro_torch.kernels.sig_mac import ops as mac_ops, ref as mac_ref
+from repro_torch.models.lm import LM, Batch
 
 P31 = (1 << 31) - 1
 
@@ -112,3 +120,55 @@ def test_commit_kernel(cuda, nb, s, k):
     ovf = ht_ops.commit(*on_card, *(a.to(cuda) for a in args))
     want = ht_ref.commit_ref(*table, *args)
     _same(on_card + [ovf], table + [want])
+
+
+@pytest.fixture
+def no_tf32(monkeypatch):
+    """Full-f32 matrix products in the plain versions, stated, not assumed."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,skv,h,kv,d,dtype,causal", [
+    (1, 2048, 2048, 28, 4, 128, torch.bfloat16, True),  # Qwen2-7B prefill
+    (1, 777, 777, 28, 4, 128, torch.bfloat16, True),    # ragged tail
+    (2, 300, 300, 32, 32, 96, torch.float32, True),     # MHA at D = 96
+    (2, 64, 64, 4, 1, 16, torch.float32, True),         # MQA
+    (2, 100, 100, 4, 2, 16, torch.bfloat16, True),
+    (1, 130, 130, 8, 8, 64, torch.bfloat16, False),
+    (1, 70, 70, 6, 2, 32, torch.float32, False),
+    (1, 45, 170, 4, 2, 64, torch.bfloat16, True),       # Skv != S
+])
+def test_flash_attention_kernel(cuda, no_tf32, b, s, skv, h, kv, d, dtype,
+                                causal):
+    rng = np.random.default_rng(s + d)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, n_s, n, d)).astype(
+        np.float32)).to(cuda, dtype)
+        for n_s, n in ((s, h), (skv, kv), (skv, kv)))
+    before = fa_ops.launches
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    want = fa_ref.flash_attention_ref(q, k, v, causal=causal)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_lm_prefill_on_card_matches_cpu(cuda, no_tf32):
+    """qwen2-7b smoke (f32): the card's prefill, K5 in every layer, against
+    the CPU's plain one, same weights."""
+    cfg = cfg_base.get_smoke("qwen2-7b")
+    on_cpu = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    on_card = copy.deepcopy(on_cpu).to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 37)))
+    want, wcache = on_cpu.prefill(Batch(tokens=toks), on_cpu.init_cache(2, 40))
+    before = fa_ops.launches
+    got, gcache = on_card.prefill(Batch(tokens=toks.to(cuda)),
+                                  on_card.init_cache(2, 40))
+    assert fa_ops.launches == before + cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(gcache.k.cpu(), wcache.k, atol=1e-4, rtol=1e-4)
