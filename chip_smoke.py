@@ -12,11 +12,15 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
    keys, full buckets, duplicate keys, conflicting transactions, inactive
    writes). Tolerance: none for K1-K4, whose outputs are integers and must
    be bit-equal; flash attention (K5) within atol = rtol = 2e-5 in f32
-   (TF32 off) and 3e-2 in bf16, the JAX kernel tests' tolerances.
+   (TF32 off), and in bf16 within atol 5e-3 + rtol 1e-2 of the plain
+   version on the inputs cast to f32 (kernels/flash_attention/ref.py), at
+   the serving shapes and at the edges of its wgmma kernel's tiles.
 3. Time each kernel with CUDA events over many launches after a warm-up,
    beside its plain version, its bound (the larger of bytes over 3.35 TB/s
    and operations over 67 T/s, or 989 TFLOP/s for K5's bf16 products),
-   from the profiler its device time and, for K5, SDPA's time.
+   from the profiler its device time and, for K5, SDPA's time; then K5 and
+   SDPA in turns at a 2,048- and a 777-token Qwen2-7B prefill and a
+   2,048-token phi3-mini one (D = 96) (TFLOP/s, share of the bound, ratio).
 4. Run the FASTFABRIC engine on the card at PAPER_DIMS (2.9 KB
    transactions), blocks of 100, a 2^20-bucket x 8-slot world state, and
    proposals from 2^22 accounts: one warm-up round, then a timed round of
@@ -41,7 +45,7 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
    version 2, every logit finite, K5 launched 28 times a prefill; one
    request re-run by its own prefill + decode_step must give the same first
    token. Then one prefill and one decode step are profiled for the
-   device's busy time.
+   device's busy time and K5's share of it.
 9. Serving, card against CPU: the same architecture cut to 2 layers, f32,
    weights drawn once on the CPU and moved to the card, 2 requests (777
    and 256 tokens, 4 new each): prefill logits within 1e-4, greedy tokens
@@ -55,6 +59,7 @@ summaries and the kernels; the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
 import subprocess
@@ -85,8 +90,17 @@ CHECK_PROMPTS, CHECK_NEW = (777, 256), 4  # card against CPU, 2 layers
 FLASH_CASES = (((1, 2048, 28, 4, 128), "bfloat16"),
                ((1, 777, 28, 4, 128), "bfloat16"),
                ((2, 300, 32, 32, 96), "float32"),
-               ((2, 64, 4, 1, 16), "float32"))
-FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+               ((2, 64, 4, 1, 16), "float32"),
+               # the wgmma kernel's tile edges: one row past a 128-row
+               # tile, two batches with ragged S (TMA zero-fills each
+               # batch's tail), D = 96 under the 64-byte swizzle
+               ((1, 129, 28, 4, 128), "bfloat16"),
+               ((2, 200, 28, 4, 128), "bfloat16"),
+               ((2, 300, 32, 32, 96), "bfloat16"))
+# K5 timed at these shapes (bf16, causal), in turns with SDPA: Qwen2-7B's
+# prefill of a full and a ragged prompt, phi3-mini's (D = 96, MHA)
+FLASH_TIMED = ((1, 2048, 28, 4, 128), (1, 777, 28, 4, 128),
+               (1, 2048, 32, 32, 96))
 # Prefill logits, card (K5, cuBLAS) against CPU (plain, MKL), f32 with
 # TF32 off: both sides sum the same f32 products in other orders, ~1e-6
 # relative through two layers and a 3,584-term head product on logits of
@@ -135,6 +149,23 @@ def device_ms(fn, kernel_name: str, iters: int = 50) -> float | None:
             total += ev.self_device_time_total
             count += ev.count
     return total / count / 1e3 if count else None
+
+
+def device_total_ms(fn, iters: int = 50) -> float:
+    """Mean device time of everything ``fn`` launches, over ``iters``
+    calls, from the profiler: unlike CUDA events around back-to-back
+    calls, it does not count the host's launch time when the host, not
+    the device, sets the pace."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.self_device_time_total
+               for ev in _device_events(prof)) / iters / 1e3
 
 
 def _device_events(prof):
@@ -239,8 +270,21 @@ def main(argv=None) -> int:
     for name in build.SOURCES:
         for line in build.build_log(name).splitlines():
             if ("Used" in line or "spill" in line
-                    or "Compiling entry" in line):
+                    or "Compiling entry" in line or "Performance Loss" in line):
                 log(f"[build] {name}: {line.strip()}")
+    # K5's wgmma kernel: registers a thread at launch (the warpgroups then
+    # move them with setmaxnreg: producer 24, consumers 240), spills, and
+    # shared memory (static, plus the dynamic Q tile and K/V ring).
+    smem_of = build.libraries()["flash_attention"].flash_attention_wgmma_smem
+    smem_of.argtypes, smem_of.restype = [ctypes.c_int], ctypes.c_int
+    fa_log = build.build_log("flash_attention").splitlines()
+    for i, line in enumerate(fa_log):
+        if "Compiling entry" in line and "flash_fwd_wgmma_kernel" in line:
+            d_ = int(line.split("flash_fwd_wgmma_kernelILi")[1].split("E")[0])
+            info = [x.strip() for x in fa_log[i + 1:i + 4]
+                    if "spill" in x or "Used" in x]
+            log(f"[build] flash_fwd_wgmma_kernel D = {d_}: {'; '.join(info)}"
+                f"; dynamic shared memory {smem_of(d_)} bytes")
     phase_done("1 build", t0)
 
     # -- 2. kernels against their plain versions ----------------------------
@@ -419,14 +463,16 @@ def main(argv=None) -> int:
     for i, (shape, dtype) in enumerate(FLASH_CASES):
         q_, k_, v_ = qkv(shape, dtype, i)
         got = fa_ops.flash_attention(q_, k_, v_, causal=True).float()
-        want = fa_ref.flash_attention_ref(q_, k_, v_, causal=True).float()
-        tol = FLASH_TOL[dtype]
+        want = fa_ref.flash_attention_ref(q_.float(), k_.float(), v_.float(),
+                                          causal=True)
+        atol, rtol = ((fa_ref.F32_TOL, fa_ref.F32_TOL) if dtype == "float32"
+                      else (fa_ref.BF16_ATOL, fa_ref.BF16_RTOL))
         e = float((got - want).abs().max())
         e_lib = float((sdpa(q_, k_, v_).float() - want).abs().max())
         errs["flash_attention"] = max(errs["flash_attention"], e)
         log(f"[check] flash_attention {shape} {dtype}: max_abs_err {e} "
-            f"(tolerance {tol}); SDPA's max_abs_err {e_lib}")
-        if not torch.allclose(got, want, atol=tol, rtol=tol):
+            f"(atol {atol}, rtol {rtol}); SDPA's max_abs_err {e_lib}")
+        if not torch.allclose(got, want, atol=atol, rtol=rtol):
             raise AssertionError(f"flash_attention disagrees with its plain "
                                  f"version at {shape} {dtype}")
         del q_, k_, v_, got, want
@@ -499,7 +545,8 @@ def main(argv=None) -> int:
     fq, fk, fv = qkv(FLASH_CASES[0][0], "bfloat16", 100)
     fq_t, fk_t, fv_t = (x.transpose(1, 2).contiguous() for x in (fq, fk, fv))
     timing["flash_attention"] = dict(
-        name="flash_attention", kernel="flash_fwd_bf16_kernel",
+        name="flash_attention",
+        kernel="flash_fwd",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:94",
         fn=lambda: fa_ops.flash_attention(fq, fk, fv, causal=True),
@@ -525,6 +572,40 @@ def main(argv=None) -> int:
     log(f"[time] flash_attention: {fa_t['bound'][0] / fa_t['ms'] * 100:.2f} "
         f"% of its bound; {fa_t['ms'] / fa_t['library_ms']:.2f}x SDPA's time")
     del fq, fk, fv, fq_t, fk_t, fv_t
+    # K5 and SDPA in turns (K5, SDPA, K5, SDPA) at each timed shape.
+    fa_t["turns"] = []
+    for shape in FLASH_TIMED:
+        tb, ts, th, tkv, td = shape
+        tq, tk, tv = qkv(shape, "bfloat16", 200)
+        tq_t, tk_t, tv_t = (x.transpose(1, 2).contiguous()
+                            for x in (tq, tk, tv))
+        flop = 4 * tb * ts * (ts + 1) // 2 * th * td
+        t_bound = bound_ms(2 * tb * ts * (2 * th + 2 * tkv) * td, flop,
+                           TC_BF16_OPS_PER_S)[0]
+        k5, lib = [], []
+        for _ in range(2):
+            k5.append(event_ms(
+                lambda: fa_ops.flash_attention(tq, tk, tv, causal=True), 500))
+            lib.append(event_ms(lambda: F.scaled_dot_product_attention(
+                tq_t, tk_t, tv_t, is_causal=True, enable_gqa=True), 500))
+        k5_ms, lib_ms = sum(k5) / 2, sum(lib) / 2
+        k5_dev = device_total_ms(
+            lambda: fa_ops.flash_attention(tq, tk, tv, causal=True))
+        lib_dev = device_total_ms(lambda: F.scaled_dot_product_attention(
+            tq_t, tk_t, tv_t, is_causal=True, enable_gqa=True))
+        fa_t["turns"].append({
+            "shape": shape, "ms": k5, "sdpa_ms": lib, "bound_ms": t_bound,
+            "device_ms": k5_dev, "sdpa_device_ms": lib_dev,
+            "tflops": flop / k5_dev / 1e9,
+            "sdpa_tflops": flop / lib_dev / 1e9})
+        log(f"[time] flash_attention {shape} bf16 causal, in turns with "
+            f"SDPA: K5 {k5} ms, SDPA {lib} ms (events, K5 / SDPA "
+            f"{k5_ms / lib_ms:.3f}); device K5 {k5_dev:.5f} ms "
+            f"({flop / k5_dev / 1e9:.1f} TFLOP/s, {t_bound / k5_dev * 100:.2f} "
+            f"% of its {t_bound:.7f} ms bound), SDPA {lib_dev:.5f} ms "
+            f"({flop / lib_dev / 1e9:.1f} TFLOP/s); K5 / SDPA "
+            f"{k5_dev / lib_dev:.3f}")
+        del tq, tk, tv, tq_t, tk_t, tv_t
     # K4's scan is b dependent barrier steps, which no byte or operation
     # count sees: report the device time per step beside its byte bound.
     mv_dev = timing["validate"]["device_ms"]
@@ -887,11 +968,17 @@ def main(argv=None) -> int:
         evs = _device_events(prof)
         busy_s = sum(ev.self_device_time_total for ev in evs) / 1e6
         n_ops = sum(ev.count for ev in evs)
+        k5_evs = [ev for ev in evs if "flash_fwd" in ev.key]
+        k5_s = sum(ev.self_device_time_total for ev in k5_evs) / 1e6
+        k5_n = sum(ev.count for ev in k5_evs)
         serving["profile"][what] = {"wall_s": wall, "device_busy_s": busy_s,
-                                    "device_ops": n_ops}
+                                    "device_ops": n_ops, "k5_s": k5_s,
+                                    "k5_launches": k5_n}
         log(f"[serve-profile] {what}: {wall:.4f} s alone; under the "
             f"profiler device busy {busy_s:.4f} s over {n_ops} device ops "
-            f"({busy_s / wall * 100:.1f} % of the unprofiled time)")
+            f"({busy_s / wall * 100:.1f} % of the unprofiled time); K5 "
+            f"{k5_s * 1e3:.3f} ms over {k5_n} launches "
+            f"({k5_s / busy_s * 100 if busy_s else 0:.1f} % of busy)")
         for ev in sorted(evs, key=lambda e: -e.self_device_time_total)[:6]:
             log(f"[serve-profile]   {ev.self_device_time_total / 1e3:9.3f} ms "
                 f"{ev.count:6d}x {ev.key[:90]}")
@@ -966,6 +1053,7 @@ def main(argv=None) -> int:
         "max_abs_err": errs[key], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
         "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+        **({"turns": t["turns"]} if "turns" in t else {}),
     } for key, t in timing.items()]
     log(json.dumps({"engine": summary}, default=str))
     log(json.dumps({"ladder": ladder}, default=str))

@@ -9,25 +9,47 @@
 // Unlike the Pallas kernel, which requires S % block == 0, the tail rows and
 // keys of any S and Skv are masked here.
 //
-// Bound: matrix products. At the serving shapes (Qwen2-7B prefill, S = 2048,
+// Bound: matrix products. At the serving shape (Qwen2-7B prefill, S = 2048,
 // H = 28, Hkv = 4, D = 128, bf16) the causal half is 4 S^2/2 H D = 30 GFLOP
 // against 34 MB of Q, K, V and O: ~900 operations a byte, far above the
-// ~295 at which the tensor cores, not memory, set the pace. So bf16 runs on
-// the tensor cores (mma.sync m16n8k16, f32 accumulate) and never writes the
-// scores to memory. Design, simple first (no TMA, wgmma or pipelining yet):
-//   * one CTA per (64-row q tile, head, batch); the KV loop stops at the
-//     causal limit (kernel.py:40-42), so the work is the causal half;
-//   * bf16: 4 warps of 16 q rows; Q fragments stay in registers; each 64-row
-//     K tile and transposed V tile is staged through padded shared memory
-//     (35 KB at D = 128, conflict-free fragment reads); S = Q K^T and
-//     O += P V are mma.sync, P rounded to bf16 for the second product;
-//     row max and sum by quad shuffles; m, l and O in registers;
+// ~295 at which the tensor cores, not memory, set the pace; 0.030 ms at
+// 989 TFLOP/s. Only wgmma reaches that rate on Hopper, and only if the
+// tensor cores never wait for a load. Three kernels, chosen by dtype and D
+// in launch<D> (the one C entry's only dispatch):
+//   * bf16, D = 64, 96, 128 (every full-width model): flash_fwd_wgmma_kernel.
+//     One CTA per (128-row q tile, query head, batch), 384 threads, one CTA
+//     an SM (225 KB of shared memory at D = 128):
+//     - a producer warpgroup (setmaxnreg down to 24 registers) whose one
+//       thread starts TMA loads (cp.async.bulk.tensor over 4-D maps of the
+//       (B, S, H, D) tensors as they lie, so no copy is made) of Q once and
+//       of 128-key K and V tiles into a 3-stage ring; each stage has full
+//       barriers for K and V and an empty barrier (mbarrier);
+//     - two consumer warpgroups of 64 q rows (setmaxnreg up to 240). Each
+//       step starts S = Q K^T of tile j (wgmma m64n128k16, both operands in
+//       shared memory, K-major) and O += P V of tile j - 1 (wgmma m64nDk16,
+//       P rounded to bf16 in registers: S's accumulator layout is wgmma's A
+//       register layout; V read as it lies under the transpose bit), then
+//       runs tile j's online softmax (registers, log2 domain) while the
+//       second product is in flight, then releases tile j - 1's stage. The
+//       two warpgroups take turns to start products (ping-pong on named
+//       barriers), so one's softmax (exp2 on the MUFU, about half the tensor
+//       cores' time for a tile at D = 128) also overlaps the other's.
+//     Tiles are TMA boxes of 64 (D % 64 == 0) or 32 (D = 96) columns under
+//     the 128- or 64-byte swizzle that the wgmma descriptors name. TMA
+//     zero-fills rows past S or Skv within each batch; the mask runs only on
+//     tiles that cross the causal diagonal or Skv. The KV loop stops at the
+//     causal limit (kernel.py:40-42), and the heaviest q tiles are scheduled
+//     first, so they do not form the tail wave.
+//   * bf16, D = 16, 32 (smoke configurations only): flash_fwd_bf16_kernel,
+//     mma.sync m16n8k16 on 4 warps of 16 rows, K and transposed V staged
+//     through padded shared memory, no copy/compute overlap.
 //   * f32 (no f32 tensor-core path keeps the reference's digits): 4 threads
 //     per q row, each holding a quarter of q and O (dims sub, sub + 4, ...),
 //     dot products on the CUDA cores over 32-row K/V tiles in shared memory.
 
 #include <cmath>
 #include <cstdint>
+#include <cuda.h>  // CUtensorMap; the encoder is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -335,6 +357,636 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at D = 64, 96, 128: TMA ring, producer warp, wgmma consumers.
+namespace hopper {
+
+constexpr int kM = 128;        // q rows per CTA: two consumer warpgroups of 64
+constexpr int kN = 128;        // keys per K/V tile
+constexpr int kStages = 3;     // depth of the K/V ring
+constexpr int kConsumers = 2;  // consumer warpgroups
+constexpr int kMaxDevices = 64;
+constexpr int kThreads = 128 * (1 + kConsumers);
+static_assert(kM == kN, "Q, K and V tiles share one box shape");
+
+// A tile of D columns is D / CW TMA boxes of (128 rows, CW columns), each
+// row CW * 2 bytes under the swizzle of that span: 128 bytes (CW = 64)
+// where D % 64 == 0, 64 bytes (CW = 32) for D = 96. Eight rows are one
+// swizzle atom; boxes are 1,024-byte aligned.
+template <int D>
+struct Tile {
+  static constexpr int kCW = D % 64 == 0 ? 64 : 32;
+  static constexpr int kChunks = D / kCW;
+  static constexpr int kRowBytes = kCW * 2;
+  static constexpr int kAtom = 8 * kRowBytes;
+  static constexpr int kChunkBytes = kM * kRowBytes;
+  static constexpr int kBytes = kChunks * kChunkBytes;  // one Q, K or V tile
+  static constexpr uint64_t kLayout = kCW == 64 ? 1 : 2;  // wgmma B128 / B64
+  static constexpr CUtensorMapSwizzle kSwizzle =
+      kCW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  static constexpr int kSmem = (1 + 2 * kStages) * kBytes + 1024;
+  static_assert(kSmem <= 227 * 1024, "over a block's shared memory");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One box of a 4-D map {D, H, S, B} at {c0, c1, c2, c3} into shared memory;
+// completion (the box's full bytes, zero-filled past the tensor) on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of accumulator registers
+// across the asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle layout.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo, uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | layout << 62;
+}
+
+// d (64 x 128 f32) = A (64 x 16, shared, K-major) B^T (B: 128 x 16, shared,
+// K-major); d is overwritten when scale_d == 0.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64 f32) += A (64 x 16, registers) B (16 x 64, shared, MN-major:
+// the transpose bit reads V as it lies, keys by rows).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 96 f32) += A (64 x 16, registers) B (16 x 96, shared, MN-major:
+// the transpose bit reads V as it lies, keys by rows).
+__device__ __forceinline__ void wgmma_rs(float (&d)[48], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128 f32) += A (64 x 16, registers) B (16 x 128, shared, MN-major:
+// the transpose bit reads V as it lies, keys by rows).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Named barriers 1 and 2 pass the turn to start products between the two
+// consumer warpgroups (256 threads: one syncs, the other arrives).
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// S = Q K^T for one K tile: D / 16 steps along D, both operands K-major;
+// one commit group.
+template <int D>
+__device__ __forceinline__ void mma_qk(float (&sc)[kN / 2], uint32_t q_wg,
+                                         uint32_t k_st) {
+  using T = Tile<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk * 16 / T::kCW) * T::kChunkBytes +
+                         (kk * 16 % T::kCW) * 2;
+    wgmma_ss_n128(sc, desc(q_wg + off, 16, T::kAtom, T::kLayout),
+                  desc(k_st + off, 16, T::kAtom, T::kLayout), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P V for one V tile: kN / 16 steps along the keys; V is MN-major (D
+// contiguous), boxes of CW columns LBO apart, 8-key atoms SBO apart; one
+// commit group.
+template <int D>
+__device__ __forceinline__ void mma_pv(float (&acc)[D / 2],
+                                         const uint32_t (&pa)[kN / 4],
+                                         uint32_t v_st) {
+  using T = Tile<D>;
+#pragma unroll
+  for (int kk = 0; kk < kN / 16; ++kk)
+    wgmma_rs(acc, pa + 4 * kk,
+             desc(v_st + kk * 16 * T::kRowBytes, T::kChunkBytes, T::kAtom,
+                  T::kLayout));
+  wgmma_commit();
+}
+
+// 2^x on the MUFU, denormal results flushed to 0: a P below 2^-126 is far
+// below f32 resolution against the row's largest P, which is 1.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Online softmax over score tiles, log2 domain: running row maxima m and
+// this thread's share of the row sums l for its two rows.
+struct Softmax {
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  // Mask (where asked) the raw scores sc of the tile at key kv0, update m
+  // and l, overwrite sc with P = exp2(s - m), and return the factors by
+  // which O must be rescaled.
+  __device__ __forceinline__ void step(float (&sc)[kN / 2], float& alpha0,
+                                       float& alpha1, bool mask, int kv0,
+                                       int r0, int r1, int qd, int skv,
+                                       int causal, float scale2) {
+    if (mask) {
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) {
+        const int col = kv0 + (i / 4) * 8 + 2 * qd + (i & 1);
+        const int row = (i & 2) ? r1 : r0;
+        if (col >= skv || (causal && col > row)) sc[i] = -INFINITY;
+      }
+    }
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int nb = 0; nb < kN / 8; ++nb) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * nb], sc[4 * nb + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * nb + 2], sc[4 * nb + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, off));
+    }
+    mx0 = fmaxf(m0, mx0 * scale2);
+    mx1 = fmaxf(m1, mx1 * scale2);
+    // A row with no key seen yet keeps max -inf; subtract 0 there.
+    const float base0 = mx0 == -INFINITY ? 0.f : mx0;
+    const float base1 = mx1 == -INFINITY ? 0.f : mx1;
+    alpha0 = exp2_ftz(m0 - base0);
+    alpha1 = exp2_ftz(m1 - base1);
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= alpha0;
+    l1 *= alpha1;
+#pragma unroll
+    for (int nb = 0; nb < kN / 8; ++nb) {
+      sc[4 * nb] = exp2_ftz(fmaf(sc[4 * nb], scale2, -base0));
+      sc[4 * nb + 1] = exp2_ftz(fmaf(sc[4 * nb + 1], scale2, -base0));
+      sc[4 * nb + 2] = exp2_ftz(fmaf(sc[4 * nb + 2], scale2, -base1));
+      sc[4 * nb + 3] = exp2_ftz(fmaf(sc[4 * nb + 3], scale2, -base1));
+      l0 += sc[4 * nb] + sc[4 * nb + 1];
+      l1 += sc[4 * nb + 2] + sc[4 * nb + 3];
+    }
+  }
+};
+
+// P rounded to bf16 as wgmma's A fragments. Run only when no product that
+// reads pa is in flight: a write to its registers would serialize wgmma.
+__device__ __forceinline__ void pack_p(const float (&sc)[kN / 2],
+                                       uint32_t (&pa)[kN / 4]) {
+#pragma unroll
+  for (int i = 0; i < kN / 4; ++i) pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+}
+
+template <int D>
+__device__ __forceinline__ void rescale(float (&acc)[D / 2], float alpha0,
+                                        float alpha1) {
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd) {
+    acc[4 * nd] *= alpha0;
+    acc[4 * nd + 1] *= alpha0;
+    acc[4 * nd + 2] *= alpha1;
+    acc[4 * nd + 3] *= alpha1;
+  }
+}
+
+// Accumulator layout of wgmma m64nN f32 (and of P as its A operand): warp
+// `warp` of the warpgroup holds rows 16 warp + g and 16 warp + g + 8
+// (lane = 4 g + qd); register 4 nb + i holds column 8 nb + 2 qd + (i & 1)
+// of the first row (i < 2) or the second (i >= 2).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           __nv_bfloat16* __restrict__ o, int s, int skv,
+                           int h, int hkv, int n_q_tiles, float scale2,
+                           int causal) {
+  using T = Tile<D>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 3 * kStages];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sk = sq + T::kBytes, sv = sk + kStages * T::kBytes;
+  const uint32_t bq = smem_u32(bars), bk = bq + 8, bv = bk + 8 * kStages,
+                 be = bv + 8 * kStages;
+
+  // All heads and batches of the last (heaviest causal) q tile first.
+  const int per_tile = gridDim.x / n_q_tiles;
+  const int iq = n_q_tiles - 1 - static_cast<int>(blockIdx.x) / per_tile;
+  const int hb = static_cast<int>(blockIdx.x) % per_tile;
+  const int hq = hb % h, b = hb / h;
+  const int hk = hq / (h / hkv);
+  const int q0 = iq * kM;
+  int n_tiles = (skv + kN - 1) / kN;
+  if (causal) n_tiles = min(n_tiles, (q0 + kM + kN - 1) / kN);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bq, 1);
+#pragma unroll
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(bk + 8 * i, 1);
+      mbar_init(bv + 8 * i, 1);
+      mbar_init(be + 8 * i, kConsumers * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(kFull, static_cast<int>(threadIdx.x) / 128, 0);
+  if (wg == 0) {
+    // Producer: one thread keeps the ring full.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      prefetch_map(&tq);
+      prefetch_map(&tk);
+      prefetch_map(&tv);
+      mbar_expect_tx(bq, T::kBytes);
+#pragma unroll
+      for (int c = 0; c < T::kChunks; ++c)
+        tma_load(sq + c * T::kChunkBytes, &tq, bq, c * T::kCW, hq, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kStages;
+        // The stage's previous use has been released (passes at once on
+        // the first use: the phase before the first counts as complete).
+        mbar_wait(be + 8 * st, ((j / kStages) & 1) ^ 1);
+        mbar_expect_tx(bk + 8 * st, T::kBytes);
+#pragma unroll
+        for (int c = 0; c < T::kChunks; ++c)
+          tma_load(sk + st * T::kBytes + c * T::kChunkBytes, &tk, bk + 8 * st,
+                   c * T::kCW, hk, j * kN, b);
+        mbar_expect_tx(bv + 8 * st, T::kBytes);
+#pragma unroll
+        for (int c = 0; c < T::kChunks; ++c)
+          tma_load(sv + st * T::kBytes + c * T::kChunkBytes, &tv, bv + 8 * st,
+                   c * T::kCW, hk, j * kN, b);
+      }
+    }
+  } else {
+    // Consumers: 64 q rows each.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int w = wg - 1;
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int g = lane / 4, qd = lane % 4;
+    const int row_first = q0 + 64 * w;
+    const int r0 = row_first + 16 * warp + g, r1 = r0 + 8;
+    const uint32_t q_wg = sq + 64 * w * T::kRowBytes;
+    // The mask, only on a tile that crosses the diagonal or Skv (zero-
+    // filled keys past Skv score 0, not -inf).
+    auto needs_mask = [&](int kv0) {
+      return kv0 + kN > skv || (causal && kv0 + kN - 1 > row_first);
+    };
+
+    float acc[D / 2], sc[kN / 2];
+    uint32_t pa[kN / 4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) sc[i] = 0.f;
+    // Running max (log2 domain) and this thread's share of the row sums.
+    Softmax sm;
+    float alpha0, alpha1;
+
+    mbar_wait(bq, 0);
+    if (n_tiles > 0) {
+      // Tile 0: S alone. Then each step starts S of tile j and O += P V
+      // of tile j - 1, and runs tile j's softmax while the second product
+      // is in flight. The two warpgroups take turns to start them (ping-pong on
+      // named barriers 1 and 2), so one's softmax also overlaps the
+      // other's products.
+      if (w == 1) bar_arrive(1, 256);  // warpgroup 0 first
+      mbar_wait(bk, 0);
+      bar_sync(1 + w, 256);
+      fence_regs(sc);
+      wgmma_fence();
+      mma_qk<D>(sc, q_wg, sk);
+      bar_arrive(2 - w, 256);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      sm.step(sc, alpha0, alpha1, needs_mask(0), 0, r0, r1, qd, skv, causal,
+              scale2);
+      pack_p(sc, pa);
+      for (int j = 1; j < n_tiles; ++j) {
+        const int st = j % kStages, sp = (j - 1) % kStages;
+        mbar_wait(bk + 8 * st, (j / kStages) & 1);
+        mbar_wait(bv + 8 * sp, ((j - 1) / kStages) & 1);
+        bar_sync(1 + w, 256);
+        fence_regs(sc);
+        wgmma_fence();
+        mma_qk<D>(sc, q_wg, sk + st * T::kBytes);
+        rescale<D>(acc, alpha0, alpha1);  // while S is in flight
+        fence_regs(acc);
+        wgmma_fence();
+        mma_pv<D>(acc, pa, sv + sp * T::kBytes);
+        bar_arrive(2 - w, 256);
+        wgmma_wait<1>();
+        fence_regs(sc);
+        sm.step(sc, alpha0, alpha1, needs_mask(j * kN), j * kN, r0, r1, qd,
+                skv, causal, scale2);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        mbar_arrive(be + 8 * sp);
+        pack_p(sc, pa);
+      }
+      const int sl = (n_tiles - 1) % kStages;
+      mbar_wait(bv + 8 * sl, ((n_tiles - 1) / kStages) & 1);
+      bar_sync(1 + w, 256);
+      rescale<D>(acc, alpha0, alpha1);
+      fence_regs(acc);
+      wgmma_fence();
+      mma_pv<D>(acc, pa, sv + sl * T::kBytes);
+      if (w == 0) bar_arrive(2 - w, 256);  // no turn after
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(be + 8 * sl);
+    }
+    float l0 = sm.l0, l1 = sm.l1;
+
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(kFull, l0, off);
+      l1 += __shfl_xor_sync(kFull, l1, off);
+    }
+    const float inv0 = 1.f / fmaxf(l0, 1e-37f);
+    const float inv1 = 1.f / fmaxf(l1, 1e-37f);
+    const size_t q_stride = static_cast<size_t>(h) * D;
+    __nv_bfloat16* o0 = o + (static_cast<size_t>(b) * s + r0) * q_stride +
+                        static_cast<size_t>(hq) * D;
+    __nv_bfloat16* o1 = o0 + 8 * q_stride;
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd) {
+      const int col = nd * 8 + 2 * qd;
+      if (r0 < s)
+        *reinterpret_cast<uint32_t*>(o0 + col) =
+            pack_bf16(acc[4 * nd] * inv0, acc[4 * nd + 1] * inv0);
+      if (r1 < s)
+        *reinterpret_cast<uint32_t*>(o1 + col) =
+            pack_bf16(acc[4 * nd + 2] * inv1, acc[4 * nd + 3] * inv1);
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API function: found through the
+// runtime, so the library links no -lcuda.
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (batch, rows, heads, D) bf16 tensor as it lies, as a 4-D map
+// {D, heads, rows, batch}; boxes of (CW, 1, 128, 1).
+template <int D>
+bool encode(EncodeTiled enc, CUtensorMap* map, const void* ptr, int batch,
+            int rows, int heads) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {
+      static_cast<cuuint64_t>(D) * 2, static_cast<cuuint64_t>(heads) * D * 2,
+      static_cast<cuuint64_t>(rows) * heads * D * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(Tile<D>::kCW), 1,
+                             static_cast<cuuint32_t>(kM), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             Tile<D>::kSwizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int b, int s, int skv, int h, int hkv, bool causal,
+                   cudaStream_t stream) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return cudaErrorSymbolNotFound;
+  CUtensorMap mq, mk, mv;
+  if (!encode<D>(enc, &mq, q, b, s, h)) return cudaErrorInvalidValue;
+  if (skv > 0) {
+    if (!encode<D>(enc, &mk, k, b, skv, hkv) ||
+        !encode<D>(enc, &mv, v, b, skv, hkv))
+      return cudaErrorInvalidValue;
+  } else {
+    mk = mv = mq;  // no key: the kernel loads no K or V tile
+  }
+  // Shared memory above 48 KB: opted into once per device.
+  static bool opted_in[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!opted_in[dev]) {
+    err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Tile<D>::kSmem);
+    if (err != cudaSuccess) return err;
+    opted_in[dev] = true;
+  }
+  const int n_q_tiles = (s + kM - 1) / kM;
+  const float scale2 =
+      static_cast<float>(1.0 / std::sqrt(double(D))) * kLog2e;
+  flash_fwd_wgmma_kernel<D>
+      <<<n_q_tiles * h * b, kThreads, Tile<D>::kSmem, stream>>>(
+          mq, mk, mv, static_cast<__nv_bfloat16*>(o), s, skv, h, hkv,
+          n_q_tiles, scale2, causal);
+  return cudaGetLastError();
+}
+
+}  // namespace hopper
+
+// The one place that picks a kernel, by dtype and D (see the header).
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int b, int s, int skv, int h, int hkv, bool bf16,
@@ -342,11 +994,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((s + kBlockM - 1) / kBlockM, h, b);
   const float scale = static_cast<float>(1.0 / std::sqrt(double(D)));
   if (bf16) {
-    flash_fwd_bf16_kernel<D><<<grid, 128, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-        s, skv, h, hkv, scale, causal);
+    if constexpr (D >= 64) {
+      return hopper::launch<D>(q, k, v, o, b, s, skv, h, hkv, causal, stream);
+    } else {
+      flash_fwd_bf16_kernel<D><<<grid, 128, 0, stream>>>(
+          static_cast<const __nv_bfloat16*>(q),
+          static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v),
+          static_cast<__nv_bfloat16*>(o), s, skv, h, hkv, scale, causal);
+    }
   } else {
     flash_fwd_f32_kernel<D><<<grid, 256, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
@@ -359,7 +1015,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q (B, S, H, D), k/v (B, Skv, Hkv, D), o (B, S, H, D), all contiguous and
-// 16-byte aligned; bf16 != 0 for bfloat16, else float32.
+// 16-byte aligned; bf16 != 0 for bfloat16, else float32. Returns nonzero
+// when the launch is refused or, for the wgmma kernel, the tensor maps
+// cannot be encoded.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int b, int s,
                                    int skv, int h, int hkv, int d, int bf16,
@@ -377,5 +1035,20 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
       return launch<128>(q, k, v, o, b, s, skv, h, hkv, bf16, causal, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Dynamic shared memory of the wgmma kernel at head dim d (the Q tile, the
+// K/V ring and 1 KB of alignment slack), or 0 for a d it does not take.
+extern "C" int flash_attention_wgmma_smem(int d) {
+  switch (d) {
+    case 64:
+      return hopper::Tile<64>::kSmem;
+    case 96:
+      return hopper::Tile<96>::kSmem;
+    case 128:
+      return hopper::Tile<128>::kSmem;
+    default:
+      return 0;
   }
 }

@@ -1,8 +1,11 @@
-"""Wrapper of the flash-attention kernel (``csrc/flash_attention.cu``).
+"""Wrapper of the flash-attention kernels (``csrc/flash_attention.cu``).
 
-A CUDA tensor launches the kernel, a CPU tensor takes the plain version in
-``ref.py``; there is no fallback between them. ``launches`` counts kernel
-launches.
+A CUDA tensor launches a kernel, a CPU tensor takes the plain version in
+``ref.py``; there is no fallback between them. The C entry picks the kernel
+by dtype and head dim: bf16 at D = 64, 96, 128 (every full-width model)
+runs the Hopper kernel (TMA ring, producer warp, wgmma), bf16 at D = 16 or
+32 (smoke configurations) the mma.sync kernel, f32 the CUDA-core kernel.
+All three are named ``flash_fwd_*``; ``launches`` counts launches of each.
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ref
 
-HEAD_DIMS = (16, 32, 64, 96, 128)  # the kernel's instances of D
+HEAD_DIMS = (16, 32, 64, 96, 128)  # the kernels' instances of D
 DTYPES = (torch.float32, torch.bfloat16)
 
 launches = 0

@@ -1,10 +1,11 @@
-"""Each CUDA kernel of the port against its plain PyTorch version, on a card:
-bit-equal for the integer kernels; flash attention within f32 ``atol=rtol=
-2e-5`` (TF32 off) and bf16 ``3e-2``, the JAX kernel tests' tolerances. Also
-one smoke-config LM prefill on the card against the CPU. Imports no JAX, so
-it also runs where only PyTorch is installed:
+"""Each integer CUDA kernel of the port (K1-K4) against its plain PyTorch
+version on a card, bit-equal; and one smoke-config LM prefill on the card
+against the CPU. Flash attention's (K5) cases are in
+``test_torch_cuda_flash.py``. Imports no JAX, so it also runs where only
+PyTorch is installed:
 
-    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py \
+        tests/test_torch_cuda_flash.py
 
 Without a card every test here skips."""
 
@@ -17,7 +18,7 @@ import torch
 from repro_torch.configs import base as cfg_base
 from repro_torch.core import types, u32
 from repro_torch.core import world_state as ws
-from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.hash_table import ops as ht_ops, ref as ht_ref
 from repro_torch.kernels.mvcc_validate import ops as mv_ops, ref as mv_ref
 from repro_torch.kernels.sig_mac import ops as mac_ops, ref as mac_ref
@@ -127,33 +128,6 @@ def no_tf32(monkeypatch):
     """Full-f32 matrix products in the plain versions, stated, not assumed."""
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,s,skv,h,kv,d,dtype,causal", [
-    (1, 2048, 2048, 28, 4, 128, torch.bfloat16, True),  # Qwen2-7B prefill
-    (1, 777, 777, 28, 4, 128, torch.bfloat16, True),    # ragged tail
-    (2, 300, 300, 32, 32, 96, torch.float32, True),     # MHA at D = 96
-    (2, 64, 64, 4, 1, 16, torch.float32, True),         # MQA
-    (2, 100, 100, 4, 2, 16, torch.bfloat16, True),
-    (1, 130, 130, 8, 8, 64, torch.bfloat16, False),
-    (1, 70, 70, 6, 2, 32, torch.float32, False),
-    (1, 45, 170, 4, 2, 64, torch.bfloat16, True),       # Skv != S
-])
-def test_flash_attention_kernel(cuda, no_tf32, b, s, skv, h, kv, d, dtype,
-                                causal):
-    rng = np.random.default_rng(s + d)
-    q, k, v = (torch.from_numpy(rng.normal(size=(b, n_s, n, d)).astype(
-        np.float32)).to(cuda, dtype)
-        for n_s, n in ((s, h), (skv, kv), (skv, kv)))
-    before = fa_ops.launches
-    got = fa_ops.flash_attention(q, k, v, causal=causal)
-    torch.cuda.synchronize()
-    assert fa_ops.launches == before + 1
-    want = fa_ref.flash_attention_ref(q, k, v, causal=causal)
-    tol = 2e-5 if dtype == torch.float32 else 3e-2
-    assert got.dtype == dtype
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
 @pytest.mark.gpu
