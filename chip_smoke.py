@@ -10,23 +10,32 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
 2. Hold each kernel against its plain PyTorch version on the card, at the
    paths' shapes and on adversarial inputs (words 0 and 0xFFFFFFFF, empty
    keys, full buckets, duplicate keys, conflicting transactions, inactive
-   writes). Tolerance: none for K1-K4, whose outputs are integers and must
-   be bit-equal; flash attention (K5) within atol = rtol = 2e-5 in f32
-   (TF32 off), and in bf16 within atol 5e-3 + rtol 1e-2 of the plain
-   version on the inputs cast to f32 (kernels/flash_attention/ref.py), at
-   the serving shapes and at the edges of its wgmma kernel's tiles.
+   writes); K1 also at every ordered schedule the paths use (`step` 1 and
+   tiles that do not divide the rows); K4 also at the borders of its
+   32-tx chunks (31-33, 63-65, 1023, 1024 txs), at RK = WK = 4 and
+   RK = 3, WK = 1, and on hand-made blocks whose verdicts are known
+   (kernels/mvcc_validate/cases.py). Tolerance: none for K1-K4, whose
+   outputs are integers and must be bit-equal; flash attention (K5) within
+   atol = rtol = 2e-5 in f32 (TF32 off), and in bf16 within atol 5e-3 +
+   rtol 1e-2 of the plain version on the inputs cast to f32
+   (kernels/flash_attention/ref.py), at the serving shapes and at the
+   edges of its wgmma kernel's tiles.
 3. Time each kernel with CUDA events over many launches after a warm-up,
    beside its plain version, its bound (the larger of bytes over 3.35 TB/s
    and operations over 67 T/s, or 989 TFLOP/s for K5's bf16 products),
    from the profiler its device time and, for K5, SDPA's time; then K5 and
    SDPA in turns at a 2,048- and a 777-token Qwen2-7B prefill and a
-   2,048-token phi3-mini one (D = 96) (TFLOP/s, share of the bound, ratio).
+   2,048-token phi3-mini one (D = 96) (TFLOP/s, share of the bound, ratio);
+   K1 at step 1, 16 and 100 on the verify block, the serial admission of a
+   ladder round and the launch floor (1 x 1 x 1), device time a step; K4
+   at 100 and 1,024 txs, device time a chunk.
 4. Run the FASTFABRIC engine on the card at PAPER_DIMS (2.9 KB
    transactions), blocks of 100, a 2^20-bucket x 8-slot world state, and
    proposals from 2^22 accounts: one warm-up round, then a timed round of
    1,000 transactions. Every launch counter is set to 0 just before and read
-   just after; every kernel of the path must have run, and verify() must be
-   all True.
+   just after; every kernel of the path must have run, K1 exactly twice a
+   round plus once a block and K4 once a block, and verify() must be all
+   True.
 5. Run the same rounds on the CPU (plain versions) and require the store
    chain, log head, journal head and both state digests to be identical.
 6. Profile one more round on the card, of 500 transactions, for the
@@ -37,7 +46,9 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
    timed round of 500 disjoint transfers and a conflicting round of 500
    transfers among 256 accounts (src != dst), counters set to 0 before each
    configuration and read after it; verify() all True, every kernel of the
-   configuration launched, and the same rounds on the CPU identical.
+   configuration launched (K1 and K4 as in phase 4: a serial check is one
+   launch a block and a serial admission one a round), and the same
+   rounds on the CPU identical.
 8. Serving at full width: Qwen2-7B (28 layers, bf16, weights drawn on the
    card from --seed), ServeEngine with 4 slots of 2,080 positions, 8
    requests of 64-2,048 random tokens, 16 new tokens each; counters set to
@@ -191,6 +202,15 @@ def max_abs_err(got, want) -> int:
     return err
 
 
+def k1_k4_launches(stats) -> dict:
+    """The K1 and K4 launches a run of rounds must make: K1 once a round
+    for the endorsers' tags, once a round for admission (whole or one
+    proposal a step) and once a block for the endorsement check (whole,
+    tiled or one transaction a step); K4 once a block."""
+    n_blocks = sum(st.n_blocks for st in stats)
+    return {"mac_many": 2 * len(stats) + n_blocks, "validate": n_blocks}
+
+
 def conflicting_proposals(n: int, seed: int, device):
     """n transfers among LADDER_POOL accounts with src != dst: in-block
     conflicts and stale reads, but no transaction writes one key twice, so
@@ -224,6 +244,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.hash_table import ops as ht_ops, ref as ht_ref
+    from repro_torch.kernels.mvcc_validate import cases as mv_cases
     from repro_torch.kernels.mvcc_validate import ops as mv_ops
     from repro_torch.kernels.mvcc_validate import ref as mv_ref
     from repro_torch.kernels.sig_mac import ops as mac_ops, ref as mac_ref
@@ -321,6 +342,27 @@ def main(argv=None) -> int:
             ("extreme words and keys 1000x22x4", T(edge), keys_edge)):
         check("mac_many", [mac_ops.mac_many(msg, r, s)],
               [mac_ref.mac_many_ref(msg, r, s)], what)
+    # K1's ordered schedule: one block, `step` rows a step with a barrier
+    # between steps, as the serial (1) and tiled (16; 7 and 3 do not divide
+    # the rows) checks and the serial admission run it; 1000 x 22 spans
+    # several staged tiles of 8,192 words, 3 x 9000 is too long to stage;
+    # and the floor.
+    for what, msg, (r, s), steps in (
+            ("verify 100x22x3", msg_block, (r3, s3), (1, 3, 7, 16, 99)),
+            ("admission 1000x3x1",
+             T(rng.integers(0, 1 << 32, (1000, 3), dtype=np.uint32)),
+             (r1, s1), (1, 7)),
+            ("extreme words and keys 1000x22x4", T(edge), keys_edge,
+             (1, 33, 1024)),
+            ("1x1x1", T(np.array([[0xFFFFFFFF]], np.uint32)), (r1, s1),
+             (1,)),
+            ("rows too long to stage 3x9000x3",
+             T(rng.integers(0, 1 << 32, (3, 9000), dtype=np.uint32)),
+             (r3, s3), (1, 2))):
+        want = mac_ref.mac_many_ref(msg, r, s)
+        for st in steps:
+            check("mac_many", [mac_ops.mac_many(msg, r, s, st)], [want],
+                  f"{what} step {st}")
 
     # K2: a full-size table: ~2M keys in 2^20 buckets (some buckets full),
     # buckets forced full, a key stored twice; 200 queries as on the path.
@@ -431,19 +473,54 @@ def main(argv=None) -> int:
         ok0 = torch.from_numpy(g.random(b) < 0.95).to(dev)
         return [t.contiguous() for t in (rk, rv, wk, cur)] + [ok0]
 
+    def mv_cuda(arrays):
+        rk_, rv_, wk_, cur_, ok0_ = arrays
+        return [T(a) for a in (rk_, rv_, wk_, cur_)] + [
+            torch.from_numpy(ok0_).to(dev)]
+
     mv_block = mvcc_inputs(100, 3, 0.5)
-    for what, ins in (("block of 100", mv_block),
-                      ("block of 1", mvcc_inputs(1, 4, 0.0)),
-                      ("block of 1024", mvcc_inputs(1024, 5, 0.3))):
+    mv_1024 = mv_cuda(mv_cases.random_block(1024, 9, n_accounts=400))
+    mv_checks = [("block of 100", mv_block),
+                 ("block of 1", mvcc_inputs(1, 4, 0.0)),
+                 ("block of 1024", mvcc_inputs(1024, 5, 0.3)),
+                 ("dense block of 1024", mv_1024),
+                 # key counts other than the paths' 2 and 2 are read at
+                 # run time by another instance of the kernel
+                 ("RK = WK = 4, block of 1024", mv_cuda(mv_cases.random_block(
+                     1024, 10, nr=4, nw=4, n_accounts=600))),
+                 ("RK = 3, WK = 1, block of 333",
+                  mv_cuda(mv_cases.random_block(333, 12, nr=3, nw=1)))]
+    # the chunk borders of the one-warp scan (32 txs a chunk), dense
+    # conflicts among 48 accounts
+    mv_checks += [(f"block of {b_}", mv_cuda(mv_cases.random_block(b_, b_)))
+                  for b_ in (31, 32, 33, 63, 64, 65, 1023)]
+    for what, ins in mv_checks:
         got = mv_ops.validate(*ins)
         check("validate", [got], [mv_ref.validate_ref(*ins)], what)
         log(f"[check] validate {what}: {int(got.sum())} valid")
-    try:
-        mv_ops.validate(*mvcc_inputs(1025, 6, 0.0))
-    except ValueError:
-        log("[check] validate refuses a block of 1025")
-    else:
-        raise AssertionError("validate took a block of 1025 transactions")
+    # hand-made blocks with known verdicts: a chain whose verdicts ripple
+    # across chunk borders, one key for all, write-write only, empty keys,
+    # a key written twice, all reads stale
+    for what, make in mv_cases.CASES.items():
+        arrays, want = make()
+        got = mv_ops.validate(*mv_cuda(arrays))
+        check("validate", [got], [torch.from_numpy(want).to(dev)],
+              f"hand-made {what}")
+        log(f"[check] validate hand-made {what}: {int(got.sum())} of "
+            f"{len(want)} valid")
+    for what, ins, msg in (
+            ("a block of 1025", mvcc_inputs(1025, 6, 0.0), "at most 1024"),
+            ("RK = WK = 8 at 1024 txs (262,272 bytes of shared memory)",
+             mv_cuda(mv_cases.random_block(1024, 11, nr=8, nw=8)),
+             "227 KB")):
+        try:
+            mv_ops.validate(*ins)
+        except ValueError as exc:
+            if msg not in str(exc):
+                raise
+            log(f"[check] validate refuses {what}: {exc}")
+        else:
+            raise AssertionError(f"validate took {what}")
 
     # K5: the serving shapes (a 2,048-token Qwen2-7B prompt, a ragged one),
     # MHA at D = 96 and MQA in f32; SDPA's distance from the plain version
@@ -606,11 +683,61 @@ def main(argv=None) -> int:
             f"({flop / lib_dev / 1e9:.1f} TFLOP/s); K5 / SDPA "
             f"{k5_dev / lib_dev:.3f}")
         del tq, tk, tv, tq_t, tk_t, tv_t
-    # K4's scan is b dependent barrier steps, which no byte or operation
-    # count sees: report the device time per step beside its byte bound.
-    mv_dev = timing["validate"]["device_ms"]
-    log(f"[time] mvcc_validate.validate: {b} dependent scan steps, "
-        f"{mv_dev / b * 1e3 if mv_dev else None} us of device time each")
+    # K1's ordered schedule: the verify block at step 1 (the serial check),
+    # 16 (a tile) and 100 (whole), the serial admission of a ladder round,
+    # and the launch floor; device time per step (the launch's device time
+    # over its ceil(b / step) steps).
+    mac_t = timing["mac_many"]
+    mac_t["extra"] = {"schedules": []}
+    adm_msg = T(rng.integers(0, 1 << 32, (LADDER_TXS, 3), dtype=np.uint32))
+    for what, msg, (r, s), st in (
+            ("verify 100x22x3", msg_block, (r3, s3), 1),
+            ("verify 100x22x3", msg_block, (r3, s3), 16),
+            ("verify 100x22x3", msg_block, (r3, s3), 100),
+            (f"admission {LADDER_TXS}x3x1", adm_msg, (r1, s1), 1),
+            ("launch floor 1x1x1", T(np.array([[7]], np.uint32)), (r1, s1),
+             1)):
+        def fn(msg=msg, r=r, s=s, st=st):
+            return mac_ops.mac_many(msg, r, s, st)
+        rows, words = msg.shape
+        n_steps = -(-rows // st)
+        bnd = bound_ms(4 * (msg.numel() + 2 * r.numel() + rows * r.numel()),
+                       2 * rows * r.numel() * words)
+        ms_ = event_ms(fn, 200)
+        dev_ = device_ms(fn, "mac_kernel")
+        mac_t["extra"]["schedules"].append({
+            "shape": what, "step": st, "steps": n_steps, "ms": ms_,
+            "device_ms": dev_, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "device_us_per_step": dev_ / n_steps * 1e3 if dev_ else None})
+        log(f"[time] sig_mac.mac_many {what} step {st} ({n_steps} ordered "
+            f"steps, one launch): {ms_:.6f} ms per call, device {dev_} ms, "
+            f"{dev_ / n_steps * 1e3 if dev_ else None} us of device time a "
+            f"step; bound {bnd[0]:.9f} ms ({bnd[1]})")
+    # K4: the scan is ceil(b / 32) dependent chunk steps in one warp after
+    # the parallel conflict words; report the device time per chunk (the
+    # launch's device time over its chunks) at 100 and 1024 txs.
+    mv_t = timing["validate"]
+    b4, nr4, _ = mv_1024[0].shape
+    nw4 = mv_1024[2].shape[1]
+    v4 = mv_ops.validate(*mv_1024).long()
+    bnd4 = bound_ms(4 * b4 * (2 * nr4 + 2 * nr4 + 2 * nw4) + 2 * b4,
+                    2 * nw4 * (nr4 + nw4) * int((torch.cumsum(v4, 0)
+                                                 - v4).sum()))
+    ms4 = event_ms(lambda: mv_ops.validate(*mv_1024), 200)
+    dev4 = device_ms(lambda: mv_ops.validate(*mv_1024), "mvcc_kernel")
+    mv_t["extra"] = {"b1024": {
+        "ms": ms4, "device_ms": dev4, "bound_ms": bnd4[0],
+        "bound_by": bnd4[1], "chunks": -(-b4 // 32),
+        "shared_memory_bytes": mv_ops.smem_bytes(b4, nr4, nw4)}}
+    for bb, dev_ in ((b, mv_t["device_ms"]), (b4, dev4)):
+        nch = -(-bb // 32)
+        log(f"[time] mvcc_validate.validate: block of {bb}, {nch} chunk "
+            f"steps, {dev_ / nch * 1e3 if dev_ else None} us of device "
+            f"time a chunk")
+    log(f"[time] mvcc_validate.validate (block of 1024, RK = WK = 2, "
+        f"{mv_ops.smem_bytes(b4, nr4, nw4)} bytes of shared memory): "
+        f"{ms4:.6f} ms per call, device {dev4} ms, bound {bnd4[0]:.9f} ms "
+        f"({bnd4[1]})")
     # K3's same-bucket writes are a dependent chain on one thread.
     log(f"[time] hash_table.commit: {n_applied} applied writes, longest "
         f"same-bucket chain {chain}; bound "
@@ -673,6 +800,10 @@ def main(argv=None) -> int:
     if not all(launches[k] for k in ("mac_many", "lookup", "validate")):
         raise AssertionError(f"a kernel never ran on the main path: "
                              f"{launches}")
+    want_k = k1_k4_launches(stats)
+    if any(launches[k] != n for k, n in want_k.items()):
+        raise AssertionError(f"fastfabric: K1/K4 launches {launches}, "
+                             f"expected {want_k}")
     if any(st.n_valid != st.n_txs for st in stats):
         raise AssertionError("a disjoint-transfer round had invalid txs")
 
@@ -804,6 +935,10 @@ def main(argv=None) -> int:
         if not all(got[k] for k in need):
             raise AssertionError(f"{name}: a kernel of the path never ran: "
                                  f"{got}")
+        want_k = k1_k4_launches(st)
+        if any(got[k] != n for k, n in want_k.items()):
+            raise AssertionError(f"{name}: K1/K4 launches {got}, expected "
+                                 f"{want_k}")
         if not all(lverdict.values()):
             raise AssertionError(f"{name}: verify() failed on the card: "
                                  f"{lverdict}")
@@ -1054,6 +1189,7 @@ def main(argv=None) -> int:
         "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
         "library_ms": t["library_ms"], "device_ms": t["device_ms"],
         **({"turns": t["turns"]} if "turns" in t else {}),
+        **t.get("extra", {}),
     } for key, t in timing.items()]
     log(json.dumps({"engine": summary}, default=str))
     log(json.dumps({"ladder": ladder}, default=str))

@@ -97,17 +97,14 @@ class BlockResult(NamedTuple):
 
 def _verify_endorsements(txb: types.TxBatch, parallel: bool, tx_par: int
                          ) -> torch.Tensor:
-    """(B,) bool: every endorsement tag verifies. The whole block in one
-    MAC launch (P-II), tiles of ``tx_par`` transactions, or one transaction
-    at a time: without P-II that is B launches of the MAC kernel a block,
-    the baseline's serial validation on the card. All three give the same
-    bits."""
+    """(B,) bool: every endorsement tag verifies. One MAC launch a block:
+    the whole block at once (P-II), tiles of ``tx_par`` transactions in
+    order, or, without P-II, one transaction a step in order, the
+    baseline's serial validation as ordered steps on the card. All three
+    give the same bits."""
     if parallel and tx_par <= 0:
         return crypto.verify_tags(txb)
-    step = tx_par if parallel else 1
-    return torch.cat([
-        crypto.verify_tags(types.TxBatch(*(f[i:i + step] for f in txb)))
-        for i in range(0, txb.batch, step)])
+    return crypto.verify_tags(txb, step=tx_par if parallel else 1)
 
 
 def _advance_journal_head(state: PeerState, txb: types.TxBatch, valid,

@@ -52,13 +52,15 @@ class OrderedBlocks(NamedTuple):
 N_REGISTERED = 1 << 16
 
 
-def _admission(tx_id: torch.Tensor, client: torch.Tensor):
+def _admission(tx_id: torch.Tensor, client: torch.Tensor,
+               step: int | None = None):
     """Client authorization at admission: registry membership plus an
     admission MAC over the header, stamped into the published words.
+    ``step`` proposals a step on the card (1: one at a time, in order).
     Returns (stamp (N,) u32, auth_ok (N,) bool)."""
     r, s = crypto.endorser_keys(1, device=tx_id.device)
     words = torch.stack([tx_id[..., 0], tx_id[..., 1], client], dim=-1)
-    tag = crypto.poly_mac(words.reshape(-1, 3), r[0], s[0])
+    tag = crypto.poly_mac(words.reshape(-1, 3), r[0], s[0], step)
     return tag.reshape(client.shape), u32.lt(client, N_REGISTERED)
 
 
@@ -94,14 +96,10 @@ def order_batch(wire: torch.Tensor, tx_ids: torch.Tensor,
     if n % cfg.block_size:
         raise ValueError(f"round size {n} not a multiple of {cfg.block_size}")
 
-    # Admission: every proposal at once (O-II), or one at a time.
-    if cfg.pipelined:
-        stamp, auth_ok = _admission(tx_ids, clients)
-    else:
-        parts = [_admission(tx_ids[i:i + 1], clients[i:i + 1])
-                 for i in range(n)]
-        stamp = torch.cat([p[0] for p in parts])
-        auth_ok = torch.cat([p[1] for p in parts])
+    # Admission: every proposal at once (O-II), or one at a time, in order
+    # (one launch whose steps are the proposals).
+    stamp, auth_ok = _admission(tx_ids, clients,
+                                step=None if cfg.pipelined else 1)
 
     # Publish to the consensus log, admission-stamped.
     if cfg.separate_metadata:

@@ -7,14 +7,25 @@ launches.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.core import u32
 from repro_torch.kernels import build
 from repro_torch.kernels.mvcc_validate import ref
 
-MAX_TXS = 1024  # one thread per transaction in one thread block
+MAX_TXS = 1024  # 32 chunks of 32: one warp lane per chunk in the scan
 launches = 0
+
+
+def smem_bytes(b: int, nr: int, nw: int) -> int:
+    """Dynamic shared memory of one block's launch on the card: the keys,
+    the conflict words (one per (chunk, tx)) and the ok words."""
+    f = build.libraries()["mvcc_validate"].mvcc_validate_smem
+    f.argtypes = [ctypes.c_int] * 3
+    f.restype = ctypes.c_longlong
+    return f(b, nr, nw)
 
 
 def validate(read_keys, read_vers, write_keys, current_versions, ok0):
@@ -34,6 +45,14 @@ def validate(read_keys, read_vers, write_keys, current_versions, ok0):
     if b > MAX_TXS:
         raise ValueError(f"block of {b} txs: the kernel takes at most "
                          f"{MAX_TXS}")
+    smem = smem_bytes(b, nr, nw)
+    most = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    if smem > most:
+        raise ValueError(
+            f"block of {b} txs with {nr} read and {nw} write keys needs "
+            f"{smem} bytes of shared memory; a thread block on "
+            f"{torch.cuda.get_device_name(dev)} has at most {most} "
+            f"({most // 1024} KB)")
     valid = torch.empty((b,), dtype=torch.bool, device=dev)
     if b == 0:
         return valid

@@ -42,9 +42,11 @@ def mulmod31(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _reduce(a.long() * b.long()).to(u32.WORD)
 
 
-def mac_many_ref(msg: torch.Tensor, rs: torch.Tensor, ss: torch.Tensor
-                 ) -> torch.Tensor:
-    """(B, W) u32 messages x (NE,) keys in [0, p) -> (B, NE) tags."""
+def mac_many_ref(msg: torch.Tensor, rs: torch.Tensor, ss: torch.Tensor,
+                 step: int | None = None) -> torch.Tensor:
+    """(B, W) u32 messages x (NE,) keys in [0, p) -> (B, NE) tags. All rows
+    at once whatever ``step`` is: a row's tag does not depend on the
+    schedule, which ``step`` sets only on the card."""
     m = _reduce(u32.to_u64(msg))
     r = rs.long()[None, :]
     acc = torch.zeros((msg.shape[0], rs.shape[0]), dtype=torch.int64,

@@ -202,9 +202,9 @@ def test_commit_block_staged_matches_jax(peer):
 
 
 def test_endorsement_checks_serial_tiled_whole_agree():
-    """The three endorsement paths give the same bits, and the serial path
-    launches the MAC once per transaction (counted here on the plain
-    version's calls)."""
+    """The three endorsement paths (the whole block at once, tiles of
+    ``tx_par`` in order, one transaction a step in order) give the same
+    bits, with three corrupted tags found by each."""
     dims = tt.TEST_DIMS
     tb = tt.make_transfer_batch(dims, 37, seed=4, device="cpu")
     tags = tc.endorse_batch(tb)
