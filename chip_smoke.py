@@ -11,9 +11,17 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
    paths' shapes and on adversarial inputs (words 0 and 0xFFFFFFFF, empty
    keys, full buckets, duplicate keys, conflicting transactions, inactive
    writes); K1 also at every ordered schedule the paths use (`step` 1 and
-   tiles that do not divide the rows); K4 also at the borders of its
-   32-tx chunks (31-33, 63-65, 1023, 1024 txs), at RK = WK = 4 and
-   RK = 3, WK = 1, and on hand-made blocks whose verdicts are known
+   tiles that do not divide the rows); K2 also at other slot counts (S =
+   3, a generic instance; S = 40, a row in two segments); K3 also on
+   every route and edge of its schedule (33 writes in two parts; 4,096;
+   33,000, past the 1,024-part limit; a hot bucket of 3,000 writes that
+   one part stages in several passes; S = 16; S = 40, a row walked in
+   memory, also as a hot bucket that overflows);
+   K4 on both routes (one CTA; a grid of conflict-word tiles and a scan
+   CTA; each block on both where it fits one CTA), at the borders of its 32-tx chunks (31-33, 63-65, 1023, 1024
+   txs), past 32 chunks (1,025, 2,048, 4,096 txs), at RK = WK = 4,
+   RK = WK = 8 (1,024 txs, past one CTA's shared memory) and RK = 3,
+   WK = 1, and on hand-made blocks whose verdicts are known
    (kernels/mvcc_validate/cases.py). Tolerance: none for K1-K4, whose
    outputs are integers and must be bit-equal; flash attention (K5) within
    atol = rtol = 2e-5 in f32 (TF32 off), and in bf16 within atol 5e-3 +
@@ -27,8 +35,11 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
    SDPA in turns at a 2,048- and a 777-token Qwen2-7B prefill and a
    2,048-token phi3-mini one (D = 96) (TFLOP/s, share of the bound, ratio);
    K1 at step 1, 16 and 100 on the verify block, the serial admission of a
-   ladder round and the launch floor (1 x 1 x 1), device time a step; K4
-   at 100 and 1,024 txs, device time a chunk.
+   ladder round and the launch floor (1 x 1 x 1), device time a step; K2
+   at 200 and 8,192 queries; K3 at 200, 2,048 and 4,096 writes and on a
+   hot bucket (64 writes of 6 keys); K4 at 100, 1,024, 2,048 and 4,096
+   txs, device time a chunk, and each of its two routes, forced, at 32 to
+   1,235 txs, where the wrapper chooses between them.
 4. Run the FASTFABRIC engine on the card at PAPER_DIMS (2.9 KB
    transactions), blocks of 100, a 2^20-bucket x 8-slot world state, and
    proposals from 2^22 accounts: one warm-up round, then a timed round of
@@ -38,18 +49,24 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
    True.
 5. Run the same rounds on the CPU (plain versions) and require the store
    chain, log head, journal head and both state digests to be identical.
-6. Profile one more round on the card, of 500 transactions, for the
+6. Profile one more round on the card, of 300 transactions, for the
    device's busy share.
 7. The peer ladder: Fabric 1.2 (sorted store, staged serial validation),
    P-I and P-I+II (hash table, sequential commit kernel), each behind the
    Fabric 1.2 orderer, at the same size: a warm-up round of one block, a
-   timed round of 500 disjoint transfers and a conflicting round of 500
+   timed round of 500 disjoint transfers and a conflicting round of 300
    transfers among 256 accounts (src != dst), counters set to 0 before each
    configuration and read after it; verify() all True, every kernel of the
    configuration launched (K1 and K4 as in phase 4: a serial check is one
    launch a block and a serial admission one a round), and the same
    rounds on the CPU identical.
-8. Serving at full width: Qwen2-7B (28 layers, bf16, weights drawn on the
+8. Large blocks: P-I+II (`OPT_P2`) behind the O-I + O-II orderer with
+   blocks of 2,048 at the same size, one round of 4,096 transfers (K2,
+   K3 at 4,096 writes a block, K4 on its tiled route), counters set to 0
+   before and read after; verify() all True, and the same round on the
+   CPU identical (chain and validity bits, log head, journal head, state
+   digest).
+9. Serving at full width: Qwen2-7B (28 layers, bf16, weights drawn on the
    card from --seed), ServeEngine with 4 slots of 2,080 positions, 8
    requests of 64-2,048 random tokens, 16 new tokens each; counters set to
    0 before and read after. Every request done with 16 tokens and ledger
@@ -57,7 +74,7 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
    request re-run by its own prefill + decode_step must give the same first
    token. Then one prefill and one decode step are profiled for the
    device's busy time and K5's share of it.
-9. Serving, card against CPU: the same architecture cut to 2 layers, f32,
+10. Serving, card against CPU: the same architecture cut to 2 layers, f32,
    weights drawn once on the CPU and moved to the card, 2 requests (777
    and 256 tokens, 4 new each): prefill logits within 1e-4, greedy tokens
    and request-ledger words identical.
@@ -87,11 +104,14 @@ ALU_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores; the
 # same units at no more than this rate
 TC_BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 ROUND_TXS = 1000
-LADDER_TXS = 500  # the ladder's timed and conflicting rounds
+LADDER_TXS = 500  # the ladder's timed round
+LADDER_CONFLICT_TXS = 300  # its conflicting round
 N_ACCOUNTS = 1 << 22
 SEEDS = (0, 1)  # warm-up round, then the timed round
-PROFILED_TXS = 500  # the profiled round (its trace takes minutes to read)
+PROFILED_TXS = 300  # the profiled round (its trace takes minutes to read)
 LADDER_POOL = 256  # accounts of the ladder's conflicting round
+BIG_BLOCK, BIG_ROUND = 2048, 4096  # the large-block round: two blocks
+ROUTE_SWEEP = (32, 64, 100, 128, 160, 192, 256, 512, 1024, 1235)  # K4
 SERVE_ARCH = "qwen2-7b"
 SERVE_PROMPTS = (2048, 1531, 1024, 777, 2000, 300, 1999, 64)
 SERVE_NEW = 16
@@ -162,6 +182,22 @@ def device_ms(fn, kernel_name: str, iters: int = 50) -> float | None:
     return total / count / 1e3 if count else None
 
 
+def device_call_ms(fn, kernel_names: tuple, iters: int = 50) -> float:
+    """Device time a call of ``fn`` spends in the CUDA kernels whose names
+    contain one of ``kernel_names`` (all of a route's launches), over
+    ``iters`` calls, from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.self_device_time_total for ev in _device_events(prof)
+               if any(n in ev.key for n in kernel_names)) / iters / 1e3
+
+
 def device_total_ms(fn, iters: int = 50) -> float:
     """Mean device time of everything ``fn`` launches, over ``iters``
     calls, from the profiler: unlike CUDA events around back-to-back
@@ -202,13 +238,15 @@ def max_abs_err(got, want) -> int:
     return err
 
 
-def k1_k4_launches(stats) -> dict:
+def k1_k4_launches(stats, k4_per_block: int = 1) -> dict:
     """The K1 and K4 launches a run of rounds must make: K1 once a round
     for the endorsers' tags, once a round for admission (whole or one
     proposal a step) and once a block for the endorsement check (whole,
-    tiled or one transaction a step); K4 once a block."""
+    tiled or one transaction a step); K4 once a block on its one-CTA
+    route, twice on its tiled route."""
     n_blocks = sum(st.n_blocks for st in stats)
-    return {"mac_many": 2 * len(stats) + n_blocks, "validate": n_blocks}
+    return {"mac_many": 2 * len(stats) + n_blocks,
+            "validate": k4_per_block * n_blocks}
 
 
 def conflicting_proposals(n: int, seed: int, device):
@@ -237,8 +275,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import torch.nn.functional as F
     from repro_torch.configs import base as cfg_base
-    from repro_torch.core import (committer, crypto, engine, ledger, types,
-                                  u32, unmarshal)
+    from repro_torch.core import (committer, crypto, engine, ledger,
+                                  orderer, types, u32, unmarshal)
     from repro_torch.core import world_state as ws
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -403,10 +441,45 @@ def main(argv=None) -> int:
         return T(qs)
 
     q200 = queries(200, 1)
-    for what, qs in (("200 queries", q200), ("8192 queries",
-                                             queries(8192, 2))):
+    q8192 = queries(8192, 2)
+    for what, qs in (("200 queries", q200), ("8192 queries", q8192)):
         check("lookup", ht_ops.lookup(*table, qs),
               ht_ref.lookup_ref(*table, qs), what)
+
+    def small_table(nb_, s_, vw_, seed):
+        """A table of nb_ x s_ slots, half full, two buckets full, one
+        key stored twice in a row; numpy arrays."""
+        g = np.random.default_rng(seed)
+        k_ = g.integers(1, 1 << 32, (nb_ * s_ // 2 + 2 * s_, 2),
+                        dtype=np.uint32)
+        k_[-2 * s_:, 0] = ((k_[-2 * s_:, 0] & ~np.uint32(nb_ - 1))
+                           | np.repeat([1, 2], s_).astype(np.uint32))
+        keys_ = np.zeros((nb_, s_, 2), np.uint32)
+        fill = np.zeros(nb_, int)
+        for key in k_:
+            b_ = int(key[0]) & (nb_ - 1)
+            if fill[b_] < s_:
+                keys_[b_, fill[b_]] = key
+                fill[b_] += 1
+        keys_[3, -1] = keys_[3, 0]
+        return (keys_, g.integers(1, 1 << 32, (nb_, s_), dtype=np.uint32),
+                g.integers(0, 1 << 32, (nb_, s_, vw_), dtype=np.uint32))
+
+    # Other slot counts: S = 3 (VW = 3, the generic instance, a group of
+    # 4 lanes) and S = 40 (a row walked in two 32-lane segments).
+    for nb_, s_, vw_ in ((1 << 10, 3, 3), (256, 40, 4)):
+        st_ = small_table(nb_, s_, vw_, s_)
+        occ_ = np.argwhere(st_[0][..., 0] != 0)
+        g = np.random.default_rng(s_)
+        qs = st_[0][tuple(occ_[g.integers(0, len(occ_), 300)].T)]
+        qs[::3] = g.integers(0, 1 << 32, (100, 2), dtype=np.uint32)
+        qs[1] = (0, qs[0, 1])
+        qs[4] = st_[0][3, 0]
+        qs[5] = st_[0][2, -1]
+        tab = [T(a) for a in st_]
+        check("lookup", ht_ops.lookup(*tab, T(qs)),
+              ht_ref.lookup_ref(*tab, T(qs)),
+              f"S = {s_}, VW = {vw_}, 300 queries")
 
     # K3: on copies of the full-size table, the kernel and the plain version
     # apply the same writes; tables and flag must be bit-equal.
@@ -454,6 +527,57 @@ def main(argv=None) -> int:
         if want_ovf is not None and bool(ovf) != want_ovf:
             raise AssertionError(f"commit {what}: overflow {bool(ovf)}")
         del kern, plain
+    # The schedule's edges, the plain version on CPU copies: two parts (33
+    # writes), 128 parts (4,096), past the 1,024-part limit (33,000), a hot
+    # bucket that one part stages in several passes (3,000 writes of 5
+    # keys), S = 16 (16-lane groups) and S = 40 (a row wider than a warp,
+    # walked in memory): 2,000 writes, and a hot bucket of 300 writes of 45
+    # keys (5 stored, one of them twice, and 40 new) that overflows.
+    w_hot3k = writes(3000, 13, 0, p_inactive=0.1)
+    w_hot3k[0][:] = in_bucket(
+        g.integers(1, 1 << 32, (5, 2), dtype=np.uint32),
+        np.full(5, three_free[1]))[g.integers(0, 5, 3000)]
+    small = {s_: small_table(1 << 10, s_, dims.vw, 100 + s_)
+             for s_ in (16, 40)}
+
+    def small_writes(st_, k, seed):
+        g_ = np.random.default_rng(seed)
+        occ_ = np.argwhere(st_[0][..., 0] != 0)
+        wk = g_.integers(1, 1 << 32, (k, 2), dtype=np.uint32)
+        wk[:k // 2] = st_[0][tuple(occ_[g_.integers(0, len(occ_),
+                                                    k // 2)].T)]
+        wk[g_.random(k) < 0.05, 0] = 0
+        return (wk, g_.integers(0, 1 << 32, (k, dims.vw), dtype=np.uint32),
+                g_.random(k) >= 0.1)
+
+    edge_cases = [("33 writes, two parts", table, writes(33, 14, 16)),
+                  ("K = 4096, 128 parts", table, writes(4096, 15, 2048)),
+                  ("K = 33000, past the 1,024-part limit", table,
+                   writes(33000, 16, 8000)),
+                  ("3000 writes of 5 keys into one bucket, staged in "
+                   "passes", table, w_hot3k)]
+    edge_cases += [(f"S = {s_}, 2000 writes", [T(a) for a in small[s_]],
+                    small_writes(small[s_], 2000, s_)) for s_ in (16, 40)]
+    g40 = np.random.default_rng(40)
+    pool40 = np.concatenate([small[40][0][3, :5], in_bucket(
+        g40.integers(1, 1 << 32, (40, 2), dtype=np.uint32), np.full(40, 3))])
+    hot40 = (pool40[g40.integers(0, 45, 300)],
+             g40.integers(0, 1 << 32, (300, dims.vw), dtype=np.uint32),
+             g40.random(300) >= 0.1)
+    hot40[0][g40.random(300) < 0.05, 0] = 0
+    edge_cases.append(("S = 40, 300 writes of 45 keys into one bucket",
+                       [T(a) for a in small[40]], hot40))
+    for what, tab, (wk, wv, act) in edge_cases:
+        ins = (T(wk), T(wv), torch.from_numpy(act).to(dev))
+        kern = [t.clone() for t in tab]
+        ovf = ht_ops.commit(*kern, *ins)
+        got = [t.cpu() for t in kern + [ovf]]
+        del kern
+        plain = [t.cpu() for t in tab]
+        want = plain + [ht_ref.commit_ref(*plain, *(t.cpu() for t in ins))]
+        check("commit", got, want, what)
+        log(f"[check] commit {what}: overflow {bool(ovf)}")
+        del got, plain, want
 
     # K4: a main-path block with conflicts and stale reads, and the extremes
     # (1 and 1024 txs, empty keys, a tx writing one key twice).
@@ -494,33 +618,45 @@ def main(argv=None) -> int:
     # conflicts among 48 accounts
     mv_checks += [(f"block of {b_}", mv_cuda(mv_cases.random_block(b_, b_)))
                   for b_ in (31, 32, 33, 63, 64, 65, 1023)]
+    # past 32 chunks and past one CTA's shared memory (conflict words in a
+    # scratch buffer on the tiled route)
+    mv_big = {b_: mv_cuda(mv_cases.random_block(b_, 20 + b_,
+                                                n_accounts=b_ * 2 // 5))
+              for b_ in (2048, 4096)}
+    mv_checks += [("block of 1025", mvcc_inputs(1025, 6, 0.3)),
+                  ("block of 2048", mv_big[2048]),
+                  ("block of 4096", mv_big[4096]),
+                  ("RK = WK = 8, block of 1024 (262,272 bytes of shared "
+                   "memory on one CTA)", mv_cuda(mv_cases.random_block(
+                       1024, 11, nr=8, nw=8, n_accounts=600)))]
+
+    def mv_check(what, ins, want, route=None):
+        b_, nr_, _ = ins[0].shape
+        taken = route or mv_ops.route_for(b_, nr_, ins[2].shape[1], dev)
+        got = mv_ops.validate(*ins, route=route)
+        check("validate", [got], [want], f"{what} ({taken} route)")
+        log(f"[check] validate {what} ({taken} route): {int(got.sum())} of "
+            f"{b_} valid")
+
+    # every block on the route the wrapper takes (one CTA up to 160 txs),
+    # and on the other route where the block fits it
     for what, ins in mv_checks:
-        got = mv_ops.validate(*ins)
-        check("validate", [got], [mv_ref.validate_ref(*ins)], what)
-        log(f"[check] validate {what}: {int(got.sum())} valid")
-    # hand-made blocks with known verdicts: a chain whose verdicts ripple
-    # across chunk borders, one key for all, write-write only, empty keys,
-    # a key written twice, all reads stale
+        b_, nr_, _ = ins[0].shape
+        nw_ = ins[2].shape[1]
+        want = mv_ref.validate_ref(*ins)
+        taken = mv_ops.route_for(b_, nr_, nw_, dev)
+        mv_check(what, ins, want)
+        other = "tiled" if taken == "cta" else "cta"
+        if other == "tiled" or mv_ops.fits_one_cta(b_, nr_, nw_, dev):
+            mv_check(what, ins, want, other)
+    # hand-made blocks with known verdicts, on both routes: a chain whose
+    # verdicts ripple across chunk borders, one key for all, write-write
+    # only, empty keys, a key written twice, all reads stale
     for what, make in mv_cases.CASES.items():
         arrays, want = make()
-        got = mv_ops.validate(*mv_cuda(arrays))
-        check("validate", [got], [torch.from_numpy(want).to(dev)],
-              f"hand-made {what}")
-        log(f"[check] validate hand-made {what}: {int(got.sum())} of "
-            f"{len(want)} valid")
-    for what, ins, msg in (
-            ("a block of 1025", mvcc_inputs(1025, 6, 0.0), "at most 1024"),
-            ("RK = WK = 8 at 1024 txs (262,272 bytes of shared memory)",
-             mv_cuda(mv_cases.random_block(1024, 11, nr=8, nw=8)),
-             "227 KB")):
-        try:
-            mv_ops.validate(*ins)
-        except ValueError as exc:
-            if msg not in str(exc):
-                raise
-            log(f"[check] validate refuses {what}: {exc}")
-        else:
-            raise AssertionError(f"validate took {what}")
+        for route in mv_ops.ROUTES:
+            mv_check(f"hand-made {what}", mv_cuda(arrays),
+                     torch.from_numpy(want).to(dev), route)
 
     # K5: the serving shapes (a 2,048-token Qwen2-7B prompt, a ragged one),
     # MHA at D = 96 and MQA in f32; SDPA's distance from the plain version
@@ -559,19 +695,71 @@ def main(argv=None) -> int:
     # -- 3. timing at the main path's shapes -------------------------------
     t0 = time.perf_counter()
     ne, w = r3.shape[0], msg_block.shape[1]
-    q = q200.shape[0]
-    qn = q200[:, 0] != 0
-    found = ht_ops.lookup(*table, q200)[0]
-    b, nr, _ = mv_block[0].shape
-    nw = mv_block[2].shape[1]
-    valid = mv_ops.validate(*mv_block)
-    valid_before = torch.cumsum(valid.long(), 0) - valid.long()
+    b = mv_block[0].shape[0]
     wk_path, wv_path, act_path = w_path
     ins_path = (T(wk_path), T(wv_path), torch.from_numpy(act_path).to(dev))
     applied = act_path & (wk_path[:, 0] != 0)
     n_applied = int(applied.sum())
     chain = int(np.bincount(wk_path[applied, 0] & (nb - 1)).max())
     t_commit = [t.clone() for t in table]  # written by every timed call
+    # one untimed application first: every timed call, and each bound,
+    # sees the table as the writes leave it
+    ht_ops.commit(*t_commit, *ins_path)
+
+    def lookup_bound(qs):
+        """The queries read, the bucket row of keys of each non-empty
+        query read once however many queries share it, each slot a query
+        hits read once (version and values), and the outputs written; two
+        word compares a slot a query."""
+        live = qs[:, 0] != 0
+        qn = int(live.sum())
+        rows = int(torch.unique(qs[live, 0] & (nb - 1)).numel())
+        found_, _, _, slot_ = ht_ops.lookup(*table, qs)
+        hit_slots = int(torch.unique(
+            (qs[found_, 0] & (nb - 1)).long() * slots
+            + slot_[found_].long()).numel())
+        q_ = qs.shape[0]
+        return bound_ms(8 * q_ + 8 * slots * rows
+                        + 4 * (1 + dims.vw) * hit_slots
+                        + q_ * (1 + 4 + 4 * dims.vw + 4), 2 * slots * qn)
+
+    def commit_bound(tab, wk, wv, act):
+        """The writes read once; each bucket row that an applying write
+        goes to read once (keys); each slot that ends up written written
+        once (key, version, values), with its version read where the key
+        was stored already; two word compares a slot for each applying
+        write. The written slots of a bucket are its distinct stored keys
+        that the writes update plus as many of its distinct new keys as it
+        has empty slots; counted on ``tab`` as the timed calls see it."""
+        app = act & (wk[:, 0] != 0)
+        wka = wk[app]
+        ub, inv = np.unique(wka[:, 0] & np.uint32(nb - 1),
+                            return_inverse=True)
+        rows = u32.to_numpy(tab[0][torch.from_numpy(ub.astype(np.int64))
+                                   .to(dev)].cpu())
+        n_slots = n_upd = 0
+        for r, row in enumerate(rows):
+            keys_ = {tuple(x) for x in wka[inv == r]}
+            stored = {tuple(x) for x in row if x[0] != 0}
+            upd = len(keys_ & stored)
+            n_upd += upd
+            n_slots += upd + min(len(keys_ - stored),
+                                 int((row[:, 0] == 0).sum()))
+        return bound_ms(wk.size * 4 + wv.size * 4 + act.size + 4
+                        + 8 * slots * len(ub) + 4 * n_upd
+                        + n_slots * (8 + 4 + 4 * dims.vw),
+                        2 * slots * int(app.sum())) + (len(ub), n_slots)
+
+    def validate_bound(ins):
+        """The keys, versions and flags read once, the verdicts written;
+        the compares each tx's keys need against the valid txs before
+        it."""
+        b_, nr_, _ = ins[0].shape
+        nw_ = ins[2].shape[1]
+        v_ = mv_ref.validate_ref(*ins).long()
+        return bound_ms(4 * b_ * (2 * nr_ + 2 * nr_ + 2 * nw_) + 2 * b_,
+                        2 * nw_ * (nr_ + nw_) * int((torch.cumsum(v_, 0)
+                                                     - v_).sum()))
     timing = {
         "mac_many": dict(
             name="sig_mac.mac_many", kernel="mac_kernel",
@@ -588,22 +776,15 @@ def main(argv=None) -> int:
             replaces="src/repro/kernels/hash_table/kernel.py:90",
             fn=lambda: ht_ops.lookup(*table, q200),
             plain=lambda: ht_ref.lookup_ref(*table, q200),
-            bound=bound_ms(
-                8 * q + 8 * slots * int(qn.sum())
-                + 4 * (1 + dims.vw) * int(found.sum())
-                + q * (1 + 4 + 4 * dims.vw + 4),
-                2 * slots * int(qn.sum())),
+            bound=lookup_bound(q200),
             shape="200 queries on a 2^20 x 8 table"),
         "commit": dict(
-            name="hash_table.commit", kernel="commit_kernel",
+            name="hash_table.commit", kernel="commit_runs_kernel",
             source="src/repro_torch/kernels/csrc/hash_table.cu",
             replaces="src/repro/kernels/hash_table/kernel.py:167",
             fn=lambda: ht_ops.commit(*t_commit, *ins_path),
             plain=lambda: ht_ref.commit_ref(*t_commit, *ins_path),
-            bound=bound_ms(
-                wk_path.size * 4 + wv_path.size * 4 + act_path.size + 4
-                + n_applied * (8 * slots + 8 + 4 + 4 * dims.vw),
-                2 * slots * n_applied),
+            bound=commit_bound(t_commit, *w_path),
             shape="200 writes into a 2^20 x 8 table"),
         "validate": dict(
             name="mvcc_validate.validate", kernel="mvcc_kernel",
@@ -611,8 +792,7 @@ def main(argv=None) -> int:
             replaces="src/repro/kernels/mvcc_validate/kernel.py:71",
             fn=lambda: mv_ops.validate(*mv_block),
             plain=lambda: mv_ref.validate_ref(*mv_block),
-            bound=bound_ms(4 * b * (2 * nr + 2 * nr + 2 * nw) + 2 * b,
-                           2 * nw * (nr + nw) * int(valid_before.sum())),
+            bound=validate_bound(mv_block),
             shape="block of 100, RK = WK = 2"),
     }
     # K5 at one Qwen2-7B layer's prefill of a 2,048-token prompt: Q, K, V
@@ -716,32 +896,95 @@ def main(argv=None) -> int:
     # K4: the scan is ceil(b / 32) dependent chunk steps in one warp after
     # the parallel conflict words; report the device time per chunk (the
     # launch's device time over its chunks) at 100 and 1024 txs.
+    # K4 past the main path's block: 1,024 txs on one CTA, 2,048 and 4,096
+    # on the tiled route (two launches); device time a call (both
+    # kernels) and a chunk.
+    floor = next(x for x in mac_t["extra"]["schedules"]
+                 if x["shape"].startswith("launch floor"))["device_ms"]
     mv_t = timing["validate"]
-    b4, nr4, _ = mv_1024[0].shape
-    nw4 = mv_1024[2].shape[1]
-    v4 = mv_ops.validate(*mv_1024).long()
-    bnd4 = bound_ms(4 * b4 * (2 * nr4 + 2 * nr4 + 2 * nw4) + 2 * b4,
-                    2 * nw4 * (nr4 + nw4) * int((torch.cumsum(v4, 0)
-                                                 - v4).sum()))
-    ms4 = event_ms(lambda: mv_ops.validate(*mv_1024), 200)
-    dev4 = device_ms(lambda: mv_ops.validate(*mv_1024), "mvcc_kernel")
-    mv_t["extra"] = {"b1024": {
-        "ms": ms4, "device_ms": dev4, "bound_ms": bnd4[0],
-        "bound_by": bnd4[1], "chunks": -(-b4 // 32),
-        "shared_memory_bytes": mv_ops.smem_bytes(b4, nr4, nw4)}}
-    for bb, dev_ in ((b, mv_t["device_ms"]), (b4, dev4)):
+    mv_t["extra"] = {"launch_floor_ms": floor}
+    for bb, ins in ((1024, mv_1024), (2048, mv_big[2048]),
+                    (4096, mv_big[4096])):
+        nr_, nw_ = ins[0].shape[1], ins[2].shape[1]
+        route = mv_ops.route_for(bb, nr_, nw_, dev)
+        bnd = validate_bound(ins)
+        ms_ = event_ms(lambda: mv_ops.validate(*ins), 200)
+        dev_ = device_call_ms(lambda: mv_ops.validate(*ins), ("mvcc_",))
+        # the tiled route's two kernels apart: conflict words, then scan
+        parts = {n: device_call_ms(lambda: mv_ops.validate(*ins), (n,))
+                 for n in ("mvcc_conf_kernel", "mvcc_scan_kernel")
+                 } if route == "tiled" else {}
         nch = -(-bb // 32)
-        log(f"[time] mvcc_validate.validate: block of {bb}, {nch} chunk "
-            f"steps, {dev_ / nch * 1e3 if dev_ else None} us of device "
-            f"time a chunk")
-    log(f"[time] mvcc_validate.validate (block of 1024, RK = WK = 2, "
-        f"{mv_ops.smem_bytes(b4, nr4, nw4)} bytes of shared memory): "
-        f"{ms4:.6f} ms per call, device {dev4} ms, bound {bnd4[0]:.9f} ms "
-        f"({bnd4[1]})")
-    # K3's same-bucket writes are a dependent chain on one thread.
+        mv_t["extra"][f"b{bb}"] = {
+            "route": route, "launches": 1 if route == "cta" else 2,
+            "ms": ms_, "device_ms": dev_, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "chunks": nch,
+            "device_us_per_chunk": dev_ / nch * 1e3, "kernels_ms": parts}
+        log(f"[time] mvcc_validate.validate (block of {bb}, RK = WK = 2, "
+            f"{route} route, {1 if route == 'cta' else 2} launches): "
+            f"{ms_:.6f} ms per call, device {dev_:.8f} ms "
+            f"({dev_ / nch * 1e3:.5f} us a chunk over {nch}; {parts}), "
+            f"bound {bnd[0]:.9f} ms ({bnd[1]})")
+    log(f"[time] mvcc_validate.validate: block of {b}, "
+        f"{-(-b // 32)} chunk steps, "
+        f"{mv_t['device_ms'] / -(-b // 32) * 1e3:.5f} us of device time a "
+        f"chunk")
+    # K4's two routes, each forced, at the block sizes where the wrapper
+    # chooses between them (RK = WK = 2, dense conflicts): wrapper and
+    # device time a call, the route the wrapper takes beside them.
+    mv_t["extra"]["routes"] = []
+    for bb in ROUTE_SWEEP:
+        ins = mv_cuda(mv_cases.random_block(bb, 40 + bb,
+                                            n_accounts=max(48, bb * 2 // 5)))
+        row = {"txs": bb, "taken": mv_ops.route_for(bb, 2, 2, dev)}
+        for route in mv_ops.ROUTES:
+            def fn(ins=ins, route=route):
+                return mv_ops.validate(*ins, route=route)
+            row[route] = {"ms": event_ms(fn, 200),
+                          "device_ms": device_call_ms(fn, ("mvcc_",))}
+        mv_t["extra"]["routes"].append(row)
+        log(f"[time] mvcc_validate.validate routes, block of {bb}: one CTA "
+            f"{row['cta']['ms']:.6f} ms per call, device "
+            f"{row['cta']['device_ms']:.8f} ms; tiled "
+            f"{row['tiled']['ms']:.6f} ms per call, device "
+            f"{row['tiled']['device_ms']:.8f} ms; the wrapper takes "
+            f"{row['taken']}")
+    # K2 at 8,192 queries; K3 at 2,048 and 4,096 writes and on the hot
+    # bucket (64 writes of 6 keys into one bucket, a run of 58 active
+    # writes); each beside the launch floor (K1 at 1 x 1 x 1).
+    lk_t, cm_t = timing["lookup"], timing["commit"]
+    lk_t["extra"] = {"launch_floor_ms": floor}
+    bnd = lookup_bound(q8192)
+    ms_ = event_ms(lambda: ht_ops.lookup(*table, q8192), 200)
+    dev_ = device_call_ms(lambda: ht_ops.lookup(*table, q8192),
+                          ("lookup_kernel",))
+    lk_t["extra"]["q8192"] = {"ms": ms_, "device_ms": dev_,
+                              "bound_ms": bnd[0], "bound_by": bnd[1]}
+    log(f"[time] hash_table.lookup (8192 queries): {ms_:.6f} ms per call, "
+        f"device {dev_:.8f} ms, bound {bnd[0]:.9f} ms ({bnd[1]}); launch "
+        f"floor {floor} ms")
+    cm_t["extra"] = {"launch_floor_ms": floor}
+    for what, (wk, wv, act) in (("k2048", writes(2048, 12, 1024)),
+                                ("k4096", writes(4096, 15, 2048)),
+                                ("hot_bucket", w_hot)):
+        ins = (T(wk), T(wv), torch.from_numpy(act).to(dev))
+        ht_ops.commit(*t_commit, *ins)
+        bnd = commit_bound(t_commit, wk, wv, act)
+        ms_ = event_ms(lambda: ht_ops.commit(*t_commit, *ins), 200)
+        dev_ = device_call_ms(lambda: ht_ops.commit(*t_commit, *ins),
+                              ("commit_",))
+        cm_t["extra"][what] = {"ms": ms_, "device_ms": dev_,
+                               "bound_ms": bnd[0], "bound_by": bnd[1],
+                               "writes": len(wk), "rows": bnd[2],
+                               "slots_written": bnd[3]}
+        log(f"[time] hash_table.commit ({what}, {len(wk)} writes): "
+            f"{ms_:.6f} ms per call, device {dev_:.8f} ms, bound "
+            f"{bnd[0]:.9f} ms ({bnd[1]}; {bnd[2]} rows read, {bnd[3]} slots "
+            f"written); launch floor {floor} ms")
+    cbnd = timing["commit"]["bound"]
     log(f"[time] hash_table.commit: {n_applied} applied writes, longest "
-        f"same-bucket chain {chain}; bound "
-        f"{timing['commit']['bound'][0]:.7f} ms")
+        f"same-bucket chain {chain}; bound {cbnd[0]:.9f} ms ({cbnd[2]} rows "
+        f"read, {cbnd[3]} slots written)")
     del t_commit
     # hash_words is plain PyTorch, one small launch per word: time one
     # block's digests as the commit path computes them.
@@ -916,7 +1159,8 @@ def main(argv=None) -> int:
                                              n_accounts=N_ACCOUNTS)),
                 e.run_round(e.make_proposals(LADDER_TXS, seed=1,
                                              n_accounts=N_ACCOUNTS)),
-                e.run_round(conflicting_proposals(LADDER_TXS, 3, e.device)),
+                e.run_round(conflicting_proposals(LADDER_CONFLICT_TXS, 3,
+                                                  e.device)),
             ]
 
         torch.cuda.empty_cache()
@@ -943,7 +1187,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"{name}: verify() failed on the card: "
                                  f"{lverdict}")
         if (st[1].n_valid != st[1].n_txs
-                or not 0 < st[2].n_valid < LADDER_TXS):
+                or not 0 < st[2].n_valid < LADDER_CONFLICT_TXS):
             raise AssertionError(f"{name}: valid counts "
                                  f"{[s.n_valid for s in st]}")
         t1 = time.perf_counter()
@@ -974,7 +1218,62 @@ def main(argv=None) -> int:
             f"CPU identical ({cst[1].tps:.2f} tx/s timed, {cpu_s:.1f} s)")
         phase_done(f"7 ladder {name}", t0)
 
-    # -- 8. serving at full width: Qwen2-7B, bf16, on the card -------------
+    # -- 8. large blocks: P-I+II, blocks of 2,048, card against CPU --------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    bcfg = engine.EngineConfig(
+        dims=dims, orderer=orderer.OrdererConfig(block_size=BIG_BLOCK),
+        peer=committer.OPT_P2, n_buckets=nb, slots=slots)
+    k4_route = mv_ops.route_for(BIG_BLOCK, dims.rk, dims.wk, dev)
+
+    def big_round(e):
+        return e.run_round(e.make_proposals(BIG_ROUND, seed=5,
+                                            n_accounts=N_ACCOUNTS))
+
+    zero_counts()
+    e = engine.FabricEngine(bcfg)
+    bst = big_round(e)
+    bverdict = e.verify()
+    got = counts()
+    path_launches["large_blocks"] = got
+    card_res = results(e)
+    e.store.close()
+    del e
+    card_s = time.perf_counter() - t0
+    want_k = k1_k4_launches([bst], 1 if k4_route == "cta" else 2)
+    if not all(got[k] for k in ("mac_many", "lookup", "commit",
+                                "validate")):
+        raise AssertionError(f"large blocks: a kernel of the path never "
+                             f"ran: {got}")
+    if any(got[k] != n for k, n in want_k.items()):
+        raise AssertionError(f"large blocks: K1/K4 launches {got}, "
+                             f"expected {want_k}")
+    if not all(bverdict.values()) or bst.n_valid != bst.n_txs:
+        raise AssertionError(f"large blocks: verify {bverdict}, "
+                             f"{bst.n_valid} of {bst.n_txs} valid")
+    t1 = time.perf_counter()
+    e_cpu = engine.FabricEngine(bcfg, device="cpu")
+    cbst = big_round(e_cpu)
+    if e_cpu.verify() != bverdict:
+        raise AssertionError("large blocks: CPU verify() differs")
+    same_results(card_res, results(e_cpu), "large blocks")
+    e_cpu.store.close()
+    del e_cpu
+    large = {"block_size": BIG_BLOCK, "k4_route": k4_route,
+             "round": bst._asdict(), "peer_tps": bst.n_txs / bst.commit_s,
+             "cpu_round": cbst._asdict(), "launches": got,
+             "verify": bverdict, "card_s": card_s,
+             "cpu_s": time.perf_counter() - t1}
+    log(f"[large] P-I+II, blocks of {BIG_BLOCK}: {bst.n_txs} txs in "
+        f"{bst.n_blocks} blocks, {bst.n_valid} valid, {bst.tps:.2f} tx/s, "
+        f"order {bst.order_s:.4f} s, commit {bst.commit_s:.4f} s, replay "
+        f"{bst.replay_s:.4f} s; K4 on its {k4_route} route; launches {got}; "
+        f"verify all True; CPU identical (chain and validity bits, log "
+        f"head, journal head, state digest; {cbst.tps:.2f} tx/s, "
+        f"{large['cpu_s']:.1f} s)")
+    phase_done("8 large blocks, card against CPU", t0)
+
+    # -- 9. serving at full width: Qwen2-7B, bf16, on the card -------------
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     scfg = cfg_base.get(SERVE_ARCH)
@@ -1119,9 +1418,9 @@ def main(argv=None) -> int:
                 f"{ev.count:6d}x {ev.key[:90]}")
     del eng, model, cache, logits, finite, p2048, step_args, calls
     torch.cuda.empty_cache()
-    phase_done("8 serving at full width", t0)
+    phase_done("9 serving at full width", t0)
 
-    # -- 9. serving, card against CPU: 2 layers, full width, f32 ------------
+    # -- 10. serving, card against CPU: 2 layers, full width, f32 -----------
     t0 = time.perf_counter()
     ccfg = dataclasses.replace(scfg, n_layers=2, dtype="float32")
     model = LM(ccfg, device="cpu").init(
@@ -1178,7 +1477,7 @@ def main(argv=None) -> int:
                          "card_s": card_s, "cpu_s": cpu_s, "launches": got}
     del model
     torch.cuda.empty_cache()
-    phase_done("9 serving, card against CPU", t0)
+    phase_done("10 serving, card against CPU", t0)
 
     kernels = [{
         "name": t["name"], "route": "cuda", "source": t["source"],
@@ -1193,6 +1492,7 @@ def main(argv=None) -> int:
     } for key, t in timing.items()]
     log(json.dumps({"engine": summary}, default=str))
     log(json.dumps({"ladder": ladder}, default=str))
+    log(json.dumps({"large_blocks": large}, default=str))
     log(json.dumps({"serving": serving}, default=str))
     log(json.dumps({"phase_s": phase_s,
                     "total_s": time.perf_counter() - t_start}))

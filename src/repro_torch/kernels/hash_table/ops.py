@@ -3,7 +3,10 @@ and the sequential commit.
 
 A CUDA tensor launches the kernel, a CPU tensor takes the plain version in
 ``ref.py``; there is no fallback between them. ``launches`` counts probe
-launches and ``commit_launches`` commit launches.
+launches and ``commit_launches`` commit launches. The probe is one kernel
+for every shape (a group of lanes a query; 16-byte value loads at VW = 4),
+and so is the commit (``commit_runs_kernel``: each bucket's run of writes
+applied with its row in registers, or walked in memory when S > 32).
 """
 
 from __future__ import annotations
@@ -44,11 +47,13 @@ def lookup(tkeys, tvers, tvals, queries):
     slots = torch.empty((q,), dtype=torch.int32, device=dev)
     if q == 0:
         return found, vers, vals, slots
-    f = build.c_function("hash_table", "ht_lookup", 8, 4)
+    vec4 = int(vw == 4 and tkeys.data_ptr() % 8 == 0
+               and tvals.data_ptr() % 16 == 0 and vals.data_ptr() % 16 == 0)
+    f = build.c_function("hash_table", "ht_lookup", 8, 5)
     build.launch(f, "ht_lookup", dev, tkeys.data_ptr(), tvers.data_ptr(),
                  tvals.data_ptr(), queries.data_ptr(), found.data_ptr(),
                  vers.data_ptr(), vals.data_ptr(), slots.data_ptr(),
-                 q, nb, s, vw)
+                 q, nb, s, vw, vec4)
     launches += 1
     return found, vers, vals, slots
 

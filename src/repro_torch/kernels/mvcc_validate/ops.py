@@ -1,13 +1,17 @@
 """Wrapper of the MVCC validation kernel (``csrc/mvcc_validate.cu``).
 
 A CUDA tensor launches the kernel, a CPU tensor takes the plain version in
-``ref.py``; there is no fallback between them. ``launches`` counts kernel
-launches.
+``ref.py``; there is no fallback between them. Two routes, both for any
+block size: one CTA (``mvcc_kernel``, one launch) for blocks of at most
+``CTA_MAX_TXS`` txs, else the tiled route (``mvcc_conf_kernel`` over a
+grid, then ``mvcc_scan_kernel``: two launches, with the conflict words in
+a scratch buffer). ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -15,21 +19,58 @@ from repro_torch.core import u32
 from repro_torch.kernels import build
 from repro_torch.kernels.mvcc_validate import ref
 
-MAX_TXS = 1024  # 32 chunks of 32: one warp lane per chunk in the scan
+ROUTES = ("cta", "tiled")
+# The one-CTA route up to here: its all-pairs phase on one SM grows as B^2,
+# and on an H100 it is the faster route at 160 txs and the slower at 192
+# (RK = WK = 2, each route forced; chip_smoke.py's route lines).
+CTA_MAX_TXS = 160
 launches = 0
 
 
-def smem_bytes(b: int, nr: int, nw: int) -> int:
-    """Dynamic shared memory of one block's launch on the card: the keys,
-    the conflict words (one per (chunk, tx)) and the ok words."""
-    f = build.libraries()["mvcc_validate"].mvcc_validate_smem
-    f.argtypes = [ctypes.c_int] * 3
+@functools.cache
+def _c_size(fn: str, n_args: int):
+    """A size function of the library taking ``n_args`` ints."""
+    f = getattr(build.libraries()["mvcc_validate"], fn)
+    f.argtypes = [ctypes.c_int] * n_args
     f.restype = ctypes.c_longlong
-    return f(b, nr, nw)
+    return f
 
 
-def validate(read_keys, read_vers, write_keys, current_versions, ok0):
-    """One block: (B,RK,2),(B,RK),(B,WK,2),(B,RK),(B,) bool -> (B,) bool."""
+def smem_bytes(b: int, nr: int, nw: int) -> int:
+    """Dynamic shared memory of one block's one-CTA launch on the card: the
+    keys, the conflict words (one per (chunk, tx)) and the ok words."""
+    return _c_size("mvcc_validate_smem", 3)(b, nr, nw)
+
+
+@functools.cache
+def _smem_limit(index: int) -> int:
+    return torch.cuda.get_device_properties(index).shared_memory_per_block_optin
+
+
+def fits_one_cta(b: int, nr: int, nw: int, device: torch.device) -> bool:
+    """Whether a block's keys and conflict words fit one thread block's
+    shared memory on ``device``."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return smem_bytes(b, nr, nw) <= _smem_limit(index)
+
+
+def route_for(b: int, nr: int, nw: int, device: torch.device) -> str:
+    """The route a block takes on ``device``: ``"cta"`` for at most
+    ``CTA_MAX_TXS`` txs whose keys and conflict words fit one thread
+    block's shared memory, else ``"tiled"``."""
+    return ("cta" if b <= CTA_MAX_TXS and fits_one_cta(b, nr, nw, device)
+            else "tiled")
+
+
+def validate(read_keys, read_vers, write_keys, current_versions, ok0, *,
+             route: str | None = None):
+    """One block: (B,RK,2),(B,RK),(B,WK,2),(B,RK),(B,) bool -> (B,) bool.
+
+    ``route`` ("cta" or "tiled") overrides the choice by shape on the card,
+    so that tests can hold each route against the plain version at any
+    size; the one-CTA route still needs the shape to fit, and a shape that
+    does not is refused with a ValueError."""
     global launches
     dev = read_keys.device
     b, nr, _ = read_keys.shape
@@ -39,27 +80,32 @@ def validate(read_keys, read_vers, write_keys, current_versions, ok0):
     build.check("write_keys", write_keys, u32.WORD, (b, nw, 2), dev)
     build.check("current_versions", current_versions, u32.WORD, (b, nr), dev)
     build.check("ok0", ok0, torch.bool, (b,), dev)
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"route {route!r}: expected one of {ROUTES}")
     if not build.dispatch(dev):
         return ref.validate_ref(read_keys, read_vers, write_keys,
                                 current_versions, ok0)
-    if b > MAX_TXS:
-        raise ValueError(f"block of {b} txs: the kernel takes at most "
-                         f"{MAX_TXS}")
-    smem = smem_bytes(b, nr, nw)
-    most = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    if smem > most:
-        raise ValueError(
-            f"block of {b} txs with {nr} read and {nw} write keys needs "
-            f"{smem} bytes of shared memory; a thread block on "
-            f"{torch.cuda.get_device_name(dev)} has at most {most} "
-            f"({most // 1024} KB)")
     valid = torch.empty((b,), dtype=torch.bool, device=dev)
     if b == 0:
         return valid
-    f = build.c_function("mvcc_validate", "mvcc_validate", 6, 4)
-    build.launch(f, "mvcc_validate", dev, read_keys.data_ptr(),
-                 read_vers.data_ptr(), write_keys.data_ptr(),
-                 current_versions.data_ptr(), ok0.data_ptr(),
-                 valid.data_ptr(), 1, b, nr, nw)
-    launches += 1
+    if route == "cta" and not fits_one_cta(b, nr, nw, dev):
+        raise ValueError(
+            f"route 'cta': a block of {b} txs with RK={nr}, WK={nw} needs "
+            f"{smem_bytes(b, nr, nw)} bytes of shared memory, more than one "
+            f"thread block has on {dev}")
+    route = route or route_for(b, nr, nw, dev)
+    ptrs = [t.data_ptr() for t in (read_keys, read_vers, write_keys,
+                                   current_versions, ok0, valid)]
+    if route == "cta":
+        f = build.c_function("mvcc_validate", "mvcc_validate", 6, 4)
+        build.launch(f, "mvcc_validate", dev, *ptrs, 1, b, nr, nw)
+        launches += 1
+        return valid
+    scratch = torch.empty(
+        (_c_size("mvcc_validate_scratch_words", 1)(b),), dtype=u32.WORD,
+        device=dev)
+    f = build.c_function("mvcc_validate", "mvcc_validate_tiled", 7, 3)
+    build.launch(f, "mvcc_validate_tiled", dev, *ptrs, scratch.data_ptr(), b,
+                 nr, nw)
+    launches += 2
     return valid

@@ -40,12 +40,18 @@ def validate_ref(read_keys, read_vers, write_keys, current_versions, ok0):
     return valid
 
 
-# -- a plain mirror of the kernel's two phases (tests only) --------------------
+# -- a plain mirror of the kernel's two routes (tests only) --------------------
 
-def conflict_words(read_keys, write_keys) -> torch.Tensor:
+UNWRITTEN = 0xFFFFFFFF  # the tiled route's scratch words that it never writes
+
+
+def conflict_words(read_keys, write_keys, *, tiled: bool = False
+                   ) -> torch.Tensor:
     """Phase 1 of the kernel: the strict lower triangle of the conflict
     matrix as bit words, (ceil(B/32), B) int64 holding u32 values with
-    ``words[k, i]`` bit t = conf[32k+t, i] for 32k+t < i."""
+    ``words[k, i]`` bit t = conf[32k+t, i] for 32k+t < i. ``tiled``: as the
+    tiled route leaves its scratch buffer, every word with i < 32k (which
+    no scan reads) set to :data:`UNWRITTEN`."""
     b = read_keys.shape[0]
     nch = -(-b // 32)
     conf = conflict_matrix(read_keys, write_keys)
@@ -54,16 +60,33 @@ def conflict_words(read_keys, write_keys) -> torch.Tensor:
     conf = torch.cat([conf, conf.new_zeros((nch * 32 - b, b))])
     bits = conf.reshape(nch, 32, b).long() << torch.arange(
         32, device=conf.device)[None, :, None]
-    return bits.sum(dim=1)
+    words = bits.sum(dim=1)
+    if tiled:
+        k = torch.arange(nch, device=conf.device)
+        words[j[None, :] < 32 * k[:, None]] = UNWRITTEN
+    return words
+
+
+def _chain(cand: int, diag: list) -> int:
+    """The chain inside one chunk as the kernel runs it: ``v <- {t :
+    candidate t and not diag[t] & v}`` from v = the candidates until v
+    stops changing (at most 33 rounds)."""
+    v = cand
+    for _ in range(33):
+        nv = sum(1 << t for t, d in enumerate(diag)
+                 if cand >> t & 1 and not d & v)
+        if nv == v:
+            return v
+        v = nv
+    raise AssertionError("the chunk's chain did not settle")
 
 
 def scan_chunks(words: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
-    """Phase 2 of the kernel, one 32-tx chunk at a time: a tx is a
-    candidate when it is ok and no valid tx of an earlier chunk conflicts
-    with it (the OR of ``words[k, i] & V[k]`` over k < c); then the chain
-    inside the chunk as the kernel runs it, ``v <- {t : candidate t and
-    not words[c, i_t] & v}`` from v = the candidates until v stops
-    changing (at most 33 rounds). (B,) bool."""
+    """Phase 2 of the one-CTA route, one 32-tx chunk at a time, for any
+    number of chunks: a tx is a candidate when it is ok and no valid tx of
+    an earlier chunk conflicts with it (the OR of ``words[k, i] & V[k]``
+    over k < c); then the chain inside the chunk (:func:`_chain`). (B,)
+    bool."""
     b = ok.shape[0]
     w = words.tolist()
     ok_l = ok.tolist()
@@ -77,24 +100,59 @@ def scan_chunks(words: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
                 blocked |= w[k][i] & v_words[k]
             if ok_l[i] and not blocked:
                 cand |= 1 << t
-        v = cand
-        for _ in range(33):
-            nv = sum(1 << t for t, i in lanes
-                     if cand >> t & 1 and not w[c][i] & v)
-            if nv == v:
-                break
-            v = nv
-        else:
-            raise AssertionError("the chunk's chain did not settle")
-        v_words.append(v)
+        v_words.append(_chain(cand, [w[c][i] for _, i in lanes]))
+    return _bits(v_words, b, ok.device)
+
+
+def _bits(v_words: list, b: int, device) -> torch.Tensor:
+    """Valid words -> (B,) bool, bit t of word k being tx 32k+t."""
     return torch.tensor([bool(v_words[i // 32] >> (i % 32) & 1)
-                         for i in range(b)], dtype=torch.bool,
-                        device=ok.device)
+                         for i in range(b)], dtype=torch.bool, device=device)
+
+
+def scan_split(words: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """Phase 2 of the tiled route, as its one CTA of 32 warps runs it:
+    chunk c's cross-chunk OR is the OR of 32 partial words, warp w's over
+    k = w, w+32, ... < c, each computed one chunk ahead over k < c - 1 and
+    completed by warp (c-1) % 32's term for k = c - 1 once V[c-1] is known;
+    then the chain inside the chunk. Reads only the words with i >= 32k.
+    Same verdicts as :func:`scan_chunks`. (B,) bool."""
+    b = ok.shape[0]
+    nch = len(words)
+    w = words.tolist()
+    ok_l = ok.tolist()
+    part = [[0] * 32 for _ in range(32)]  # [warp][lane], for the next chunk
+    v_words = []
+    for c in range(nch):
+        lanes = range(32 * c, min(32 * c + 32, b))
+        cand = 0
+        for t, i in enumerate(lanes):
+            blocked = 0
+            for warp in range(32):
+                blocked |= part[warp][t]
+            if ok_l[i] and not blocked:
+                cand |= 1 << t
+        v = _chain(cand, [w[c][i] for i in lanes])
+        v_words.append(v)
+        for warp in range(32):
+            for t in range(32):
+                i = 32 * (c + 1) + t
+                acc = 0
+                if c + 1 < nch and i < b:
+                    for k in range(warp, c, 32):
+                        acc |= w[k][i] & v_words[k]
+                    if warp == c % 32:
+                        acc |= w[c][i] & v
+                part[warp][t] = acc
+    return _bits(v_words, b, ok.device)
 
 
 def validate_chunked(read_keys, read_vers, write_keys, current_versions,
-                     ok0):
-    """The kernel's schedule in plain PyTorch: freshness, conflict words,
-    chunked scan. Same function as :func:`validate_ref`."""
+                     ok0, *, route: str = "cta"):
+    """The kernel's schedule in plain PyTorch, by ``route`` ("cta" or
+    "tiled"): freshness, conflict words, chunked scan. Same function as
+    :func:`validate_ref`."""
     ok = ok0 & read_fresh(read_keys, read_vers, current_versions)
-    return scan_chunks(conflict_words(read_keys, write_keys), ok)
+    if route == "cta":
+        return scan_chunks(conflict_words(read_keys, write_keys), ok)
+    return scan_split(conflict_words(read_keys, write_keys, tiled=True), ok)

@@ -54,20 +54,34 @@ def test_mac_kernel(cuda, b, w, ne):
 
 
 @pytest.mark.gpu
-def test_lookup_kernel(cuda):
-    """Inserts that fill some buckets, then hits, misses and empty keys."""
+@pytest.mark.parametrize("s", [8, 2, 16, 32, 3, 40])
+def test_lookup_kernel(cuda, s):
+    """Inserts that fill some buckets, then hits, misses and empty keys;
+    a hot bucket filled to its last slot; a key stored twice in a row. S
+    = 8 (the paths'), other group widths (2, 16, 32, and 3 in a group of
+    4) and S = 40 (a row walked in two segments); VW = 4 (16-byte loads)
+    and, at S = 3, VW = 3."""
+    vw = 3 if s == 3 else 4
     tb = types.make_transfer_batch(types.TEST_DIMS, 600, seed=2,
                                    n_accounts=1 << 12, conflict_rate=0.2,
                                    device=cuda)
-    st = ws.create(64, 8, 4, cuda)
-    ws.commit_vectorized(st, tb.write_keys, tb.write_vals,
+    st = ws.create(64, s, vw, cuda)
+    ws.commit_vectorized(st, tb.write_keys,
+                         tb.write_vals[..., :vw].contiguous(),
                          torch.ones(600, dtype=torch.bool, device=cuda))
     rng = np.random.default_rng(3)
-    qs = torch.cat([tb.read_keys.reshape(-1, 2), u32.from_numpy(
-        rng.integers(0, 1 << 32, (300, 2), dtype=np.uint32), cuda)])
+    hot = u32.from_numpy(rng.integers(1, 1 << 32, (s, 2), dtype=np.uint32),
+                         cuda)
+    hot[:, 0] = (hot[:, 0] & ~63) | 5  # bucket 5
+    st.keys[5] = hot
+    st.keys[7, -1] = st.keys[7, 0]  # stored twice: the first slot wins
+    qs = torch.cat([tb.read_keys.reshape(-1, 2), hot, st.keys[7, :1],
+                    u32.from_numpy(rng.integers(0, 1 << 32, (300, 2),
+                                                dtype=np.uint32), cuda)])
     qs[:5, 0] = 0
-    _same(ht_ops.lookup(*st, qs),
-          ht_ref.lookup_ref(*(t.cpu() for t in st), qs.cpu()))
+    got = ht_ops.lookup(*st, qs)
+    _same(got, ht_ref.lookup_ref(*(t.cpu() for t in st), qs.cpu()))
+    assert bool(got[0][1200:1200 + s].all())
 
 
 @pytest.mark.gpu
@@ -87,22 +101,31 @@ def test_mvcc_kernel(cuda, b):
 
 
 @pytest.mark.gpu
-def test_mvcc_kernel_refuses_blocks_over_1024(cuda):
-    keys = torch.zeros((1025, 2, 2), dtype=torch.int32, device=cuda)
-    vers = torch.zeros((1025, 2), dtype=torch.int32, device=cuda)
-    ok0 = torch.ones(1025, dtype=torch.bool, device=cuda)
-    with pytest.raises(ValueError, match="at most 1024"):
-        mv_ops.validate(keys, vers, keys, vers, ok0)
+def test_mvcc_kernel_takes_blocks_over_1024(cuda):
+    """33 chunks on both routes (B = 1025; the one CTA forced, the tiled
+    route by size) and 64 on the tiled route (B = 2048), conflict-heavy,
+    against the plain version."""
+    for b, route in ((1025, "cta"), (1025, "tiled"), (2048, "tiled")):
+        rng = np.random.default_rng(b)
+        tb = types.make_transfer_batch(types.TEST_DIMS, b, seed=b,
+                                       n_accounts=256, conflict_rate=0.5,
+                                       device=cuda)
+        ok0 = torch.from_numpy(rng.random(b) < 0.95).to(cuda)
+        args = [t.contiguous() for t in (tb.read_keys, tb.read_vers,
+                                         tb.write_keys, tb.read_vers)]
+        args.append(ok0)
+        assert mv_ops.route_for(b, 2, 2, cuda) == "tiled"
+        got = mv_ops.validate(*args, route=route)
+        want = mv_ref.validate_ref(*(a.cpu() for a in args))
+        _same([got], [want])
+        assert 0 < int(want.sum()) < b
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("nb,s,k", [(1 << 12, 8, 200), (4, 2, 64),
-                                    (64, 8, 2048)])
-def test_commit_kernel(cuda, nb, s, k):
-    """Updates, inserts, full buckets (overflow), duplicate keys, inactive
-    and empty-key writes: the kernel on the card against the plain version
-    on a copy of the same table, bit-equal, overflow flag included."""
-    rng = np.random.default_rng(k)
+def _commit_case(nb, s, k, seed, *, hot=0):
+    """A half-filled table and K writes: updates, inserts, duplicates,
+    inactive and empty-key writes; ``hot`` > 0 sends every write to one
+    bucket, drawn from that many keys."""
+    rng = np.random.default_rng(seed)
     table = [torch.zeros(shape, dtype=torch.int32)
              for shape in ((nb, s, 2), (nb, s), (nb, s, 4))]
     fill = u32.from_numpy(rng.integers(1, 1 << 32, (nb * s // 2, 2),
@@ -113,12 +136,34 @@ def test_commit_kernel(cuda, nb, s, k):
     wk = rng.integers(1, 1 << 32, (k, 2), dtype=np.uint32)
     wk[: k // 4] = u32.to_numpy(fill)[rng.integers(0, len(fill), k // 4)]
     wk[k // 4: k // 2] = wk[rng.integers(0, k // 4, k // 4)]  # duplicates
+    if hot:
+        pool = rng.integers(1, 1 << 32, (hot, 2), dtype=np.uint32)
+        pool[:, 0] = (pool[:, 0] & ~np.uint32(nb - 1)) | np.uint32(nb // 2)
+        wk = pool[rng.integers(0, hot, k)]
     wk[rng.random(k) < 0.05, 0] = 0
     wv = rng.integers(0, 1 << 32, (k, 4), dtype=np.uint32)
     act = rng.random(k) < 0.85
-    args = [u32.from_numpy(a) for a in (wk, wv)] + [torch.from_numpy(act)]
+    return table, [u32.from_numpy(a) for a in (wk, wv)] + [
+        torch.from_numpy(act)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb,s,k,hot", [
+    (1 << 12, 8, 200, 0), (4, 2, 64, 0), (64, 8, 2048, 0), (1, 8, 64, 6),
+    (64, 8, 3000, 5), (1 << 16, 8, 40000, 0), (256, 16, 500, 0),
+    (64, 32, 900, 0), (8, 40, 300, 0)])
+def test_commit_kernel(cuda, nb, s, k, hot):
+    """Updates, inserts, full buckets (overflow), duplicate keys, inactive
+    and empty-key writes: the kernel on the card against the plain version
+    on a copy of the same table, bit-equal, overflow flag included. The
+    hot bucket (64 writes of 6 keys; 3,000 writes of 5 keys, more than a
+    CTA stages at once), K past the 1,024-part limit (40,000), other group
+    widths (S = 2, 16, 32) and S = 40 (a row walked in memory)."""
+    table, args = _commit_case(nb, s, k, k + s, hot=hot)
     on_card = [t.to(cuda) for t in table]
+    before = ht_ops.commit_launches
     ovf = ht_ops.commit(*on_card, *(a.to(cuda) for a in args))
+    assert ht_ops.commit_launches == before + 1
     want = ht_ref.commit_ref(*table, *args)
     _same(on_card + [ovf], table + [want])
 

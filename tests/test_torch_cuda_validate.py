@@ -1,7 +1,8 @@
 """The two redesigned kernels on a card against their plain PyTorch
 versions, bit-equal: MVCC validation (K4: conflict bit words, then a
-one-warp scan over 32-tx chunks) around its chunk borders, on hand-made
-blocks and at other key counts; the endorsement MAC (K1) at every
+scan over 32-tx chunks; one CTA, or a grid and a scan CTA) on both routes
+around its chunk borders, on hand-made blocks, at other key counts and
+at blocks past one CTA's shared memory; the endorsement MAC (K1) at every
 ``step``; and one launch for a serial block's endorsement check and a
 serial round's admission. Imports no JAX, so it also runs where only PyTorch is installed:
 
@@ -34,31 +35,40 @@ def _inputs(arrays, device):
             + [torch.from_numpy(ok0).to(device)])
 
 
-def _validate_both(arrays, cuda):
+def _validate_both(arrays, cuda, route=None):
+    """The kernel on ``route`` (None: by shape) and the plain version; the
+    one-CTA route is one launch, the tiled route two."""
     ins = _inputs(arrays, cuda)
+    b, nr, _ = ins[0].shape
+    taken = route or mv_ops.route_for(b, nr, ins[2].shape[1], cuda)
     before = mv_ops.launches
-    got = mv_ops.validate(*ins)
+    got = mv_ops.validate(*ins, route=route)
     torch.cuda.synchronize()
-    assert mv_ops.launches == before + 1
+    assert mv_ops.launches == before + (1 if taken == "cta" else 2)
     return got.cpu(), mv_ref.validate_ref(*_inputs(arrays, "cpu"))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b", [1, 31, 32, 33, 63, 64, 65, 100, 1023, 1024])
 def test_mvcc_kernel_chunk_borders(cuda, b):
-    got, want = _validate_both(
-        cases.random_block(b, seed=b, n_accounts=48 if b <= 100 else 400),
-        cuda)
-    assert torch.equal(got, want)
+    arrays = cases.random_block(b, seed=b,
+                                n_accounts=48 if b <= 100 else 400)
+    for route in mv_ops.ROUTES:
+        got, want = _validate_both(arrays, cuda, route)
+        assert torch.equal(got, want), route
+    # by size: one CTA up to 160 txs, where it is the faster route
+    assert mv_ops.route_for(b, 2, 2, cuda) == ("cta" if b <= 160
+                                               else "tiled")
 
 
 @pytest.mark.gpu
 def test_mvcc_kernel_hand_made_blocks(cuda):
     for name, make in cases.CASES.items():
         arrays, want = make()
-        got, plain = _validate_both(arrays, cuda)
-        assert torch.equal(plain, torch.from_numpy(want)), name
-        assert torch.equal(got, plain), name
+        for route in mv_ops.ROUTES:
+            got, plain = _validate_both(arrays, cuda, route)
+            assert torch.equal(plain, torch.from_numpy(want)), name
+            assert torch.equal(got, plain), (name, route)
 
 
 @pytest.mark.gpu
@@ -67,25 +77,35 @@ def test_mvcc_kernel_hand_made_blocks(cuda):
 def test_mvcc_kernel_other_key_counts(cuda, b, nr, nw):
     """Key counts read at run time (the paths' RK = WK = 2 is compiled
     with fixed counts): RK = WK = 4, at B = 1024 with 196,736 bytes of
-    shared memory, and RK = 3, WK = 1."""
-    got, want = _validate_both(
-        cases.random_block(b, seed=b + nr, nr=nr, nw=nw, n_accounts=600),
-        cuda)
-    assert torch.equal(got, want)
+    shared memory, and RK = 3, WK = 1; on both routes."""
+    arrays = cases.random_block(b, seed=b + nr, nr=nr, nw=nw, n_accounts=600)
+    for route in mv_ops.ROUTES:
+        got, want = _validate_both(arrays, cuda, route)
+        assert torch.equal(got, want), route
 
 
 @pytest.mark.gpu
-def test_mvcc_kernel_refuses_shapes_over_its_limits(cuda):
-    ok0 = torch.ones(1024, dtype=torch.bool, device=cuda)
-    keys = torch.zeros((1024, 8, 2), dtype=torch.int32, device=cuda)
-    vers = torch.zeros((1024, 8), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="227 KB"):
-        mv_ops.validate(keys, vers, keys, vers, ok0)
-    big = torch.zeros((1025, 2, 2), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="at most 1024"):
-        mv_ops.validate(big, big[..., 0].contiguous(), big,
-                        big[..., 0].contiguous(),
-                        torch.ones(1025, dtype=torch.bool, device=cuda))
+@pytest.mark.parametrize("b,nr,nw,route", [
+    (1025, 2, 2, "tiled"), (2048, 2, 2, "tiled"), (4096, 2, 2, "tiled"),
+    (1024, 8, 8, "tiled")])
+def test_mvcc_kernel_takes_shapes_past_one_cta(cuda, b, nr, nw, route):
+    """Shapes the kernel once refused: 33 chunks (B = 1025), also on one
+    CTA, forced; conflict words past a thread block's shared memory (B =
+    2048 and 4096; RK = WK = 8 at B = 1024, 262,272 bytes), where forcing
+    one CTA is refused by name. Dense conflicts, against the plain
+    version."""
+    arrays = cases.random_block(b, seed=b + nr, nr=nr, nw=nw,
+                                n_accounts=max(48, b // 3))
+    assert mv_ops.route_for(b, nr, nw, cuda) == route
+    got, want = _validate_both(arrays, cuda)
+    assert torch.equal(got, want)
+    assert 0 < int(want.sum()) < b
+    if mv_ops.fits_one_cta(b, nr, nw, cuda):
+        got, _ = _validate_both(arrays, cuda, "cta")
+        assert torch.equal(got, want)
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            mv_ops.validate(*_inputs(arrays, cuda), route="cta")
 
 
 @pytest.mark.gpu

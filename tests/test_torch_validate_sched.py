@@ -1,12 +1,13 @@
 """The schedules of the two redesigned kernels, on the CPU.
 
-MVCC validation (K4): a plain mirror of the kernel's two phases (the
-conflict matrix as bit words, then the scan over 32-tx chunks with the
-cross-chunk OR and the chain inside each chunk,
-``kernels/mvcc_validate/ref.py``) against the plain version, the JAX
-``repro.core.mvcc.validate`` and the JAX Pallas kernel (interpret mode), at
-block sizes around the chunk borders and on hand-made blocks
-(``kernels/mvcc_validate/cases.py``); bit-equal.
+MVCC validation (K4): a plain mirror of the kernel's two phases on both of
+its routes (the conflict matrix as bit words, then the scan over 32-tx
+chunks with the cross-chunk OR and the chain inside each chunk, in one
+warp or split across 32 warps, ``kernels/mvcc_validate/ref.py``) against
+the plain version, the JAX ``repro.core.mvcc.validate`` and the JAX Pallas
+kernel (interpret mode), at block sizes around the chunk borders and on
+hand-made blocks (``kernels/mvcc_validate/cases.py``); bit-equal. Blocks
+past 32 chunks are in ``test_torch_validate_tiled.py``.
 
 Endorsement MAC (K1): one call a block with ``step`` rows a step. The
 committer's serial, tiled and whole-block checks and the serial orderer's
@@ -59,9 +60,10 @@ def _unpack(words, b):
 def test_chunked_scan_matches_ref_and_jax(b):
     ins = cases.random_block(b, seed=b)
     t_ins = _torch_inputs(*ins)
-    got = mv_ref.validate_chunked(*t_ins)
     want, jb = _jax_validate(*ins)
-    np.testing.assert_array_equal(got.numpy(), want)
+    for route in ("cta", "tiled"):
+        got = mv_ref.validate_chunked(*t_ins, route=route)
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=route)
     np.testing.assert_array_equal(mv_ref.validate_ref(*t_ins).numpy(), want)
     # The conflict words hold the strict lower triangle of JAX's matrix.
     words = mv_ref.conflict_words(t_ins[0], t_ins[2]).numpy()
@@ -77,9 +79,10 @@ def test_chunked_scan_matches_ref_and_jax(b):
 @pytest.mark.parametrize("b", [1023, 1024])
 def test_chunked_scan_matches_ref_at_full_chunks(b):
     t_ins = _torch_inputs(*cases.random_block(b, seed=b, n_accounts=400))
-    got = mv_ref.validate_chunked(*t_ins)
     want = mv_ref.validate_ref(*t_ins)
-    assert torch.equal(got, want)
+    for route in ("cta", "tiled"):
+        assert torch.equal(mv_ref.validate_chunked(*t_ins, route=route),
+                           want), route
     assert 0 < int(want.sum()) < b
 
 
@@ -95,8 +98,10 @@ def test_chunked_scan_matches_pallas():
 def test_chunked_scan_hand_made_blocks(name):
     ins, want = cases.CASES[name]()
     t_ins = _torch_inputs(*ins)
-    np.testing.assert_array_equal(mv_ref.validate_chunked(*t_ins).numpy(),
-                                  want)
+    for route in ("cta", "tiled"):
+        np.testing.assert_array_equal(
+            mv_ref.validate_chunked(*t_ins, route=route).numpy(), want,
+            err_msg=route)
     np.testing.assert_array_equal(mv_ref.validate_ref(*t_ins).numpy(), want)
     np.testing.assert_array_equal(_jax_validate(*ins)[0], want)
 
