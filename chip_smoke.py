@@ -78,10 +78,25 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
    weights drawn once on the CPU and moved to the card, 2 requests (777
    and 256 tokens, 4 new each): prefill logits within 1e-4, greedy tokens
    and request-ledger words identical.
+11. Durability on the card: FASTFABRIC as in phase 4 with a snapshot every
+   10 blocks and the snapshot, journal and block directories in a
+   temporary directory (chain pruned a snapshot behind): rounds of 1,000,
+   1,000 (timed) and 500 transfers, 25 blocks, snapshots at blocks 9 and
+   19 (224 MiB each), counters set to 0 before and read after (K1 and K4
+   as in phase 4). verify() all True with the journal attached; the same
+   rounds on the CPU write identical manifests, journal records and
+   spilled blocks; a copy with one word flipped in the newest journal
+   record, and one with a value flipped in the snapshot shard, are
+   refused by restore(); FabricEngine.restore from a copy of the
+   directories alone matches the live engine (state digest, journal and
+   ledger heads, next block, overflow bits) and verifies, and one more
+   round of 500 on both leaves them identical. Timed: the round beside
+   phase 4's, snapshot take and save, recover(), full_replay over phase
+   4's 20 blocks, restore, the journal's append latency.
 
 The lines before the last give each phase's seconds, the card's name and
-power limit (as nvidia-smi prints them), the engine, ladder and serving
-summaries and the kernels; the last line is {"ok": true, "device": {...}}.
+power limit (as nvidia-smi prints them), the engine, ladder, serving and
+durability summaries (with the storage objects' sizes) and the kernels; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -90,8 +105,11 @@ import argparse
 import ctypes
 import dataclasses
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -111,6 +129,10 @@ SEEDS = (0, 1)  # warm-up round, then the timed round
 PROFILED_TXS = 300  # the profiled round (its trace takes minutes to read)
 LADDER_POOL = 256  # accounts of the ladder's conflicting round
 BIG_BLOCK, BIG_ROUND = 2048, 4096  # the large-block round: two blocks
+# The durable rounds (phase 11): 25 blocks of 100, snapshots at blocks 9
+# and 19, the newest trailing the journal tip by 5 blocks; then one more
+# round on the live and the restored engine.
+DURABLE_ROUNDS, DURABLE_EVERY, DURABLE_AFTER = (1000, 1000, 500), 10, 500
 ROUTE_SWEEP = (32, 64, 100, 128, 160, 192, 256, 512, 1024, 1235)  # K4
 SERVE_ARCH = "qwen2-7b"
 SERVE_PROMPTS = (2048, 1531, 1024, 777, 2000, 300, 1999, 64)
@@ -288,7 +310,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.sig_mac import ops as mac_ops, ref as mac_ref
     from repro_torch.models.lm import LM, Batch
     from repro_torch.serving.engine import Request, ServeEngine
-    from repro_torch.storage import journal
+    from repro_torch.obs.metrics import Registry
+    from repro_torch.storage import journal, recovery, snapshot
 
     dev = torch.device("cuda")
     # Every f32 product in full f32, on both sides of every comparison.
@@ -1083,6 +1106,15 @@ def main(argv=None) -> int:
                                  f"and CPU")
 
     on_card = results(eng)
+    # The baseline recovery, for phase 11: verify and replay the whole
+    # unpruned chain on the card.
+    t1 = time.perf_counter()
+    full = recovery.full_replay(eng.store, dims, n_buckets=nb, slots=slots)
+    torch.cuda.synchronize()
+    full_replay_s = time.perf_counter() - t1
+    if not np.array_equal(full.state_digest, on_card["peer"][0]):
+        raise AssertionError("full_replay's state differs from the peer's")
+    full_replay_blocks = full.replayed_records
     eng.store.close()
     del eng
     phase_done("4 engine on the card", t0)
@@ -1479,6 +1511,241 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_done("10 serving, card against CPU", t0)
 
+    # -- 11. durability on the card: journal, snapshots, recovery ----------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    tmp = tempfile.TemporaryDirectory()
+
+    def durable_cfg(root):
+        return dataclasses.replace(
+            cfg, snapshot_every_blocks=DURABLE_EVERY,
+            snapshot_dir=os.path.join(root, "snap"),
+            journal_dir=os.path.join(root, "jrnl"),
+            block_dir=os.path.join(root, "blocks"))
+
+    def durable_rounds(e):
+        return [e.run_round(e.make_proposals(n, seed=s,
+                                             n_accounts=N_ACCOUNTS))
+                for s, n in enumerate(DURABLE_ROUNDS)]
+
+    def heads(e):
+        ps = e.peer_state
+        return {"digest": u32.to_numpy(ws.state_digest(ps.hash_state)),
+                "journal_head": u32.to_numpy(ps.journal_head),
+                "ledger_head": u32.to_numpy(ps.ledger_head),
+                "next_block_no": e.next_block_no,
+                "overflow_bits": e.overflow_bits()}
+
+    def same_heads(a, b, what, keys=None):
+        for k in keys or a:
+            if not np.array_equal(a[k], b[k]):
+                raise AssertionError(f"{what}: {k} {a[k]} != {b[k]}")
+
+    def same_files(da, db, what):
+        """Same names; in each npz the same keys, dtypes and arrays."""
+        names = sorted(os.listdir(da))
+        if names != sorted(os.listdir(db)):
+            raise AssertionError(f"{what}: files differ: {names} vs "
+                                 f"{sorted(os.listdir(db))}")
+        for name in names:
+            with np.load(os.path.join(da, name)) as za, \
+                    np.load(os.path.join(db, name)) as zb:
+                if sorted(za.files) != sorted(zb.files) or not all(
+                        za[k].dtype == zb[k].dtype
+                        and np.array_equal(za[k], zb[k]) for k in za.files):
+                    raise AssertionError(f"{what}: {name} differs")
+        return names
+
+    def sizes(root):
+        out = {}
+        for sub in ("snap", "jrnl", "blocks"):
+            names = os.listdir(os.path.join(root, sub))
+            out[sub] = {"files": len(names), "bytes": sum(
+                os.path.getsize(os.path.join(root, sub, n)) for n in names)}
+        return out
+
+    def tampered_restore(src, dst, path_of, key, what):
+        """Copy ``src``, flip one bit of ``key`` in the file ``path_of``
+        names (in the first occupied slot of a shard), and require
+        restore() to refuse the copy."""
+        shutil.copytree(src, dst)
+        path = path_of(dst)
+        with np.load(path) as z:
+            arrays = {k: z[k] for k in z.files}
+        at = (tuple(int(i) for i in np.argwhere(
+            arrays["keys"][..., 0] != 0)[0]) + (0,)
+              if "keys" in arrays else (0,) * arrays[key].ndim)
+        arrays[key][at] ^= np.uint32(1)
+        np.savez(path, **arrays)
+        try:
+            engine.FabricEngine.restore(durable_cfg(dst))
+        except recovery.RecoveryError as err:
+            log(f"[durable] tampered {what} ({os.path.basename(path)}, "
+                f"{key}{list(at)}): restore refused: {err}")
+        else:
+            raise AssertionError(f"restore accepted a tampered {what}")
+        finally:
+            shutil.rmtree(dst)
+
+    card_root = os.path.join(tmp.name, "card")
+    reg = Registry()
+    zero_counts()
+    e = engine.FabricEngine(durable_cfg(card_root), metrics=reg)
+    dst = durable_rounds(e)
+    got = counts()
+    path_launches["durable"] = got
+    want_k = k1_k4_launches(dst)
+    if not all(got[k] for k in ("mac_many", "lookup", "validate")):
+        raise AssertionError(f"durable: a kernel of the path never ran: "
+                             f"{got}")
+    if any(got[k] != n for k, n in want_k.items()):
+        raise AssertionError(f"durable: K1/K4 launches {got}, expected "
+                             f"{want_k}")
+    n_blocks = sum(st.n_blocks for st in dst)
+    snap_blocks = [sn.block_no for sn in e.snapshots]
+    if (e.journal is None or n_blocks != 25 or snap_blocks != [9, 19]
+            or e.store.base_block_no != 9):
+        raise AssertionError(f"durable: {n_blocks} blocks, snapshots "
+                             f"{snap_blocks}, chain base "
+                             f"{e.store.base_block_no}")
+    t1 = time.perf_counter()
+    dverdict = e.verify()
+    dverify_s = time.perf_counter() - t1
+    if not all(dverdict.values()):
+        raise AssertionError(f"durable: verify() failed on the card: "
+                             f"{dverdict}")
+    t1 = time.perf_counter()
+    rec = e.recover()
+    torch.cuda.synchronize()
+    recover_s = time.perf_counter() - t1
+    live = heads(e)
+    if (rec.snapshot_block_no, rec.block_no, rec.replayed_records) != (
+            19, 24, 5) or not rec.state.keys.is_cuda:
+        raise AssertionError(f"durable: recover() from block "
+                             f"{rec.snapshot_block_no} replayed "
+                             f"{rec.replayed_records} records to "
+                             f"{rec.block_no}")
+    t1 = time.perf_counter()
+    snap_again = snapshot.take(
+        e.peer_state.hash_state, block_no=24,
+        journal_head=e.peer_state.journal_head,
+        ledger_head=e.peer_state.ledger_head)
+    take_s = time.perf_counter() - t1
+    if not np.array_equal(snap_again.state_digest, live["digest"]):
+        raise AssertionError("durable: a snapshot's digest differs from "
+                             "the peer's")
+    del snap_again
+    storage = sizes(card_root)
+    log(json.dumps({"storage": storage, "table_words": nb * slots * (
+        3 + dims.vw), "blocks": n_blocks, "snapshots": snap_blocks}))
+
+    # The same rounds on the CPU, into their own directories.
+    t1 = time.perf_counter()
+    cpu_root = os.path.join(tmp.name, "cpu")
+    ec = engine.FabricEngine(durable_cfg(cpu_root), device="cpu")
+    cdst = durable_rounds(ec)
+    ec.store.drain()
+    same_heads(live, heads(ec), "durable, card against CPU")
+    if [st.n_valid for st in cdst] != [st.n_valid for st in dst]:
+        raise AssertionError("durable: valid counts differ on the CPU")
+    files = {sub: same_files(os.path.join(card_root, sub),
+                             os.path.join(cpu_root, sub),
+                             f"durable {sub}, card against CPU")
+             for sub in ("snap", "jrnl", "blocks")}
+    for bno in (9, 19):
+        a, b = (snapshot.load_manifest(snapshot.path_for(
+            os.path.join(r, "snap"), bno)) for r in (card_root, cpu_root))
+        if not all(np.array_equal(getattr(a, f), getattr(b, f))
+                   for f in a._fields):
+            raise AssertionError(f"durable: manifest {bno} differs")
+    if len(e.journal.records) != len(ec.journal.records) or not all(
+            x.block_no == y.block_no and all(
+                np.array_equal(getattr(x, f), getattr(y, f))
+                for f in ("write_keys", "write_vals", "valid", "prev_head",
+                          "head"))
+            for x, y in zip(e.journal.records, ec.journal.records)):
+        raise AssertionError("durable: journal records differ")
+    ec.store.close()
+    del ec
+    shutil.rmtree(cpu_root)
+    cpu_s = time.perf_counter() - t1
+    log(f"[durable] CPU identical: manifests {files['snap']}, "
+        f"{len(files['jrnl'])} journal records, {len(files['blocks'])} "
+        f"spilled blocks, heads and digests; {cpu_s:.1f} s")
+
+    # Tampered copies are refused.
+    tampered_restore(
+        card_root, os.path.join(tmp.name, "bad_journal"),
+        lambda r: os.path.join(r, "jrnl", "journal_00000024.npz"),
+        "write_vals", "journal record")
+    tampered_restore(
+        card_root, os.path.join(tmp.name, "bad_snapshot"),
+        lambda r: snapshot.shard_path_for(os.path.join(r, "snap"), 19, 0),
+        "values", "snapshot shard")
+
+    # Restore on the card from a copy of the directories alone.
+    rest_root = os.path.join(tmp.name, "restore")
+    shutil.copytree(card_root, rest_root)
+    t1 = time.perf_counter()
+    r = engine.FabricEngine.restore(durable_cfg(rest_root))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t1
+    same_heads(live, heads(r), "restore against the live engine")
+    rverdict = r.verify()
+    if not all(rverdict.values()) or r.store.base_block_no != 19 or [
+            sb.block_no for sb in r.store.chain] != list(range(20, 25)):
+        raise AssertionError(f"restore: verify {rverdict}, chain base "
+                             f"{r.store.base_block_no}")
+    for x in (e, r):
+        x.run_round(x.make_proposals(DURABLE_AFTER, seed=len(DURABLE_ROUNDS),
+                                     n_accounts=N_ACCOUNTS))
+        x.store.drain()
+    same_heads(heads(e), heads(r), "one round after restore",
+               ("digest", "journal_head", "ledger_head", "next_block_no"))
+    after = heads(r)
+    e.store.close()
+    r.store.close()
+    del e, r
+    tmp.cleanup()
+    timed = dst[1]
+    append = reg.histogram("journal.append.latency").snapshot()
+    save = reg.histogram("snapshot.save.latency")
+    durability = {
+        "card": card,
+        "rounds": [st._asdict() for st in dst],
+        "timed": {"tps": timed.tps, "order_s": timed.order_s,
+                  "commit_s": timed.commit_s, "wall_s": timed.wall_s},
+        "phase4_timed": {k: summary[k] for k in ("tps", "order_s",
+                                                 "commit_s", "wall_s")},
+        "snapshot": {"take_s": take_s, "save_s": save.sum,
+                     "saves": save.count,
+                     "gc_s": reg.histogram("snapshot.gc.latency").sum,
+                     "bytes": reg.counter("snapshot.bytes").value,
+                     "on_disk": storage["snap"]},
+        "recover_s": recover_s, "recovered_records": rec.replayed_records,
+        "full_replay_s": full_replay_s,
+        "full_replay_blocks": full_replay_blocks,
+        "restore_s": restore_s,
+        "journal_append_latency_s": append,
+        "journal_appends": reg.counter("journal.appends").value,
+        "verify": dverdict, "verify_s": dverify_s,
+        "restored_verify": rverdict, "launches": got, "cpu_s": cpu_s,
+        "after_restore": {"ledger_head": after["ledger_head"],
+                          "journal_head": after["journal_head"]},
+    }
+    for label, st in zip(("warm-up", "timed", "last"), dst):
+        log(f"[durable] {label}: {st.n_txs} txs, {st.tps:.1f} tx/s, order "
+            f"{st.order_s:.4f} s, commit {st.commit_s:.4f} s, replay "
+            f"{st.replay_s:.4f} s")
+    log(f"[durable] journal off (phase 4): {summary['tps']:.1f} tx/s, order "
+        f"{summary['order_s']:.4f} s, commit {summary['commit_s']:.4f} s; "
+        f"snapshot take {take_s:.3f} s, save {save.sum:.3f} s over "
+        f"{save.count}; recover {recover_s:.3f} s ({rec.replayed_records} "
+        f"records); full replay {full_replay_s:.3f} s ({full_replay_blocks} "
+        f"blocks); restore {restore_s:.3f} s; journal append mean "
+        f"{append.get('mean', 0) * 1e3:.3f} ms; launches {got}")
+    phase_done("11 durability on the card", t0)
+
     kernels = [{
         "name": t["name"], "route": "cuda", "source": t["source"],
         "replaces": t["replaces"],
@@ -1494,6 +1761,7 @@ def main(argv=None) -> int:
     log(json.dumps({"ladder": ladder}, default=str))
     log(json.dumps({"large_blocks": large}, default=str))
     log(json.dumps({"serving": serving}, default=str))
+    log(json.dumps({"durability": durability}, default=str))
     log(json.dumps({"phase_s": phase_s,
                     "total_s": time.perf_counter() - t_start}))
     log(card)

@@ -3,13 +3,16 @@
 
 ``append_hash`` is the on-path part: the committer computes each block's
 chain hash. ``BlockStore`` is the off-path storage role: a writer thread
-receives validated blocks, copies them to the host and keeps the chain, from
-which ``verify_chain`` re-authenticates every block and ``replay_state``
-rebuilds the world state.
+receives validated blocks, copies them to the host, spills them, feeds the
+state journal and keeps the chain, from which ``verify_chain``
+re-authenticates every block and ``replay_state`` rebuilds the world
+state. ``prune_upto`` compacts the chain up to a snapshot; the chain then
+re-anchors at the last pruned block's hash (``base_hash``).
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 from typing import NamedTuple
@@ -19,6 +22,33 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import hashing, types, u32, unmarshal, world_state
+
+
+def channel_dir(base: str, channel: int) -> str:
+    """Where channel ``channel``'s files live under ``base``: channel 0 IS
+    ``base``; other channels nest one level down."""
+    if channel == 0:
+        return base
+    return os.path.join(base, f"channel_{channel:04d}")
+
+
+def load_spilled_blocks(spill_dir: str, start_block: int,
+                        channel: int = 0) -> list["StoredBlock"]:
+    """A channel's spilled blocks from ``start_block`` upward, until the
+    first gap (the restore path rebuilds a snapshot's trailing suffix from
+    them)."""
+    d = channel_dir(spill_dir, channel)
+    out: list[StoredBlock] = []
+    bno = start_block
+    while True:
+        path = os.path.join(d, f"block_{bno:08d}.npz")
+        if not os.path.exists(path):
+            return out
+        with np.load(path) as z:
+            out.append(StoredBlock(block_no=bno, prev_hash=z["prev_hash"],
+                                   block_hash=z["block_hash"], wire=z["wire"],
+                                   valid=z["valid"]))
+        bno += 1
 
 
 def block_body_digest(wire: torch.Tensor, valid: torch.Tensor
@@ -59,25 +89,48 @@ class StoredBlock(NamedTuple):
     valid: np.ndarray  # (B,) bool
 
 
+def chained_hash(prev: np.ndarray, sb: "StoredBlock") -> np.ndarray:
+    """The hash a stored block must carry after ``prev`` (host u32 arrays),
+    re-derived from its body with the plain functions on the CPU."""
+    digest = block_body_digest(_tensor(sb.wire), _tensor(sb.valid))
+    return u32.to_numpy(append_hash(u32.from_numpy(prev), sb.block_no,
+                                    digest))
+
+
 class BlockStore:
     """The storage role: async, append-only, off the critical path.
 
-    A writer thread drains a queue of device blocks, copies them to the host
-    and appends them to the chain. The copy runs on the writer thread's
-    current stream, the default stream, behind the commit that produced the
-    block; a caller on another stream must record an event first. Submitted
-    tensors must not be written afterwards: the committer hands over fresh
-    head, hash and validity tensors, and the round's wire is never written.
-    Once an append fails, everything behind it is dropped and the error is
-    raised by the next ``drain``/``close``.
+    A writer thread drains a queue of device blocks and, for each, copies
+    it to the host, spills it to ``spill_dir`` as ``block_%08d.npz`` (the
+    JAX package's format), hands it to the attached state journal, and
+    appends it to the chain last: a block is in the chain only if every
+    sink accepted it. The copy runs on the writer thread's current stream,
+    the default stream, behind the commit that produced the block; a
+    caller on another stream must record an event first. Submitted tensors
+    must not be written afterwards: the committer hands over fresh head,
+    hash and validity tensors, and the round's wire is never written. The
+    journal decodes and hashes from the host copy, on the CPU, so the
+    writer launches nothing on the card.
+
+    Once an append fails, its spill file is removed and everything behind
+    it is dropped (fail-stop); the next ``drain``/``close`` raises the
+    error once, or ``resume`` clears it and says where to resubmit from.
     """
 
-    def __init__(self):
+    def __init__(self, spill_dir: str | None = None, *, journal=None):
         self._q: queue.Queue = queue.Queue()
         self.chain: list[StoredBlock] = []
+        self.base_block_no = -1
+        self.base_hash = np.zeros(2, np.uint32)
+        self._spill_dir = spill_dir
+        self._journal = journal
         self._err: Exception | None = None
         self._t = threading.Thread(target=self._run, daemon=True)
         self._t.start()
+
+    def set_journal(self, journal) -> None:
+        """Attach the state journal the writer feeds (drain first)."""
+        self._journal = journal
 
     def submit(self, block_no: int, prev_hash, block_hash, wire, valid
                ) -> None:
@@ -86,17 +139,34 @@ class BlockStore:
     def _run(self) -> None:
         while True:
             item = self._q.get()
+            spill_path = None
             try:
                 if item is None:
                     return
                 if self._err is not None:
                     continue  # fail-stop: no gap behind a failed append
                 bno, prev, bh, wire, valid = item
-                self.chain.append(StoredBlock(
-                    int(bno), u32.to_numpy(prev), u32.to_numpy(bh),
-                    wire.cpu().numpy(), valid.cpu().numpy()))
+                sb = StoredBlock(int(bno), u32.host_copy(prev),
+                                 u32.host_copy(bh), _host(wire), _host(valid))
+                if self._spill_dir is not None:
+                    spill_path = os.path.join(self._spill_dir,
+                                              f"block_{sb.block_no:08d}.npz")
+                    np.savez(spill_path, prev_hash=sb.prev_hash,
+                             block_hash=sb.block_hash, wire=sb.wire,
+                             valid=sb.valid)
+                if self._journal is not None:
+                    self._journal.append_block(sb.block_no, sb.wire,
+                                               sb.valid)
+                self.chain.append(sb)
             except Exception as e:  # raised by drain()/close()
                 self._err = e
+                # Un-spill: no reader of the spill directory may see a
+                # block the chain and journal fail-stopped before.
+                if spill_path is not None:
+                    try:
+                        os.remove(spill_path)
+                    except OSError:
+                        pass
             finally:
                 self._q.task_done()
 
@@ -115,30 +185,83 @@ class BlockStore:
         self._q.join()
         self._surface_err()
 
+    def resume(self) -> int:
+        """Supervised restart after a writer failure: wait for the writer
+        to discard the dropped suffix, clear the latched error (without
+        raising it) and return the next block number the chain expects,
+        from which the caller resubmits."""
+        self._q.join()
+        self._err = None
+        return (self.chain[-1].block_no if self.chain
+                else self.base_block_no) + 1
+
+    def prune_upto(self, block_no: int) -> int:
+        """Drop blocks <= ``block_no`` (covered by a snapshot) from memory
+        and from the spill directory; returns the number dropped. Call with
+        the writer drained."""
+        dropped = [sb for sb in self.chain if sb.block_no <= block_no]
+        if dropped:
+            self.chain = [sb for sb in self.chain if sb.block_no > block_no]
+            self.base_block_no = dropped[-1].block_no
+            self.base_hash = dropped[-1].block_hash
+            if self._spill_dir is not None:
+                for sb in dropped:
+                    path = os.path.join(self._spill_dir,
+                                        f"block_{sb.block_no:08d}.npz")
+                    if os.path.exists(path):
+                        os.remove(path)
+        return len(dropped)
+
     def verify_chain(self) -> bool:
-        """Re-derive every block hash from its body on the host."""
-        prev = np.zeros(2, np.uint32)
+        """Re-derive every block hash from its body on the host, from the
+        pruning base."""
+        prev = self.base_hash
         for sb in self.chain:
             if not np.array_equal(sb.prev_hash, prev):
                 return False
-            digest = block_body_digest(torch.from_numpy(sb.wire),
-                                       torch.from_numpy(sb.valid))
-            expect = append_hash(u32.from_numpy(prev), sb.block_no, digest)
-            if not np.array_equal(u32.to_numpy(expect), sb.block_hash):
+            if not np.array_equal(chained_hash(prev, sb), sb.block_hash):
                 return False
             prev = sb.block_hash
         return True
 
     def replay_state(self, dims: types.FabricDims, n_buckets: int,
-                     slots: int, device=None) -> world_state.HashState:
+                     slots: int, start_state: world_state.HashState | None
+                     = None, resize_at: dict | None = None, device=None
+                     ) -> world_state.HashState:
         """Rebuild the world state on ``device`` (default: the card) from
-        the chain (crash recovery for P-I)."""
+        the chain (crash recovery for P-I).
+
+        ``start_state``: the covering snapshot's state when the prefix was
+        pruned (updated in place). ``resize_at`` maps a boundary block to
+        the bucket count(s), an int or a list applied in order, the table
+        resized to right after that block.
+        """
         device = resolve_device(device)
-        st = world_state.create(n_buckets, slots, dims.vw, device=device)
+        st = (world_state.create(n_buckets, slots, dims.vw, device=device)
+              if start_state is None else start_state)
+        resize_at = {b: list(nb) if isinstance(nb, (list, tuple)) else [nb]
+                     for b, nb in (resize_at or {}).items()}
+
+        def cross(st, boundary):
+            for nb in resize_at.pop(boundary, ()):
+                st = world_state.resize(st, nb).state
+            return st
+
         for sb in self.chain:
-            dec = unmarshal.unmarshal(torch.from_numpy(sb.wire).to(device),
-                                      dims)
+            st = cross(st, sb.block_no - 1)
+            wk, wv = unmarshal.write_sets(_tensor(sb.wire, device), dims)
             st = world_state.commit_vectorized(
-                st, dec.txb.write_keys, dec.txb.write_vals,
-                torch.from_numpy(sb.valid).to(device)).state
+                st, wk, wv, _tensor(sb.valid, device)).state
+            st = cross(st, sb.block_no)
+        for boundary in sorted(resize_at):
+            st = cross(st, boundary)
         return st
+
+
+def _tensor(a, device=None) -> torch.Tensor:
+    """A host array as a tensor of its own on ``device``."""
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)

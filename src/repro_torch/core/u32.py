@@ -90,3 +90,13 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     """tensor -> numpy on the host; int32 words come back as u32."""
     a = t.detach().cpu().numpy()
     return a.view(np.uint32) if a.dtype == np.int32 else a
+
+
+def host_copy(x) -> np.ndarray:
+    """A tensor of words, or an array of u32 words, as a host u32 array of
+    its own: a CPU tensor's numpy view would follow the tensor's in-place
+    updates (a card's tensor comes back as a fresh array already)."""
+    if not isinstance(x, torch.Tensor):
+        return np.array(x, dtype=np.uint32)
+    a = to_numpy(x)
+    return a.copy() if x.device.type == "cpu" else a

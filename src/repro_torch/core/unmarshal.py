@@ -81,21 +81,33 @@ class Unmarshaled(NamedTuple):
     checksum_ok: torch.Tensor  # (B,) bool
 
 
+def _field(words: torch.Tensor, lay: dict, dims: types.FabricDims,
+           name: str) -> torch.Tensor:
+    """One field of every transaction, a view into the (B, P) words."""
+    b = words.shape[0]
+    s, e = lay[name]
+    shape = {"tx_id": (2,), "read_keys": (dims.rk, 2),
+             "read_vers": (dims.rk,), "write_keys": (dims.wk, 2),
+             "write_vals": (dims.wk, dims.vw),
+             "endorse_tags": (dims.ne,)}.get(name)
+    return words[:, s:e].reshape(b, *shape) if shape else words[:, s]
+
+
 def unmarshal(wire: torch.Tensor, dims: types.FabricDims) -> Unmarshaled:
     """Wire bytes -> TxBatch (views into the wire) + integrity flag."""
     words = wire_words(wire)
-    b = words.shape[0]
     lay = _layout(dims)
-    shapes = {"tx_id": (2,), "client": (), "channel": (),
-              "read_keys": (dims.rk, 2), "read_vers": (dims.rk,),
-              "write_keys": (dims.wk, 2), "write_vals": (dims.wk, dims.vw),
-              "endorse_tags": (dims.ne,)}
-
-    def get(name):
-        s, e = lay[name]
-        return (words[:, s:e].reshape(b, *shapes[name]) if shapes[name]
-                else words[:, s])
-
-    txb = types.TxBatch(*(get(name) for name in _FIELDS))
+    txb = types.TxBatch(*(_field(words, lay, dims, name)
+                          for name in _FIELDS))
     ok = payload_checksum(words) == words[:, CHECKSUM_WORD]
     return Unmarshaled(txb=txb, checksum_ok=ok)
+
+
+def write_sets(wire: torch.Tensor, dims: types.FabricDims):
+    """The write keys (B, WK, 2) and values (B, WK, VW) of a block, views
+    into the wire with no integrity pass: all that the state journal and
+    the chain replay read of a block whose checksums were already checked
+    at commit."""
+    words, lay = wire_words(wire), _layout(dims)
+    return (_field(words, lay, dims, "write_keys"),
+            _field(words, lay, dims, "write_vals"))

@@ -11,6 +11,11 @@ table's tensors IN PLACE and return the same :class:`HashState`: a
 2^20-bucket table is 224 MiB, and a copy per block would move more bytes
 than the block does.
 
+Resize epochs and shards: :func:`resize` rehashes the table into a new
+bucket count (journal replay crosses the re-anchor records it leaves), and
+:func:`split_table` / :func:`tree_head` give the high-bit shard partition
+and its digest tree, which snapshot manifests commit to.
+
 Sorted store: a sorted run searched by bisection; each commit merges the
 block's writes and re-sorts the whole run (:func:`sorted_commit`).
 """
@@ -65,6 +70,121 @@ def bucket_of(state_or_nb, keys: torch.Tensor) -> torch.Tensor:
     mask (non-negative: NB <= 2^31)."""
     nb = state_or_nb if isinstance(state_or_nb, int) else state_or_nb.n_buckets
     return keys[..., 0] & (nb - 1)
+
+
+# -- bucket shards and resize epochs ------------------------------------------
+# Shard m owns the contiguous bucket range [m * nb_loc, (m+1) * nb_loc): the
+# HIGH bits of the global bucket index, so a reshape of the table to
+# (n_shards, nb_loc, ...) is the partition, and a shard-local probe with
+# nb_loc buckets (bucket_of masks the LOW bits) lands on the right bucket.
+
+
+def shard_buckets(n_buckets: int, n_shards: int) -> int:
+    """Buckets per shard; validates the (power-of-two) partition."""
+    if n_shards < 1 or n_shards & (n_shards - 1):
+        raise ValueError(f"n_shards={n_shards} must be a power of two")
+    if n_buckets % n_shards:
+        raise ValueError(
+            f"n_buckets={n_buckets} not divisible by n_shards={n_shards}")
+    nb_loc = n_buckets // n_shards
+    if nb_loc & (nb_loc - 1):
+        raise ValueError("buckets per shard must stay a power of two")
+    return nb_loc
+
+
+def shard_of(n_buckets: int, n_shards: int, keys: torch.Tensor
+             ) -> torch.Tensor:
+    """Owner shard of paired keys (..., 2) -> (...,) int32."""
+    nb_loc = shard_buckets(n_buckets, n_shards)
+    return bucket_of(n_buckets, keys) // nb_loc
+
+
+def split_table(tkeys, tvers, tvals, n_shards: int):
+    """(NB, ...) table arrays -> (M, NB/M, ...) shard-major views, for
+    tensors and numpy arrays alike: the reshape IS the partition."""
+    nb_loc = shard_buckets(tkeys.shape[0], n_shards)
+    return tuple(a.reshape(n_shards, nb_loc, *a.shape[1:])
+                 for a in (tkeys, tvers, tvals))
+
+
+def merge_table(skeys, svers, svals):
+    """Inverse of :func:`split_table`: (M, NB/M, ...) -> (NB, ...)."""
+    return tuple(a.reshape(-1, *a.shape[2:]) for a in (skeys, svers, svals))
+
+
+class ResizeResult(NamedTuple):
+    state: HashState
+    overflow: torch.Tensor  # () bool: a merged bucket exceeded its slots
+    # (only when SHRINKING; the extras are dropped)
+
+
+def resize(state: HashState, new_n_buckets: int) -> ResizeResult:
+    """Rehash the table into ``new_n_buckets`` buckets (a power of two), on
+    the table's device; returns a new table.
+
+    Entries regroup by their new bucket and compact in flat order (old
+    bucket ascending, slot ascending), which for a grow is the insertion
+    order a fresh run on the bigger table would have used. A shrink merges
+    buckets g and g + new_n_buckets; entries past ``slots`` in a merged
+    bucket are dropped and reported as ``overflow``.
+    """
+    if new_n_buckets < 1 or new_n_buckets & (new_n_buckets - 1):
+        raise ValueError("n_buckets must be a power of two")
+    nb, s, vw = state.n_buckets, state.slots, state.value_width
+    k = nb * s
+    dev = state.keys.device
+    fk = state.keys.reshape(k, 2)
+    occ = fk[:, 0] != hashing.EMPTY_KEY
+    newb = torch.where(occ, (fk[:, 0] & (new_n_buckets - 1)).long(),
+                       new_n_buckets)
+    # Group by destination bucket, stable in flat order (the reference's
+    # lexsort); the rank within the group is the destination slot.
+    order = torch.argsort(newb, stable=True)
+    sb = newb[order]
+    rank = (torch.arange(k, device=dev)
+            - torch.searchsorted(sb, sb, side="left"))
+    live = sb < new_n_buckets
+    overflow = (live & (rank >= s)).any()
+    keep = live & (rank < s)
+    dest = sb[keep] * s + rank[keep]
+    src = order[keep]
+
+    def scat(arr, width):
+        out = torch.zeros((new_n_buckets * s, *width), dtype=u32.WORD,
+                          device=dev)
+        out[dest] = arr.reshape(k, *width)[src]
+        return out.reshape(new_n_buckets, s, *width)
+
+    return ResizeResult(
+        HashState(keys=scat(state.keys, (2,)),
+                  versions=scat(state.versions, ()),
+                  values=scat(state.values, (vw,))),
+        overflow)
+
+
+def tree_head(state: HashState, n_shards: int) -> torch.Tensor:
+    """(2,) u32 digest-tree head of a table under the ``n_shards`` high-bit
+    partition: per-shard :func:`state_digest` folded by
+    :func:`shard_digest_tree`. Snapshot manifests and journal re-anchor
+    records commit to it."""
+    sk, sv, sva = split_table(state.keys, state.versions, state.values,
+                              n_shards)
+    return shard_digest_tree(torch.stack([
+        state_digest(HashState(sk[m], sv[m], sva[m]))
+        for m in range(n_shards)]))
+
+
+def shard_digest_tree(digests: torch.Tensor) -> torch.Tensor:
+    """Fold of per-shard digests (M, 2) -> (2,) in shard order, pairwise
+    with :func:`hashing.combine` (an odd level repeats its last digest):
+    it binds the shard layout, which the XOR-fold state digest does not."""
+    d = digests
+    while d.shape[0] > 1:
+        if d.shape[0] % 2:
+            d = torch.cat([d, d[-1:]])
+        d = torch.stack([hashing.combine(d[0::2, 0], d[1::2, 0]),
+                         hashing.combine(d[0::2, 1], d[1::2, 1])], dim=-1)
+    return d[0]
 
 
 class Lookup(NamedTuple):

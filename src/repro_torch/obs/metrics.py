@@ -13,8 +13,9 @@ Three instrument kinds:
 Instruments support labels; a labeled instrument is keyed ``name{k=v}`` in
 :meth:`Registry.collect` snapshots, and ``Registry.to_prometheus`` renders
 the standard text exposition (histograms as cumulative ``_bucket{le=...}``
-series) for the serving engine's ``stats_text``. The no-op registry of the
-JAX package comes with the obs slice, whose engines switch metrics off.
+series) for the serving engine's ``stats_text``. :data:`NULL_REGISTRY` is
+the no-op sink of code that records metrics only when handed a registry
+(the storage layer's journal and snapshot functions).
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ import collections
 import math
 import threading
 
-__all__ = ["Counter", "Gauge", "Histogram", "Registry"]
+__all__ = ["Counter", "Gauge", "Histogram", "Registry", "NullRegistry",
+           "NULL_REGISTRY", "null_registry"]
 
 
 class Counter:
@@ -305,3 +307,67 @@ class Registry:
                 else:
                     lines.append(f"{pname}{sfx} {inst.value}")
         return "\n".join(lines) + "\n"
+
+
+class _NullInstrument:
+    """Absorbs every instrument method; always reads as empty/0."""
+
+    value = 0
+    count = 0
+    sum = 0.0
+
+    def inc(self, amount=1) -> None:
+        pass
+
+    def dec(self, amount=1) -> None:
+        pass
+
+    def set(self, value) -> None:
+        pass
+
+    def record(self, value, n=1, exemplar=None) -> None:
+        pass
+
+    def merge(self, other) -> None:
+        pass
+
+    def percentile(self, q) -> float:
+        return float("nan")
+
+    def exemplars_for(self, q) -> list:
+        return []
+
+    def exemplar_snapshot(self) -> dict:
+        return {}
+
+    def snapshot(self) -> dict:
+        return {}
+
+
+_NULL_INSTRUMENT = _NullInstrument()
+
+
+class NullRegistry:
+    """No-op registry: one call, no state."""
+
+    def counter(self, name, **labels):
+        return _NULL_INSTRUMENT
+
+    def gauge(self, name, **labels):
+        return _NULL_INSTRUMENT
+
+    def histogram(self, name, lo=1e-7, hi=1e3, max_exemplars=4, **labels):
+        return _NULL_INSTRUMENT
+
+    def collect(self) -> dict:
+        return {}
+
+    def to_prometheus(self) -> str:
+        return ""
+
+
+NULL_REGISTRY = NullRegistry()
+
+
+def null_registry() -> NullRegistry:
+    return NULL_REGISTRY
