@@ -94,9 +94,33 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
    phase 4's, snapshot take and save, recover(), full_replay over phase
    4's 20 blocks, restore, the journal's append latency.
 
+12. Observability and elastic state on the card: (a) FASTFABRIC as in
+   phase 4 with obs on (and a recorder directory), in turns with obs off
+   (off, on, on, off: a warm-up and a timed round each); the checked
+   obs-on engine's chain, heads and digests equal phase 4's, its spans
+   (round.order, round.commit with a block.ship a block,
+   round.endorser_replay) agree with RoundStats within 5 %, its tx phases
+   count every transaction and sum to e2e, its valid outcomes equal
+   n_valid, health() is healthy; then the policy pass's stacked read and
+   one resize of its 2^20 x 8 table to 2^21, timed. (b) ResizePolicy(
+   grow_free_slots=2) from a 2,048 x 8 table over four rounds of 1,000
+   with a snapshot every 25 blocks and the three directories: at least
+   two doublings without overflow, verify() all True, recovery from
+   genesis across every re-anchor, restore from a copy of the
+   directories onto the grown layout, and the same rounds on the CPU
+   identical (epochs, digest, heads, files, journal records). (c) Fault
+   edges: a static 8 x 2 table latches overflow (overflow_latch,
+   health() critical, health.status 2), the same table under a policy
+   capped at 8 buckets refuses once (resize_refused), and a word flipped
+   in the newest journal record breaks verify() (verify_contract with
+   the journal's reason); each trip dumps the recorder's five files.
+   Counters are set to 0 before each engine of (a)-(c) that is checked
+   and read after it; K1 and K4 as in phase 4.
+
 The lines before the last give each phase's seconds, the card's name and
-power limit (as nvidia-smi prints them), the engine, ladder, serving and
-durability summaries (with the storage objects' sizes) and the kernels; the last line is {"ok": true, "device": {...}}.
+power limit (as nvidia-smi prints them), the engine, ladder, serving,
+durability and observability summaries (with the storage objects' sizes)
+and the kernels; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -133,6 +157,15 @@ BIG_BLOCK, BIG_ROUND = 2048, 4096  # the large-block round: two blocks
 # and 19, the newest trailing the journal tip by 5 blocks; then one more
 # round on the live and the restored engine.
 DURABLE_ROUNDS, DURABLE_EVERY, DURABLE_AFTER = (1000, 1000, 500), 10, 500
+# Phase 12: obs-off and obs-on engines in turns; the elastic run's start
+# table (2,048 x 8: four rounds of 2,000 fresh keys from 2^22 accounts fill
+# a bucket to 6-7 of its 8 slots before each of three doublings, to 16,384
+# buckets, and to 5 after the last round) and its snapshot cadence (one
+# snapshot, at block 29, trails the tip, so restore() replays a suffix).
+OBS_TURNS = ("off", "on", "on", "off")
+ELASTIC_START, ELASTIC_ROUNDS, ELASTIC_EVERY = 1 << 11, 4, 25
+DUMP_FILES = {"trace.jsonl", "trace_chrome.json", "metrics.json",
+              "lifecycles.json", "meta.json"}
 ROUTE_SWEEP = (32, 64, 100, 128, 160, 192, 256, 512, 1024, 1235)  # K4
 SERVE_ARCH = "qwen2-7b"
 SERVE_PROMPTS = (2048, 1531, 1024, 777, 2000, 300, 1999, 64)
@@ -310,7 +343,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.sig_mac import ops as mac_ops, ref as mac_ref
     from repro_torch.models.lm import LM, Batch
     from repro_torch.serving.engine import Request, ServeEngine
-    from repro_torch.obs.metrics import Registry
+    from repro_torch.obs import Obs, Registry
     from repro_torch.storage import journal, recovery, snapshot
 
     dev = torch.device("cuda")
@@ -1590,7 +1623,8 @@ def main(argv=None) -> int:
     card_root = os.path.join(tmp.name, "card")
     reg = Registry()
     zero_counts()
-    e = engine.FabricEngine(durable_cfg(card_root), metrics=reg)
+    e = engine.FabricEngine(dataclasses.replace(durable_cfg(card_root),
+                                                obs=Obs(registry=reg)))
     dst = durable_rounds(e)
     got = counts()
     path_launches["durable"] = got
@@ -1746,6 +1780,287 @@ def main(argv=None) -> int:
         f"{append.get('mean', 0) * 1e3:.3f} ms; launches {got}")
     phase_done("11 durability on the card", t0)
 
+    # -- 12. observability and elastic state on the card -------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    tmp12 = tempfile.TemporaryDirectory()
+
+    def path_ok(name, got, st):
+        """Every kernel of the path ran; K1 and K4 as in phase 4."""
+        path_launches[name] = got
+        want = k1_k4_launches(st)
+        if not all(got[k] for k in ("mac_many", "lookup", "validate")):
+            raise AssertionError(f"{name}: a kernel of the path never ran: "
+                                 f"{got}")
+        if any(got[k] != n for k, n in want.items()):
+            raise AssertionError(f"{name}: K1/K4 launches {got}, expected "
+                                 f"{want}")
+
+    def tripped(e, reason, rec_dir):
+        """The recorder tripped on ``reason`` and auto-dumped all five
+        files."""
+        reasons = [t["reason"] for t in e.recorder.trips]
+        if reason not in reasons or set(os.listdir(rec_dir)) != DUMP_FILES:
+            raise AssertionError(f"{reason}: trips {reasons}, dump "
+                                 f"{sorted(os.listdir(rec_dir))}")
+        return reasons
+
+    # (a) Obs on at phase 4's size, in turns with obs off (one engine a
+    # turn, a warm-up and a timed round each); the first obs-on engine is
+    # the checked one, its launches counted.
+    turns, checked = [], None
+    for mode in OBS_TURNS:
+        c = dataclasses.replace(cfg, obs=mode == "on", recorder_dir=(
+            os.path.join(tmp12.name, "rec_a") if mode == "on" else None))
+        if checked is None and mode == "on":
+            zero_counts()
+        e = engine.FabricEngine(c)
+        st = [e.run_round(e.make_proposals(ROUND_TXS, seed=s,
+                                           n_accounts=N_ACCOUNTS))
+              for s in SEEDS]
+        turns.append({"obs": mode, **st[-1]._asdict(), "tps": st[-1].tps})
+        if checked is None and mode == "on":
+            checked = (e, st, counts())
+        else:
+            e.store.close()
+            del e
+        torch.cuda.empty_cache()
+    e, st, got = checked
+    path_ok("obs", got, st)
+    same_results(on_card, results(e), "obs on against phase 4's obs off")
+    spans = {}
+    for r in e.tracer.records():
+        spans.setdefault(r["name"], []).append(r)
+    n_blocks = sum(s.n_blocks for s in st)
+    want_spans = {"round.order": len(st), "round.commit": len(st),
+                  "round.endorser_replay": len(st), "block.ship": n_blocks}
+    if {k: len(spans.get(k, ())) for k in want_spans} != want_spans or any(
+            r["depth"] != 0 for k in ("round.order", "round.commit",
+                                      "round.endorser_replay")
+            for r in spans[k]) or any(
+            (r["depth"], r["parent"]) != (1, "round.commit")
+            for r in spans["block.ship"]):
+        raise AssertionError(f"obs: spans {sorted(spans)} with counts "
+                             f"{ {k: len(v) for k, v in spans.items()} }")
+    span_vs_stats = []
+    for so, sc, s in zip(spans["round.order"], spans["round.commit"], st):
+        pair = {"order": (so["dur"], s.order_s),
+                "commit": (sc["dur"], s.commit_s)}
+        span_vs_stats.append(pair)
+        if any(abs(a - b) > 0.05 * b for a, b in pair.values()):
+            raise AssertionError(f"obs: span durations {pair} off "
+                                 f"RoundStats by more than 5 %")
+    m = e.metrics()
+    n_tx, n_valid = sum(s.n_txs for s in st), sum(s.n_valid for s in st)
+    phases = ("queue", "order", "validate", "commit")
+    phase_sum = sum(m[f"tx.phase.{p}"]["sum"] for p in phases)
+    if (any(m[f"tx.phase.{p}"]["count"] != n_tx for p in phases)
+            or abs(phase_sum - m["tx.e2e"]["sum"])
+            > 1e-9 * m["tx.e2e"]["sum"]
+            or m.get("tx.outcome{outcome=valid}") != n_valid):
+        raise AssertionError(f"obs: tx phases/outcomes off: {n_tx} txs, "
+                             f"{n_valid} valid, metrics {m}")
+    verdict = e.health()
+    if verdict.status != "healthy" or e.recorder.tripped:
+        raise AssertionError(f"obs: health {verdict}, trips "
+                             f"{e.recorder.trips}")
+    span_summary = {k: {"count": len(v), "ms": sum(r["dur"] for r in v) * 1e3}
+                    for k, v in sorted(spans.items())}
+    log("[obs] spans: " + ", ".join(
+        f"{k} {v['count']}x {v['ms']:.3f} ms"
+        for k, v in span_summary.items()))
+    # The policy pass's stacked read at 2^20 x 8, then one manual resize of
+    # this table to 2^21 (224 MiB -> 448 MiB a table, peer and replica).
+    e._shard_stats()
+    t1 = time.perf_counter()
+    for _ in range(5):
+        e._shard_stats()
+    stats_read_s = (time.perf_counter() - t1) / 5
+    digest = u32.to_numpy(ws.state_digest(e.peer_state.hash_state))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    info = e.resize(nb * 2)
+    torch.cuda.synchronize()
+    resize_s = time.perf_counter() - t1
+    if (info["old_n_buckets"], info["new_n_buckets"],
+            e.peer_state.hash_state.n_buckets) != (nb, 2 * nb, 2 * nb) or \
+            not np.array_equal(u32.to_numpy(ws.state_digest(
+                e.peer_state.hash_state)), digest) or \
+            not all(e.verify().values()):
+        raise AssertionError(f"obs: resize to 2^21 gave {info}")
+    e.store.close()
+    del e
+    torch.cuda.empty_cache()
+    med = lambda mode, k: float(np.median([t[k] for t in turns
+                                           if t["obs"] == mode]))
+    obs_cost = {k: med("on", k) / med("off", k) - 1
+                for k in ("wall_s", "order_s", "commit_s", "replay_s")}
+    for t in turns:
+        log(f"[obs] turn obs {t['obs']}: {t['tps']:.1f} tx/s, wall "
+            f"{t['wall_s']:.4f} s = order {t['order_s']:.4f} + commit "
+            f"{t['commit_s']:.4f}; replay {t['replay_s']:.4f} s")
+    log("[obs] obs-on cost (medians, on / off - 1): "
+        + ", ".join(f"{k} {v * 100:+.2f} %" for k, v in obs_cost.items())
+        + f"; policy-pass read at {nb} x {slots} {stats_read_s * 1e3:.3f} "
+        f"ms; resize {nb} -> {2 * nb} buckets {resize_s:.4f} s; launches "
+        f"{got}")
+
+    # (b) Elastic and durable: the policy grows a small table between
+    # rounds; card against CPU, verify, recovery from genesis across every
+    # re-anchor, restore from the directories.
+    def elastic_cfg(root):
+        return dataclasses.replace(
+            cfg, n_buckets=ELASTIC_START, obs=True,
+            resize_policy=engine.ResizePolicy(grow_free_slots=2),
+            snapshot_every_blocks=ELASTIC_EVERY,
+            snapshot_dir=os.path.join(root, "snap"),
+            journal_dir=os.path.join(root, "jrnl"),
+            block_dir=os.path.join(root, "blocks"),
+            recorder_dir=os.path.join(root, "rec"))
+
+    def elastic_run(e):
+        st = [e.run_round(e.make_proposals(ROUND_TXS, seed=s,
+                                           n_accounts=N_ACCOUNTS))
+              for s in range(ELASTIC_ROUNDS)]
+        e.store.drain()
+        return st, {
+            "epochs": [r["args"] for r in e.tracer.records()
+                       if r["name"] == "resize.epoch"],
+            "reanchor_log": list(e.reanchor_log), "n_buckets": e.n_buckets,
+            "reanchor_head": np.asarray(e.journal.reanchor_head),
+            "valid": [s.n_valid for s in st], **heads(e)}
+
+    card_b = os.path.join(tmp12.name, "elastic_card")
+    zero_counts()
+    eb = engine.FabricEngine(elastic_cfg(card_b))
+    bst, bview = elastic_run(eb)
+    path_ok("elastic", counts(), bst)
+    n_epochs = len(bview["epochs"])
+    if n_epochs < 2 or eb.overflowed() or any(
+            ep["new_n_buckets"] != 2 * ep["old_n_buckets"]
+            for ep in bview["epochs"]):
+        raise AssertionError(f"elastic: epochs {bview['epochs']}, overflow "
+                             f"{eb.overflow_bits()}")
+    bverdict = eb.verify()
+    if not all(bverdict.values()):
+        raise AssertionError(f"elastic: verify {bverdict}")
+    t1 = time.perf_counter()
+    genesis = recovery.recover(eb.journal, n_buckets=ELASTIC_START,
+                               slots=slots, value_width=dims.vw)
+    torch.cuda.synchronize()
+    genesis_s = time.perf_counter() - t1
+    if (genesis.crossed_reanchors, genesis.n_buckets) != (
+            n_epochs, eb.n_buckets) or not np.array_equal(
+            genesis.state_digest, bview["digest"]) or not np.array_equal(
+            genesis.journal_head, bview["journal_head"]):
+        raise AssertionError(f"elastic: recovery from genesis crossed "
+                             f"{genesis.crossed_reanchors} re-anchors to "
+                             f"{genesis.n_buckets} buckets")
+    rest_b = os.path.join(tmp12.name, "elastic_restore")
+    shutil.copytree(card_b, rest_b)
+    rb = engine.FabricEngine.restore(elastic_cfg(rest_b))
+    same_heads(heads(eb), heads(rb), "elastic restore against the live "
+               "engine")
+    rverdict = rb.verify()
+    if rb.n_buckets != eb.n_buckets or rb.peer_state.hash_state.n_buckets \
+            != eb.n_buckets or not all(rverdict.values()):
+        raise AssertionError(f"elastic restore: {rb.n_buckets} buckets, "
+                             f"verify {rverdict}")
+    rb.store.close()
+    del rb
+    cpu_b = os.path.join(tmp12.name, "elastic_cpu")
+    ec = engine.FabricEngine(elastic_cfg(cpu_b), device="cpu")
+    _, cview = elastic_run(ec)
+    for k in bview:
+        if not (np.array_equal(bview[k], cview[k])
+                if isinstance(bview[k], np.ndarray) else
+                bview[k] == cview[k]):
+            raise AssertionError(f"elastic: {k} differs between card and "
+                                 f"CPU: {bview[k]} vs {cview[k]}")
+    efiles = {sub: same_files(os.path.join(card_b, sub),
+                              os.path.join(cpu_b, sub),
+                              f"elastic {sub}, card against CPU")
+              for sub in ("snap", "jrnl", "blocks")}
+    if len(eb.journal.records) != len(ec.journal.records) or not all(
+            x.block_no == y.block_no and all(
+                np.array_equal(getattr(x, f), getattr(y, f))
+                for f in ("write_keys", "write_vals", "valid", "prev_head",
+                          "head"))
+            for x, y in zip(eb.journal.records, ec.journal.records)) or [
+            tuple(np.asarray(a).tolist() if isinstance(a, np.ndarray)
+                  else a for a in r) for r in eb.journal.reanchors] != [
+            tuple(np.asarray(a).tolist() if isinstance(a, np.ndarray)
+                  else a for a in r) for r in ec.journal.reanchors]:
+        raise AssertionError("elastic: journal records differ")
+    ec.store.close()
+    del ec
+    log(f"[elastic] {n_epochs} resize epochs {bview['reanchor_log']} to "
+        f"{eb.n_buckets} buckets; card = CPU (epochs, digest, heads, "
+        f"{len(efiles['snap'])} snapshot files, {len(efiles['jrnl'])} "
+        f"journal files, {len(efiles['blocks'])} blocks); recovery from "
+        f"genesis across {genesis.crossed_reanchors} re-anchors "
+        f"{genesis_s:.3f} s; restore resumed {eb.n_buckets} buckets")
+
+    # (c) Fault edges: an overflow latch, a resize refused at the ceiling,
+    # a verify() contract broken by a flipped journal word.
+    rec_o = os.path.join(tmp12.name, "rec_overflow")
+    zero_counts()
+    es = engine.FabricEngine(dataclasses.replace(
+        cfg, n_buckets=8, slots=2, obs=True, recorder_dir=rec_o))
+    sst = [es.run_round(es.make_proposals(2 * cfg.orderer.block_size, seed=0,
+                                          n_accounts=N_ACCOUNTS))]
+    path_ok("overflow", counts(), sst)
+    sverdict = es.health()
+    if not es.overflowed() or sverdict.status != "critical" or not any(
+            "shard" in r and "overflow" in r for r in sverdict.reasons) or \
+            es.metrics()["health.status"] != 2:
+        raise AssertionError(f"overflow: health {sverdict}")
+    tripped(es, "overflow_latch", rec_o)
+    es.store.close()
+    rec_r = os.path.join(tmp12.name, "rec_refused")
+    zero_counts()
+    er = engine.FabricEngine(dataclasses.replace(
+        cfg, n_buckets=8, slots=2, obs=True, recorder_dir=rec_r,
+        resize_policy=engine.ResizePolicy(grow_free_slots=0,
+                                          max_buckets=8)))
+    rst = [er.run_round(er.make_proposals(2 * cfg.orderer.block_size, seed=s,
+                                          n_accounts=N_ACCOUNTS))
+           for s in (0, 1)]
+    path_ok("refused", counts(), rst)
+    reasons = tripped(er, "resize_refused", rec_r)
+    if reasons.count("resize_refused") != 1 or er.n_buckets != 8:
+        raise AssertionError(f"refused: trips {reasons}")
+    er.store.close()
+    good = eb.journal.records[-1]
+    vals = good.write_vals.copy()
+    vals[0, 0, 0] ^= np.uint32(1)
+    eb.journal.records[-1] = good._replace(write_vals=vals)
+    try:
+        tverdict = eb.verify()
+    finally:
+        eb.journal.records[-1] = good
+    why = eb.recorder.trips[-1]["ctx"].get("journal_reason", "")
+    tripped(eb, "verify_contract", os.path.join(card_b, "rec"))
+    if all(tverdict.values()) or "recomputed head mismatch" not in why:
+        raise AssertionError(f"tamper: verify {tverdict}, reason {why!r}")
+    eb.store.close()
+    del eb
+    tmp12.cleanup()
+    observability = {
+        "card": card, "turns": turns, "obs_cost": obs_cost,
+        "spans": span_summary, "span_vs_stats": span_vs_stats,
+        "launches": {k: path_launches[k] for k in
+                     ("obs", "elastic", "overflow", "refused")},
+        "policy_read_s": stats_read_s, "resize_s": resize_s,
+        "elastic": {"epochs": bview["epochs"], "verify": bverdict,
+                    "genesis_recover_s": genesis_s,
+                    "rounds": [s._asdict() for s in bst]},
+        "faults": {"overflow": sverdict.to_dict(), "refused": reasons,
+                   "verify_contract": why}}
+    log(f"[faults] overflow_latch, resize_refused and verify_contract "
+        f"tripped and dumped {sorted(DUMP_FILES)}; journal reason: {why}")
+    phase_done("12 observability and elastic state", t0)
+
     kernels = [{
         "name": t["name"], "route": "cuda", "source": t["source"],
         "replaces": t["replaces"],
@@ -1762,6 +2077,7 @@ def main(argv=None) -> int:
     log(json.dumps({"large_blocks": large}, default=str))
     log(json.dumps({"serving": serving}, default=str))
     log(json.dumps({"durability": durability}, default=str))
+    log(json.dumps({"observability": observability}, default=str))
     log(json.dumps({"phase_s": phase_s,
                     "total_s": time.perf_counter() - t_start}))
     log(card)

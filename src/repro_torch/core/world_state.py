@@ -14,7 +14,9 @@ than the block does.
 Resize epochs and shards: :func:`resize` rehashes the table into a new
 bucket count (journal replay crosses the re-anchor records it leaves), and
 :func:`split_table` / :func:`tree_head` give the high-bit shard partition
-and its digest tree, which snapshot manifests commit to.
+and its digest tree, which snapshot manifests commit to;
+:func:`shard_occupancy` / :func:`shard_min_free` / :func:`hot_shard` are
+the resize policy's signals (plain reductions, as in the JAX package).
 
 Sorted store: a sorted run searched by bisection; each commit merges the
 block's writes and re-sorts the whole run (:func:`sorted_commit`).
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -160,6 +163,34 @@ def resize(state: HashState, new_n_buckets: int) -> ResizeResult:
                   versions=scat(state.versions, ()),
                   values=scat(state.values, (vw,))),
         overflow)
+
+
+def shard_occupancy(state: HashState, n_shards: int) -> torch.Tensor:
+    """Occupied entries per high-bit bucket shard, (M,) int64: the resize
+    policy's fill signal."""
+    shard_buckets(state.n_buckets, n_shards)
+    occ = (state.keys[..., 0] != hashing.EMPTY_KEY).sum(dim=1)  # (NB,)
+    return occ.reshape(n_shards, -1).sum(dim=1)
+
+
+def shard_min_free(state: HashState, n_shards: int) -> torch.Tensor:
+    """Fewest empty slots of any bucket, per shard, (M,) int64. Overflow
+    strikes when a single bucket fills, so this (not mean occupancy) is
+    the early-warning signal a grow policy watches."""
+    shard_buckets(state.n_buckets, n_shards)
+    free = (state.keys[..., 0] == hashing.EMPTY_KEY).sum(dim=1)  # (NB,)
+    return free.reshape(n_shards, -1).amin(dim=1)
+
+
+def hot_shard(overflow_bits: int, occupancy) -> int:
+    """The shard a grow should relieve: the first latched overflow bit if
+    any, else the fullest shard by occupancy ((M,) counts, host or
+    device; the first of equals)."""
+    if overflow_bits:
+        return (overflow_bits & -overflow_bits).bit_length() - 1
+    if isinstance(occupancy, torch.Tensor):
+        occupancy = occupancy.cpu().numpy()
+    return int(np.argmax(occupancy))
 
 
 def tree_head(state: HashState, n_shards: int) -> torch.Tensor:

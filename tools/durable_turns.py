@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Split the cost of the durability layer in a FASTFABRIC round, on one
-card, by timing engines with one more piece of it on each, in turns:
+"""Split the cost of the durability layer (and of observability) in a
+FASTFABRIC round, on one card, by timing engines with one more piece of it
+on each, in turns:
 
     python3 tools/durable_turns.py [--turns 2] [--out FILE]
 
@@ -13,9 +14,12 @@ then a timed round of 1,000 disjoint transfers) under one of:
 * ``journal``: the storage role journals each block's write sets in
   memory (a snapshot cadence that never fires), no files;
 * ``durable``: phase 11's configuration (block spill, journal spill, a
-  snapshot every 10 blocks, the chain pruned a snapshot behind).
+  snapshot every 10 blocks, the chain pruned a snapshot behind);
+* ``obs``: phase 4's configuration with observability on (spans on the
+  round's syncs, tx lifecycle tracing, the flight recorder's tap), as
+  phase 12's obs-on engine.
 
-The configurations run in the order off, spill, journal, durable, then
+The configurations run in the order off, spill, journal, durable, obs, then
 reversed, ``--turns`` times. For each run it prints the timed round's
 tx/s, ``order_s``, ``commit_s`` and ``replay_s``, and the journal's mean
 append latency (its ``Registry`` histogram), then the medians per
@@ -36,7 +40,7 @@ import tempfile
 from pathlib import Path
 
 ROUND_TXS, N_ACCOUNTS, EVERY = 1000, 1 << 22, 10
-CONFIGS = ("off", "spill", "journal", "durable")
+CONFIGS = ("off", "spill", "journal", "durable", "obs")
 
 
 def main(argv=None) -> int:
@@ -50,7 +54,7 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
     from repro_torch.core import engine, types
-    from repro_torch.obs.metrics import Registry
+    from repro_torch.obs import Obs, Registry, Tracer
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -75,9 +79,12 @@ def main(argv=None) -> int:
                     snapshot_dir=os.path.join(root, "snap"),
                     journal_dir=os.path.join(root, "jrnl"),
                     block_dir=os.path.join(root, "blocks")),
+                "obs": base,
             }[name]
             reg = Registry()
-            eng = engine.FabricEngine(cfg, metrics=reg)
+            handle = (Obs(tracer=Tracer(), registry=reg) if name == "obs"
+                      else Obs(registry=reg))
+            eng = engine.FabricEngine(dataclasses.replace(cfg, obs=handle))
             stats = [eng.run_round(eng.make_proposals(
                 ROUND_TXS, seed=s, n_accounts=N_ACCOUNTS)) for s in (0, 1)]
             eng.store.close()
