@@ -116,10 +116,26 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
    the journal's reason); each trip dumps the recorder's five files.
    Counters are set to 0 before each engine of (a)-(c) that is checked
    and read after it; K1 and K4 as in phase 4.
+13. The block pipeline on the card (``window_phase``): (a) phase 4's
+   configuration and rounds through the engine's window committer
+   (pipeline/engine_bridge.WindowCommitter at depth 8: a round of 10
+   blocks is a window of 8 and a tail of 2); counters set to 0 before and
+   read after its rounds and verify(), K1 exactly 2 a round + 1 a window,
+   K2 2 a round + 2 a window + 2 a block (the replica's update, verify's
+   replay), K4 1 a block, K3 0; verify() all True and the store chain,
+   log and journal heads and digests identical to phase 4's per-block
+   engine; (b) the same rounds on the CPU identical; (c) an 8 x 2 table at
+   depth 4, a round of 200: overflow latched, chain_ok True, card = CPU;
+   (d) ResizePolicy(grow_free_slots=2) from 2,048 x 8 over two rounds
+   with a journal: at least one epoch, verify() all True, epochs, digest
+   and journal heads card = CPU; (e) the per-block and window engines in
+   turns (block, window, window, block; a warm-up and a timed round each)
+   and one depth-8 window under the profiler for its busy share.
 
 The lines before the last give each phase's seconds, the card's name and
 power limit (as nvidia-smi prints them), the engine, ladder, serving,
-durability and observability summaries (with the storage objects' sizes)
+durability, observability and pipeline summaries (with the storage
+objects' sizes)
 and the kernels; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -163,6 +179,11 @@ DURABLE_ROUNDS, DURABLE_EVERY, DURABLE_AFTER = (1000, 1000, 500), 10, 500
 # buckets, and to 5 after the last round) and its snapshot cadence (one
 # snapshot, at block 29, trails the tip, so restore() replays a suffix).
 OBS_TURNS = ("off", "on", "on", "off")
+# Phase 13: the window committer's depth (a round of 1,000 is a window of
+# 8 blocks and a tail of 2), the engines' turns and the elastic start.
+WINDOW_DEPTH = 8
+WINDOW_TURNS = ("block", "window", "window", "block")
+WINDOW_ELASTIC_START = 1 << 11
 ELASTIC_START, ELASTIC_ROUNDS, ELASTIC_EVERY = 1 << 11, 4, 25
 DUMP_FILES = {"trace.jsonl", "trace_chrome.json", "metrics.json",
               "lifecycles.json", "meta.json"}
@@ -317,6 +338,246 @@ def conflicting_proposals(n: int, seed: int, device):
         src, dst, rng.integers(1, 1000, n, dtype=np.uint32),
         rng.integers(0, 64, n, dtype=np.uint32),
         np.arange(n, dtype=np.uint32) + np.uint32(seed << 16))))
+
+
+def window_launches(stats, depth: int, replayed_blocks: int) -> dict:
+    """The K1, K2 and K4 launches of a window engine's rounds and of a
+    verify() that replays ``replayed_blocks`` blocks: K1 twice a round
+    (the endorsers' tags, admission) and once a window (the whole window's
+    endorsement check); K2 twice a round (the endorser's reads), twice a
+    window (the fill's probe and the fused commit's), once a block for the
+    replica's update and once a replayed block; K4 once a block."""
+    n_blocks = sum(st.n_blocks for st in stats)
+    n_windows = sum(-(-st.n_blocks // depth) for st in stats)
+    return {"mac_many": 2 * len(stats) + n_windows,
+            "lookup": 2 * len(stats) + 2 * n_windows + n_blocks
+            + replayed_blocks,
+            "validate": n_blocks, "commit": 0}
+
+
+def window_view(e) -> dict:
+    """A window engine's store chain, heads and digests, in the form of
+    phase 4's ``results``: the peer's table and journal head are its
+    committer's."""
+    from repro_torch.core import u32
+    from repro_torch.core import world_state as ws
+    e.store.drain()
+    return {
+        "chain": [(sb.block_no, sb.prev_hash, sb.block_hash, sb.valid)
+                  for sb in e.store.chain],
+        "log_head": u32.to_numpy(e.log_head),
+        "journal_head": e.window_committer.journal_head,
+        "peer": [e._peer_digest()],
+        "replica": u32.to_numpy(ws.state_digest(e.endorser_state)),
+    }
+
+
+def window_phase(cfg, on_card, counts, zero_counts, same_results,
+                 path_launches, dev, *, n_accounts: int = None,
+                 round_txs: int = None, elastic_start: int = None,
+                 profile: bool = True) -> dict:
+    """Phase 13: the block pipeline (pipeline/engine_bridge.WindowCommitter
+    at depth 8) under phase 4's engine configuration ``cfg``, on ``dev``
+    and on the CPU; ``on_card`` is phase 4's per-block result. The keyword
+    sizes default to the phase's; a rehearsal on the CPU passes smaller."""
+    from repro_torch.core import engine
+    from repro_torch.launch import fabric_step as fs
+    from repro_torch.pipeline import engine_bridge as eb
+    n_accounts = n_accounts or N_ACCOUNTS
+    round_txs = round_txs or ROUND_TXS
+    elastic_start = elastic_start or WINDOW_ELASTIC_START
+    dims, nb, slots = cfg.dims, cfg.n_buckets, cfg.slots
+    cuda = torch.device(dev).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def window_engine(c, device, depth=WINDOW_DEPTH):
+        wc = eb.WindowCommitter(dims, fs.FabricStepConfig(
+            pipeline_depth=depth), n_buckets=c.n_buckets, slots=c.slots,
+            device=device)
+        return engine.FabricEngine(c, device=device, window_committer=wc)
+
+    def rounds(e, seeds, n=None):
+        return [e.run_round(e.make_proposals(n or round_txs, seed=s,
+                                             n_accounts=n_accounts))
+                for s in seeds]
+
+    def launches_ok(name, got, want):
+        path_launches[name] = got
+        bad = {k: (got[k], n) for k, n in want.items() if got[k] != n}
+        if bad:
+            raise AssertionError(f"{name}: launches (got, expected) {bad}")
+
+    out = {}
+    # (a) The window engine at phase 4's size; its launches counted.
+    zero_counts()
+    e = window_engine(cfg, dev)
+    st = rounds(e, SEEDS)
+    verdict = e.verify()
+    got = counts()
+    if not all(verdict.values()):
+        raise AssertionError(f"window engine verify() {verdict}")
+    launches_ok("window", got, window_launches(
+        st, WINDOW_DEPTH, sum(s.n_blocks for s in st)))
+    card_view = window_view(e)
+    same_results(on_card, card_view, "window engine against phase 4's "
+                 "per-block engine")
+    out["rounds"] = [s._asdict() for s in st]
+    out["launches"] = got
+    e.store.close()
+    del e
+    log(f"[pipeline] window engine, depth {WINDOW_DEPTH}: "
+        f"{len(card_view['chain'])} blocks, verify {verdict}; chain, log "
+        f"head, journal head {card_view['journal_head']} and digests equal "
+        f"phase 4's per-block engine; launches {got}")
+
+    # (b) The same rounds on the CPU, plain versions.
+    t1 = time.perf_counter()
+    e = window_engine(cfg, "cpu")
+    rounds(e, SEEDS)
+    same_results(card_view, window_view(e), "window engine, card against "
+                 "CPU")
+    cpu_verdict = e.verify()
+    if cpu_verdict != verdict:
+        raise AssertionError(f"window engine: CPU verify {cpu_verdict}")
+    e.store.close()
+    del e
+    log(f"[pipeline] the same rounds on the CPU: identical "
+        f"({time.perf_counter() - t1:.1f} s)")
+
+    # (c) Overflow: an 8 x 2 table at depth 4, one round of 200.
+    ocfg = dataclasses.replace(cfg, n_buckets=8, slots=2)
+    views = []
+    for device in (dev, "cpu"):
+        if device == dev:
+            zero_counts()
+        e = window_engine(ocfg, device, depth=4)
+        ost = rounds(e, (0,), 2 * cfg.orderer.block_size)
+        over = e.verify()
+        if device == dev:
+            got = counts()
+            want = window_launches(ost, 4, sum(s.n_blocks for s in ost))
+            launches_ok("window_overflow", got, {
+                k: want[k] for k in ("mac_many", "validate", "commit")})
+        if over["overflow_ok"] or not over["chain_ok"] or \
+                e.overflow_bits() != 1:
+            raise AssertionError(f"overflow: verify {over}, bits "
+                                 f"{e.overflow_bits()}")
+        views.append((window_view(e), over))
+        e.store.close()
+        del e
+    same_results(views[0][0], views[1][0], "overflowing window, card "
+                 "against CPU")
+    out["overflow"] = {"verify": views[0][1], "valid": int(sum(
+        v.sum() for *_, v in views[0][0]["chain"]))}
+    log(f"[pipeline] overflow at 8 x 2, depth 4: verify {views[0][1]}, "
+        f"{out['overflow']['valid']} of {2 * cfg.orderer.block_size} valid;"
+        f" card = CPU")
+
+    # (d) Elastic state through the window committer.
+    tmp = tempfile.TemporaryDirectory()
+    eviews = []
+    for i, device in enumerate((dev, "cpu")):
+        ecfg = dataclasses.replace(
+            cfg, n_buckets=elastic_start,
+            resize_policy=engine.ResizePolicy(grow_free_slots=2),
+            journal_dir=os.path.join(tmp.name, f"jrnl{i}"))
+        if device == dev:
+            zero_counts()
+        e = window_engine(ecfg, device)
+        est = rounds(e, SEEDS)
+        ever = e.verify()
+        if device == dev:
+            got = counts()
+            want = window_launches(est, WINDOW_DEPTH, 0)
+            launches_ok("window_elastic", got, {
+                k: want[k] for k in ("mac_many", "validate", "commit")})
+        if not all(ever.values()) or not e.reanchor_log:
+            raise AssertionError(f"elastic window engine: verify {ever}, "
+                                 f"epochs {e.reanchor_log}")
+        eviews.append({
+            "reanchor_log": list(e.reanchor_log), "n_buckets": e.n_buckets,
+            "digest": e._peer_digest(), "journal_head": e._peer_journal_head(),
+            "journal": np.asarray(e.journal.head),
+            "reanchor_head": np.asarray(e.journal.reanchor_head)})
+        e.store.close()
+        del e
+    tmp.cleanup()
+    for k in eviews[0]:
+        if not np.array_equal(eviews[0][k], eviews[1][k]):
+            raise AssertionError(f"elastic window engine: {k} differs "
+                                 f"between card and CPU")
+    out["elastic"] = {"reanchor_log": eviews[0]["reanchor_log"],
+                      "n_buckets": eviews[0]["n_buckets"]}
+    log(f"[pipeline] elastic from {elastic_start} x {slots}: epochs "
+        f"{eviews[0]['reanchor_log']} to {eviews[0]['n_buckets']} buckets; "
+        f"card = CPU (epochs, digest, journal heads)")
+
+    # (e) Timing: per-block and window engines in turns; then one window
+    # profiled for the device's busy share.
+    turns = []
+    for mode in WINDOW_TURNS:
+        e = (engine.FabricEngine(cfg, device=dev) if mode == "block"
+             else window_engine(cfg, dev))
+        tst = rounds(e, SEEDS)[-1]
+        turns.append({"engine": mode, **tst._asdict(), "tps": tst.tps})
+        log(f"[pipeline] turn {mode}: {tst.tps:.1f} tx/s, wall "
+            f"{tst.wall_s:.4f} s = order {tst.order_s:.4f} + commit "
+            f"{tst.commit_s:.4f}; replay {tst.replay_s:.4f} s")
+        if mode == "window" and profile and "profiled_window" not in out:
+            out["profiled_window"] = _profile_window(e, sync, n_accounts,
+                                                     round_txs)
+        e.store.close()
+        del e
+        if cuda:
+            torch.cuda.empty_cache()
+    out["turns"] = turns
+    med = lambda mode, k: float(np.median([t[k] for t in turns
+                                           if t["engine"] == mode]))
+    out["medians"] = {mode: {k: med(mode, k) for k in
+                             ("tps", "order_s", "commit_s", "wall_s")}
+                      for mode in ("block", "window")}
+    log(f"[pipeline] medians {out['medians']}")
+    return out
+
+
+def _profile_window(e, sync, n_accounts, round_txs) -> dict:
+    """One more round of ``e``, its first window under the profiler: the
+    window's host time and the device's busy time inside it."""
+    from torch.profiler import ProfilerActivity, profile
+    wc = e.window_committer
+    real = wc.commit_window
+    got = {}
+
+    def profiled(wire, ids):
+        if got:
+            return real(wire, ids)
+        sync()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            res = real(wire, ids)
+            sync()
+        wall = time.perf_counter() - t0
+        ev = _device_events(prof)
+        busy = sum(x.self_device_time_total for x in ev) / 1e6
+        got.update(blocks=int(wire.shape[0]), wall_s=wall, device_busy_s=busy,
+                   busy_share=busy / wall, device_ops=sum(x.count
+                                                          for x in ev))
+        top = sorted(ev, key=lambda x: -x.self_device_time_total)[:5]
+        got["top"] = [(x.key[:60], x.self_device_time_total / 1e3, x.count)
+                      for x in top]
+        return res
+
+    wc.commit_window = profiled
+    e.run_round(e.make_proposals(round_txs, seed=2, n_accounts=n_accounts))
+    log(f"[pipeline] profiled window of {got['blocks']} blocks: "
+        f"{got['wall_s']:.4f} s under the profiler, device busy "
+        f"{got['device_busy_s']:.4f} s ({got['busy_share'] * 100:.2f} %) "
+        f"over {got['device_ops']} device ops; top {got['top']}")
+    return got
 
 
 def main(argv=None) -> int:
@@ -2061,6 +2322,14 @@ def main(argv=None) -> int:
         f"tripped and dumped {sorted(DUMP_FILES)}; journal reason: {why}")
     phase_done("12 observability and elastic state", t0)
 
+    # -- 13. the block pipeline on the card ---------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    pipeline = window_phase(cfg, on_card, counts, zero_counts, same_results,
+                            path_launches, dev)
+    pipeline["card"] = card
+    phase_done("13 block pipeline", t0)
+
     kernels = [{
         "name": t["name"], "route": "cuda", "source": t["source"],
         "replaces": t["replaces"],
@@ -2078,6 +2347,7 @@ def main(argv=None) -> int:
     log(json.dumps({"serving": serving}, default=str))
     log(json.dumps({"durability": durability}, default=str))
     log(json.dumps({"observability": observability}, default=str))
+    log(json.dumps({"pipeline": pipeline}, default=str))
     log(json.dumps({"phase_s": phase_s,
                     "total_s": time.perf_counter() - t_start}))
     log(card)

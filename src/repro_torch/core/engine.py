@@ -1,5 +1,5 @@
 """End-to-end FastFabric engine: client -> endorse -> order -> commit ->
-store (port of repro.core.engine, one channel, per-block commits).
+store (port of repro.core.engine, one channel).
 
   client (synthetic proposals, numpy: both packages see the same ones)
     -> endorser (transfer chaincode on the replica; MAC tags)
@@ -24,8 +24,13 @@ rollup behind :meth:`FabricEngine.health`. Elastic state
 halves the table (:meth:`FabricEngine.resize`), journaled as re-anchor
 records that replay and recovery cross.
 
-Not ported yet: the window committer (device-side block pipeline) and
-several channels; the engine runs channel 0 of the reference's API.
+Device-side block pipeline (``window_committer=``): a
+``pipeline.engine_bridge.WindowCommitter`` commits each round in windows of
+its depth instead of one block at a time, and the engine reads the peer's
+table, heads and overflow bits, snapshots, verifies and resizes through it.
+
+Not ported yet: several channels (``n_channels``, ``run_rounds``); the
+engine runs channel 0 of the reference's API.
 """
 
 from __future__ import annotations
@@ -144,9 +149,12 @@ class FabricEngine:
     ``device`` defaults to the card; without one the constructor raises
     unless the caller passes ``device='cpu'`` (the plain versions of the
     kernels then run). The obs handle (``cfg.obs``) gives the durability
-    layer's journal and snapshot metrics their registry."""
+    layer's journal and snapshot metrics their registry. A
+    ``window_committer`` (on the engine's device) takes over the commit:
+    the peer's table and heads are then its state, at its bucket count."""
 
-    def __init__(self, cfg: EngineConfig = FASTFABRIC, *, device=None):
+    def __init__(self, cfg: EngineConfig = FASTFABRIC, *, device=None,
+                 window_committer=None):
         if cfg.snapshot_every_blocks and not (
                 cfg.store_blocks and cfg.peer.journal and cfg.peer.hash_state):
             raise ValueError(
@@ -156,13 +164,24 @@ class FabricEngine:
                 "the journal the storage role materializes")
         self.cfg = cfg
         self.device = resolve_device(device)
+        if (window_committer is not None
+                and window_committer.device != self.device):
+            raise ValueError(
+                f"window committer on {window_committer.device}, engine on "
+                f"{self.device}")
         # Observability handle: a per-engine tracer and registry, the
-        # caller's, or the shared no-op pair.
+        # caller's, or the shared no-op pair. The window committer reports
+        # through the same handle.
         if isinstance(cfg.obs, obs_mod.Obs):
             self.obs = cfg.obs
         else:
             self.obs = (obs_mod.Obs.enabled(max_events=cfg.trace_max_events)
                         if cfg.obs else obs_mod.Obs.disabled())
+        if window_committer is not None and self.obs.on:
+            window_committer.attach_obs(self.obs)
+        # Device-side block pipeline: commits a window of the committer's
+        # depth a call instead of one block (pipeline/engine_bridge).
+        self.window_committer = window_committer
         # Always-on flight recorder: taps the live tracer; with obs off it
         # still logs trips and notes.
         self.recorder = obs_mod.FlightRecorder(
@@ -184,7 +203,8 @@ class FabricEngine:
         self.next_block_no = 0
         # The table's CURRENT layout; resize epochs move it, while
         # recovery and replay start from the genesis layout, cfg.n_buckets.
-        self.n_buckets = cfg.n_buckets
+        self.n_buckets = (cfg.n_buckets if window_committer is None
+                          else window_committer.n_buckets)
         # Sticky: some commit dropped a write on a full bucket.
         self.overflow = torch.zeros((), dtype=torch.bool, device=self.device)
         # The overflow bitmask a restart re-latched from its snapshot.
@@ -293,30 +313,42 @@ class FabricEngine:
         t_order = time.perf_counter()
         txr.ordered()
 
-        # Commit block by block; each block leaves for the store as soon as
-        # it is committed (its head, hash and validity are fresh tensors).
         n_blocks = blocks.wire.shape[0]
-        retired = []
-        with self._edge("round.commit", lambda: self.peer_state.ledger_head,
-                        n_blocks=n_blocks, channel=0):
-            for b in range(n_blocks):
-                bno = self.next_block_no
-                self.next_block_no += 1
-                prev_head = self.peer_state.ledger_head
-                res = committer.commit_block(self.peer_state, blocks.wire[b],
-                                             cfg.dims, cfg.peer)
-                self.peer_state = res.state
-                self.overflow = self.overflow | res.overflow
-                retired.append(self._ship(blocks.wire[b], bno, prev_head,
-                                          res.block_hash, res.valid))
-        t_commit = time.perf_counter()
-        txr.validated(0, n_blocks)
-        # Per-block commit latency: the round's order + commit window
-        # amortized over its blocks (they are in flight together).
-        dt = (t_commit - t0) / n_blocks
-        hist = self.obs.registry.histogram("commit.latency")
-        for _ in range(n_blocks):
-            hist.record(dt)
+        wc = self.window_committer
+        if wc is not None:
+            # Device-side block pipeline: a window of the committer's depth
+            # a call; the span ends on the committer's device sync.
+            with self._edge("round.commit", lambda: wc.state.ledger_head,
+                            n_blocks=n_blocks, channel=0):
+                retired = self._commit_windows(blocks, txr)
+            t_commit = time.perf_counter()
+        else:
+            # Commit block by block; each block leaves for the store as
+            # soon as it is committed (its head, hash and validity are
+            # fresh tensors).
+            retired = []
+            with self._edge("round.commit",
+                            lambda: self.peer_state.ledger_head,
+                            n_blocks=n_blocks, channel=0):
+                for b in range(n_blocks):
+                    bno = self.next_block_no
+                    self.next_block_no += 1
+                    prev_head = self.peer_state.ledger_head
+                    res = committer.commit_block(
+                        self.peer_state, blocks.wire[b], cfg.dims, cfg.peer)
+                    self.peer_state = res.state
+                    self.overflow = self.overflow | res.overflow
+                    retired.append(self._ship(blocks.wire[b], bno, prev_head,
+                                              res.block_hash, res.valid))
+            t_commit = time.perf_counter()
+            txr.validated(0, n_blocks)
+            # Per-block commit latency: the round's order + commit window
+            # amortized over its blocks (they are in flight together); the
+            # window committer records its windows' own.
+            dt = (t_commit - t0) / n_blocks
+            hist = self.obs.registry.histogram("commit.latency")
+            for _ in range(n_blocks):
+                hist.record(dt)
 
         n_valid, valids = self._endorser_replay(retired)
         t_replay = time.perf_counter()
@@ -330,6 +362,27 @@ class FabricEngine:
             n_txs=n, n_blocks=n_blocks, n_valid=n_valid, wall_s=wall,
             order_s=t_order - t0, commit_s=t_commit - t_order,
             replay_s=t_replay - t_commit)
+
+    def _commit_windows(self, blocks, txr) -> list:
+        """Slice the ordered round into windows of the committer's depth
+        (a shorter tail window last), commit each, and ship every block to
+        the store with the committer's chain hashes."""
+        wc = self.window_committer
+        retired = []
+        n_blocks = blocks.wire.shape[0]
+        for lo in range(0, n_blocks, wc.depth):
+            hi = min(lo + wc.depth, n_blocks)
+            res = wc.commit_window(blocks.wire[lo:hi], blocks.tx_ids[lo:hi])
+            # The window's chain hashes came to the host in its drain span:
+            # blocks [lo, hi) validated on that edge.
+            txr.validated(lo, hi)
+            for k in range(hi - lo):
+                bno = self.next_block_no
+                self.next_block_no += 1
+                retired.append(self._ship(blocks.wire[lo + k], bno,
+                                          res.prev_hash[k], res.block_hash[k],
+                                          res.valid[k]))
+        return retired
 
     def _endorser_replay(self, retired: list) -> tuple:
         """Endorser replica updates for the round's retired blocks; returns
@@ -443,14 +496,40 @@ class FabricEngine:
     @property
     def n_shards(self) -> int:
         """Bucket shards of snapshot manifests, digest trees and the
-        policy's per-shard signals."""
+        policy's per-shard signals: the window committer's when one is
+        attached, else ``cfg.snapshot_shards``."""
+        if self.window_committer is not None:
+            return self.window_committer.n_shards
         return self.cfg.snapshot_shards
+
+    def _state_view(self) -> ws.HashState:
+        """The peer's committed table: the window committer's, or the
+        per-block peer state's."""
+        if self.window_committer is not None:
+            return self.window_committer.hash_state()
+        return self.peer_state.hash_state
+
+    def _peer_digest(self) -> np.ndarray:
+        return u32.to_numpy(ws.state_digest(self._state_view()))
+
+    def _peer_journal_head(self) -> np.ndarray:
+        if self.window_committer is not None:
+            return self.window_committer.journal_head
+        return u32.to_numpy(self.peer_state.journal_head)
+
+    def _ledger_head(self) -> np.ndarray:
+        if self.window_committer is not None:
+            return self.window_committer.ledger_head_for(0)
+        return u32.to_numpy(self.peer_state.ledger_head)
 
     def _shard_stats(self) -> tuple:
         """(per-shard occupancy ``(M,)``, min free slots, per-shard slot
         capacity, sticky overflow bits) of the live table, in ONE stacked
         device read. Restored overflow bits are ORed in, as in
         :meth:`overflow_bits`."""
+        if self.window_committer is not None:
+            occ, min_free, cap, bits = self.window_committer.shard_stats()[0]
+            return occ, min_free, cap, bits | self.restored_overflow_bits
         st = self.peer_state.hash_state
         m = self.n_shards
         host = torch.cat([ws.shard_occupancy(st, m),
@@ -524,20 +603,31 @@ class FabricEngine:
             self.store.drain()  # the journal tip must be at the boundary
         old_nb = self.n_buckets
         hot = self._hot_shard()
-        res = ws.resize(self.peer_state.hash_state, new_n_buckets)
-        self.peer_state = self.peer_state._replace(hash_state=res.state)
-        self.overflow = self.overflow | res.overflow
+        wc = self.window_committer
+        if wc is not None:
+            try:
+                info = wc.resize(new_n_buckets)
+            except ValueError as e:
+                # The committer refused the epoch: a fault edge, as the
+                # caller believed a capacity change was needed.
+                self._fault("resize_refused", channel=0, n_buckets=old_nb,
+                            requested=new_n_buckets, error=str(e))
+                raise
+            tree, bits = info.tree_head, info.overflow_bits
+        else:
+            res = ws.resize(self.peer_state.hash_state, new_n_buckets)
+            self.peer_state = self.peer_state._replace(hash_state=res.state)
+            self.overflow = self.overflow | res.overflow
+            tree, bits = (ws.tree_head(res.state, self.n_shards),
+                          self.overflow_bits())
         self.endorser_state = ws.resize(self.endorser_state,
                                         new_n_buckets).state
         self.n_buckets = new_n_buckets
-        bits = self.overflow_bits()
         bno = self.next_block_no - 1
         if self.journal is not None:
             self.journal.append_reanchor(
                 bno, old_n_buckets=old_nb, new_n_buckets=new_n_buckets,
-                n_shards=self.n_shards,
-                tree_head=ws.tree_head(res.state, self.n_shards),
-                overflow_bits=bits)
+                n_shards=self.n_shards, tree_head=tree, overflow_bits=bits)
         info = {"block_no": bno, "old_n_buckets": old_nb,
                 "new_n_buckets": new_n_buckets, "overflow_bits": bits,
                 "hot_shard": hot, "channel": 0}
@@ -549,6 +639,8 @@ class FabricEngine:
         return info
 
     def _hot_shard(self) -> int:
+        if self.window_committer is not None:
+            return self.window_committer.hot_shard()
         return ws.hot_shard(
             self.overflow_bits(),
             ws.shard_occupancy(self.peer_state.hash_state, self.n_shards))
@@ -570,11 +662,11 @@ class FabricEngine:
         if tip - last < cfg.snapshot_every_blocks:
             return
         self.store.drain()  # the journal must cover every shipped block
-        ps = self.peer_state
         with self.obs.tracer.span("snapshot.take", block_no=tip, channel=0):
             snap = snapshot.take(
-                ps.hash_state, block_no=tip, journal_head=ps.journal_head,
-                ledger_head=ps.ledger_head, n_shards=self.n_shards,
+                self._state_view(), block_no=tip,
+                journal_head=self._peer_journal_head(),
+                ledger_head=self._ledger_head(), n_shards=self.n_shards,
                 overflow_bits=self.overflow_bits(),
                 reanchor_head=self.journal.reanchor_head)
         self.snapshots.append(snap)
@@ -693,8 +785,13 @@ class FabricEngine:
 
     def overflow_bits(self) -> int:
         """Sticky overflow bitmask: bit 0 once a commit dropped a write on
-        a full bucket, ORed with the bits a restart re-latched."""
-        return int(bool(self.overflow)) | self.restored_overflow_bits
+        a full bucket (the window committer's bits when one is attached),
+        ORed with the bits a restart re-latched."""
+        if self.window_committer is not None:
+            bits = self.window_committer.overflow_bits
+        else:
+            bits = int(bool(self.overflow))
+        return bits | self.restored_overflow_bits
 
     def overflowed(self) -> bool:
         return bool(self.overflow_bits())
@@ -713,8 +810,7 @@ class FabricEngine:
         out = {"chain_ok": True, "replica_ok": True, "replay_ok": True,
                "recovery_ok": True, "overflow_ok": not self.overflowed()}
         hashed = self.cfg.peer.hash_state
-        ps = self.peer_state
-        peer = u32.to_numpy(ws.state_digest(ps.hash_state)) if hashed else None
+        peer = self._peer_digest() if hashed else None
         if self.store is not None:
             self.store.drain()
             out["chain_ok"] = self.store.verify_chain()
@@ -744,7 +840,7 @@ class FabricEngine:
                 out["recovery_ok"] = bool(
                     np.array_equal(rec.state_digest, peer)
                     and np.array_equal(rec.journal_head,
-                                       u32.to_numpy(ps.journal_head)))
+                                       self._peer_journal_head()))
             except recovery.RecoveryError:
                 out["recovery_ok"] = False
         if hashed:

@@ -46,6 +46,19 @@ def combine(h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return h ^ t.to(u32.WORD)
 
 
+def fold(h: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """:func:`combine` the words ``xs`` (N,) into ``h`` one after another
+    (``h`` any shape; each word folds into every element). The finalizer
+    of every word runs at once, as it does not depend on ``h``; a step of
+    the chain is then a few int64 operations."""
+    t = u32.to_u64(_fmix32(xs)) + 0x9E3779B9
+    h64 = u32.to_u64(h)
+    for i in range(xs.shape[0]):
+        h64 = h64 ^ ((t[i] + ((h64 << 6) & u32.MASK) + (h64 >> 2))
+                     & u32.MASK)
+    return h64.to(u32.WORD)
+
+
 def hash_words(words: torch.Tensor, seed=SEED_A, axis: int = -1
                ) -> torch.Tensor:
     """Hash u32 words along ``axis`` into one u32: an FNV-style

@@ -54,15 +54,15 @@ def load_spilled_blocks(spill_dir: str, start_block: int,
 def block_body_digest(wire: torch.Tensor, valid: torch.Tensor
                       ) -> torch.Tensor:
     """Content digest of a block body: per-tx digests + validity flags,
-    folded order-dependently. (2,) u32."""
+    folded order-dependently. (N, WB) / (N,) -> (2,) u32; leading dims
+    batch blocks, (D, N, WB) / (D, N) -> (D, 2)."""
     words = unmarshal.wire_words(wire)
-    d1 = hashing.hash_words(words, seed=hashing.SEED_A)  # (N,)
+    d1 = hashing.hash_words(words, seed=hashing.SEED_A)  # (..., N)
     d2 = hashing.hash_words(words, seed=hashing.SEED_B)
     v = valid.to(u32.WORD)
-    return torch.stack([
-        hashing.hash_words((d1 ^ v)[None, :], seed=hashing.SEED_A)[0],
-        hashing.hash_words((d2 ^ (v << 1))[None, :], seed=hashing.SEED_B)[0],
-    ])
+    return torch.stack([hashing.hash_words(d1 ^ v, seed=hashing.SEED_A),
+                        hashing.hash_words(d2 ^ (v << 1),
+                                           seed=hashing.SEED_B)], dim=-1)
 
 
 def _word(x, device) -> torch.Tensor:

@@ -83,9 +83,7 @@ def _log_chain(head: torch.Tensor, words: torch.Tensor, *, serial: bool
         for row in words:
             head = hashing.hash_words(row.expand(2, -1), seed=head)
         return head
-    for d in hashing.hash_words(words, seed=hashing.SEED_A):
-        head = hashing.combine(head, d)
-    return head
+    return hashing.fold(head, hashing.hash_words(words, seed=hashing.SEED_A))
 
 
 def order_batch(wire: torch.Tensor, tx_ids: torch.Tensor,

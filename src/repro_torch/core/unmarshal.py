@@ -1,9 +1,12 @@
-"""Marshal / unmarshal: the wire format (port of repro.core.unmarshal).
+"""Marshal / unmarshal: the wire format and the P-III unmarshal cache (port
+of repro.core.unmarshal).
 
 A marshaled transaction is a row of u8 wire bytes. Decoding is a byte->u32
 reinterpretation plus field slicing, and an integrity pass: an FNV chain
 over every payload word checked against the header checksum, so decode cost
-scales with payload size as protobuf parsing does.
+scales with payload size as protobuf parsing does. Opt O-I ships only the
+structured prefix (:func:`struct_prefix_words`) through consensus, decoded
+by :func:`unmarshal_prefix`.
 
 Wire layout per transaction, in u32 words (little-endian bytes):
   [0:2] tx_id   [2] client   [3] channel   [4] payload checksum
@@ -76,6 +79,12 @@ def wire_words(wire: torch.Tensor) -> torch.Tensor:
     return wire.contiguous().view(u32.WORD)
 
 
+def struct_prefix_words(dims: types.FabricDims) -> int:
+    """Words of the structured prefix (header with checksum, read/write sets
+    and tags): what Opt O-I ships through consensus instead of the wire."""
+    return _layout(dims)["endorse_tags"][1]
+
+
 class Unmarshaled(NamedTuple):
     txb: types.TxBatch
     checksum_ok: torch.Tensor  # (B,) bool
@@ -101,6 +110,53 @@ def unmarshal(wire: torch.Tensor, dims: types.FabricDims) -> Unmarshaled:
                           for name in _FIELDS))
     ok = payload_checksum(words) == words[:, CHECKSUM_WORD]
     return Unmarshaled(txb=txb, checksum_ok=ok)
+
+
+def unmarshal_prefix(words: torch.Tensor, dims: types.FabricDims
+                     ) -> types.TxBatch:
+    """TxBatch (views) of (B, >= struct_prefix_words) u32 rows: the prefix,
+    or a whole row, which begins with it. No integrity pass: the opaque
+    body is absent, and its checksum was checked where it was ingested."""
+    lay = _layout(dims)
+    return types.TxBatch(*(_field(words, lay, dims, name)
+                           for name in _FIELDS))
+
+
+class UnmarshalCache:
+    """P-III: cyclic buffer of decoded blocks, sized to the pipeline depth.
+
+    A block's slot is ``block_no % depth``; a slot is overwritten only after
+    its block left the pipeline. Host-side bookkeeping; the decoded tensors
+    stay on their device."""
+
+    def __init__(self, depth: int):
+        self.depth = depth
+        self._slots: list[Unmarshaled | None] = [None] * depth
+        self._tags: list[int | None] = [None] * depth
+        self.hits = 0
+        self.misses = 0
+
+    def get(self, block_no: int, wire: torch.Tensor, dims: types.FabricDims
+            ) -> Unmarshaled:
+        slot = block_no % self.depth
+        if self._tags[slot] == block_no:
+            self.hits += 1
+            return self._slots[slot]
+        self.misses += 1
+        dec = unmarshal(wire, dims)
+        self.put(block_no, dec)
+        return dec
+
+    def put(self, block_no: int, dec: Unmarshaled) -> None:
+        slot = block_no % self.depth
+        self._slots[slot] = dec
+        self._tags[slot] = block_no
+
+    def evict(self, block_no: int) -> None:
+        slot = block_no % self.depth
+        if self._tags[slot] == block_no:
+            self._tags[slot] = None
+            self._slots[slot] = None
 
 
 def write_sets(wire: torch.Tensor, dims: types.FabricDims):

@@ -11,6 +11,11 @@ table's tensors IN PLACE and return the same :class:`HashState`: a
 2^20-bucket table is 224 MiB, and a copy per block would move more bytes
 than the block does.
 
+The block pipeline (pipeline/) applies a window's planned writes with
+:func:`commit_window`, one fused scatter (plain torch, as the reference's
+is an XLA scatter; its probe is the hash-table kernel), and budgets inserts
+with :func:`bucket_free_slots`.
+
 Resize epochs and shards: :func:`resize` rehashes the table into a new
 bucket count (journal replay crosses the re-anchor records it leaves), and
 :func:`split_table` / :func:`tree_head` give the high-bit shard partition
@@ -242,6 +247,13 @@ def earlier_mask(k: int, device=None) -> torch.Tensor:
     return torch.ones((k, k), dtype=torch.bool, device=device).tril(-1)
 
 
+def bucket_free_slots(state: HashState, keys: torch.Tensor) -> torch.Tensor:
+    """Empty-slot count of each key's bucket, (..., 2) -> (...,) int32: the
+    window write planner's slot budget (pipeline/batched_mvcc)."""
+    per_bucket = (state.keys[..., 0] == hashing.EMPTY_KEY).sum(dim=1)
+    return per_bucket[bucket_of(state, keys).long()].to(torch.int32)
+
+
 class CommitResult(NamedTuple):
     state: HashState
     overflow: torch.Tensor  # () bool: a bucket ran out of slots
@@ -316,6 +328,62 @@ def commit(state, write_keys, write_vals, active, *, sequential=False
            ) -> CommitResult:
     fn = commit_sequential if sequential else commit_vectorized
     return fn(state, write_keys, write_vals, active)
+
+
+def commit_window(state: HashState, log_keys: torch.Tensor,
+                  log_vals: torch.Tensor, log_bumps: torch.Tensor,
+                  log_new: torch.Tensor) -> HashState:
+    """Apply a whole window's write log in one scatter, in place.
+
+    The block pipeline (pipeline/schedule) plans D blocks' writes and
+    applies them here at once. The log is flat and block-major (block order
+    is apply order; within a block, flat write order): ``log_keys`` (L, 2),
+    ``log_vals`` (L, VW), ``log_bumps`` (L,) bool, the writes that advanced
+    their key's version (valid, non-empty, not deduplicated, not dropped by
+    overflow), and ``log_new`` (L,) bool, the bumps that took a new slot (at
+    most one per key).
+
+    Valid write sets are disjoint within a block but not across blocks, so
+    a last-writer-wins reduction comes first: a key's final version is its
+    window-start version plus its bumps, its value the last bump's, its
+    slot the window-start slot or the rank-th empty slot of its bucket in
+    ``log_new`` order, the slot the per-block commits would have given it.
+    Only each key's last bump is written (as :func:`commit_vectorized`
+    writes only applied writes): the card's scatter orders no duplicates.
+    """
+    lk = log_keys
+    dev = lk.device
+    nonempty = lk[:, 0] != hashing.EMPTY_KEY
+    bumps = log_bumps & nonempty
+    new = log_new & nonempty
+    look = lookup(state, lk)
+    b = bucket_of(state, lk).long()
+
+    same_key = same_key_matrix(lk) & nonempty[None, :]
+    n = lk.shape[0]
+    earlier = earlier_mask(n, dev)
+    later = torch.ones((n, n), dtype=torch.bool, device=dev).triu(1)
+    # Per entry: its key's bumps over the window, and whether it is the
+    # key's last bump (the survivor).
+    total = (same_key & bumps[None, :]).sum(dim=1)
+    lww = bumps & ~(same_key & later & bumps[None, :]).any(dim=1)
+
+    # In-window inserts take their bucket's window-start empty slots in log
+    # order; the slot reaches every entry of the key through a masked max.
+    rank = ((b[None, :] == b[:, None]) & earlier & new[None, :]).sum(dim=1)
+    empty = state.keys[b][..., 0] == hashing.EMPTY_KEY  # (L, S)
+    cum = torch.cumsum(empty.to(torch.int64), dim=1)
+    slot_new = torch.argmax((cum == (rank + 1)[:, None]).to(u32.WORD), dim=1)
+    ins_slot = torch.where(same_key & new[None, :], slot_new[None, :],
+                           0).amax(dim=1)
+    slot = torch.where(look.found, look.slots.long(), ins_slot)
+    new_ver = u32.add(look.versions, total)
+
+    flat = (b * state.slots + slot)[lww]
+    state.keys.view(-1, 2)[flat] = lk[lww]
+    state.versions.view(-1)[flat] = new_ver[lww]
+    state.values.view(-1, state.value_width)[flat] = log_vals[lww]
+    return state
 
 
 def occupancy(state: HashState) -> torch.Tensor:
