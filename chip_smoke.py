@@ -131,11 +131,34 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
    and journal heads card = CPU; (e) the per-block and window engines in
    turns (block, window, window, block; a warm-up and a timed round each)
    and one depth-8 window under the profiler for its busy share.
+14. Several channels on one card (``channels_phase``), each channel a 2^20
+   x 8 table at PAPER_DIMS in blocks of 100: (a) four channels in lockstep
+   through a four-channel WindowCommitter at depth 8, a warm-up and a timed
+   round of 4 x 1,000 disjoint transfers (the fairness rows' uniform
+   load), verify_all() all True; counters set to 0 before and read after,
+   K4 exactly once a window position (its four blocks in one launch), K1
+   twice a channel round + once a window, K2 as in phase 13 a channel, K3
+   0; each channel's chain, heads and digests equal a one-channel window
+   engine's on the card fed that channel's proposals; per-channel tx/s
+   (the shared wall) beside that engine's and the fairness ratio (min /
+   max). (b) The host path under the Zipf (s = 1.2) load, 2,100 / 900 /
+   500 / 400 txs (4,000 split by weight, rounded down to the block size),
+   K1 and K4 as in phase 4; card = CPU (chains, heads, digests,
+   verify_all). (c) Durability: two channels through a two-channel
+   committer with a journal, snapshots every 10 blocks and a block spill
+   (tables cut to 2^18 x 8), channel 1 doubled after the first round (two
+   shape groups: K4 once a position a group), then restore() of both
+   channels on the card, verify_all() all True and heads and digests equal
+   the live engine's. (d) K4 over NB = 1, 2, 4 and 8 blocks in one call,
+   blocks of 100 (one CTA a block, one launch) and of 1,024 (tiled, two
+   launches), against its plain version; wrapper and device time beside
+   NB x the NB = 1 time. (d) runs in phase 3 (``k4_blocks``), where the
+   profiler's device times are read before the profiled rounds.
 
 The lines before the last give each phase's seconds, the card's name and
 power limit (as nvidia-smi prints them), the engine, ladder, serving,
-durability, observability and pipeline summaries (with the storage
-objects' sizes)
+durability, observability, pipeline and channel summaries (with the
+storage objects' sizes)
 and the kernels; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -184,6 +207,14 @@ OBS_TURNS = ("off", "on", "on", "off")
 WINDOW_DEPTH = 8
 WINDOW_TURNS = ("block", "window", "window", "block")
 WINDOW_ELASTIC_START = 1 << 11
+# Phase 14: four channels (the fairness rows' uniform load, then the Zipf
+# s = 1.2 split of 4,000 txs rounded down to the block size), the durable
+# two-channel run's table (cut to 2^18 x 8: six snapshots of it) and
+# K4's block counts and sizes.
+CHANNELS = 4
+CHANNEL_ZIPF = (2100, 900, 500, 400)
+CHANNEL_DURABLE_NB, CHANNEL_DURABLE_EVERY = 1 << 18, 10
+K4_NBS, K4_NB_TXS = (1, 2, 4, 8), (100, 1024)
 ELASTIC_START, ELASTIC_ROUNDS, ELASTIC_EVERY = 1 << 11, 4, 25
 DUMP_FILES = {"trace.jsonl", "trace_chrome.json", "metrics.json",
               "lifecycles.json", "meta.json"}
@@ -355,20 +386,21 @@ def window_launches(stats, depth: int, replayed_blocks: int) -> dict:
             "validate": n_blocks, "commit": 0}
 
 
-def window_view(e) -> dict:
-    """A window engine's store chain, heads and digests, in the form of
-    phase 4's ``results``: the peer's table and journal head are its
-    committer's."""
+def window_view(e, channel: int = 0) -> dict:
+    """A channel's store chain, heads and digests, in the form of phase 4's
+    ``results``: with a window committer the peer's table and journal head
+    are the committer's."""
     from repro_torch.core import u32
     from repro_torch.core import world_state as ws
     e.store.drain()
+    ch = e.chans[channel]
     return {
         "chain": [(sb.block_no, sb.prev_hash, sb.block_hash, sb.valid)
-                  for sb in e.store.chain],
-        "log_head": u32.to_numpy(e.log_head),
-        "journal_head": e.window_committer.journal_head,
-        "peer": [e._peer_digest()],
-        "replica": u32.to_numpy(ws.state_digest(e.endorser_state)),
+                  for sb in e.store.chains[channel]],
+        "log_head": u32.to_numpy(ch.log_head),
+        "journal_head": e._peer_journal_head(channel),
+        "peer": [e._peer_digest(channel)],
+        "replica": u32.to_numpy(ws.state_digest(ch.endorser_state)),
     }
 
 
@@ -541,6 +573,261 @@ def window_phase(cfg, on_card, counts, zero_counts, same_results,
                       for mode in ("block", "window")}
     log(f"[pipeline] medians {out['medians']}")
     return out
+
+
+def channel_window_launches(rounds, depth: int, n_channels: int,
+                            replayed_blocks: int) -> dict:
+    """The K1, K2 and K4 launches of a multi-channel window engine's
+    lockstep rounds (``rounds``: each round's per-channel stats) and of a
+    verify_all() that replays ``replayed_blocks`` blocks in all: K1 twice a
+    channel round (the endorsers' tags, admission) and once a window
+    position range (every channel's rows at once); K2 twice a channel
+    round, twice a channel window (the fill's probe and the fused
+    commit's), once a block for the replica and once a replayed block; K4
+    once a block position (the channels' blocks in one launch)."""
+    n_blocks = sum(r[0].n_blocks for r in rounds)
+    n_windows = sum(-(-r[0].n_blocks // depth) for r in rounds)
+    c = n_channels
+    return {"mac_many": 2 * c * len(rounds) + n_windows,
+            "lookup": 2 * c * len(rounds) + 2 * c * n_windows
+            + c * n_blocks + replayed_blocks,
+            "validate": n_blocks, "commit": 0}
+
+
+def channels_phase(cfg, counts, zero_counts, same_results, path_launches,
+                   dev, *, n_accounts: int = None, round_txs: int = None,
+                   zipf: tuple = None, durable_nb: int = None,
+                   card: str = "") -> dict:
+    """Phase 14 (a)-(c): several channels on one card under phase 4's
+    engine configuration ``cfg`` (one channel); see the module docstring.
+    The keyword sizes default to the phase's; a rehearsal on the CPU passes
+    smaller ones."""
+    from repro_torch.core import engine
+    from repro_torch.launch import fabric_step as fs
+    from repro_torch.pipeline import engine_bridge as eb
+    n_accounts = n_accounts or N_ACCOUNTS
+    round_txs = round_txs or ROUND_TXS
+    zipf = zipf or CHANNEL_ZIPF
+    durable_nb = durable_nb or CHANNEL_DURABLE_NB
+    cuda = torch.device(dev).type == "cuda"
+    nch = CHANNELS
+    out = {"card": card}
+
+    def launches_ok(name, got, want):
+        path_launches[name] = got
+        bad = {k: (got[k], n) for k, n in want.items() if got[k] != n}
+        if bad:
+            raise AssertionError(f"{name}: launches (got, expected) {bad}")
+
+    def props(e, r, c, n):
+        return e.make_proposals(n, seed=100 * r + c, n_accounts=n_accounts)
+
+    def window_engine(c, device, n_channels, nb=None):
+        wc = eb.WindowCommitter(
+            c.dims, fs.FabricStepConfig(pipeline_depth=WINDOW_DEPTH),
+            n_buckets=nb or c.n_buckets, slots=c.slots,
+            n_channels=n_channels, device=device)
+        return engine.FabricEngine(c, device=device, window_committer=wc)
+
+    # (a) Four channels in lockstep through the window committer.
+    cfg4 = dataclasses.replace(cfg, n_channels=nch)
+    zero_counts()
+    e = window_engine(cfg4, dev, nch)
+    rounds = [e.run_rounds([props(e, r, c, round_txs) for c in range(nch)])
+              for r in range(2)]
+    verdicts = e.verify_all()
+    got = counts()
+    if not all(all(v.values()) for v in verdicts.values()):
+        raise AssertionError(f"four-channel window engine: {verdicts}")
+    launches_ok("channels_window", got, channel_window_launches(
+        rounds, WINDOW_DEPTH, nch, sum(e.store.chains[c][-1].block_no + 1
+                                       for c in range(nch))))
+    views = [window_view(e, c) for c in range(nch)]
+    timed = rounds[-1]
+    tps = [st.n_txs / st.wall_s for st in timed]
+    e.store.close()
+    del e
+    single = []
+    for c in range(nch):
+        e = window_engine(cfg, dev, 1)
+        st = [e.run_round(props(e, r, c, round_txs)) for r in range(2)]
+        same_results(views[c], window_view(e), f"channel {c} of four "
+                     "against a one-channel window engine")
+        single.append(st[-1].tps)
+        e.store.close()
+        del e
+    out["window"] = {
+        "verify_all": verdicts, "launches": got,
+        "rounds": [[s._asdict() for s in r] for r in rounds],
+        "per_channel_tps": tps, "aggregate_tps": sum(tps),
+        "fairness": min(tps) / max(tps), "single_channel_tps": single,
+        "per_channel_vs_single": float(np.mean(tps) / np.mean(single))}
+    log(f"[channels] window path, {nch} channels at depth {WINDOW_DEPTH}: "
+        f"verify_all {verdicts[0]} on every channel; launches {got}, K4 "
+        f"once a window position; each channel equals a one-channel window "
+        f"engine")
+    log(f"[channels] per-channel tx/s {[round(t, 1) for t in tps]} "
+        f"(shared wall {timed[0].wall_s:.4f} s = order "
+        f"{timed[0].order_s:.4f} + commit {timed[0].commit_s:.4f}; replay "
+        f"{timed[0].replay_s:.4f} s), aggregate {sum(tps):.1f}, fairness "
+        f"{out['window']['fairness']:.4f}; one-channel window engines "
+        f"{[round(t, 1) for t in single]} tx/s, per-channel / one-channel "
+        f"{out['window']['per_channel_vs_single']:.4f}")
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (b) The host path under the Zipf load, card against CPU.
+    hviews = []
+    for device in (dev, "cpu"):
+        if device == dev:
+            zero_counts()
+        e = engine.FabricEngine(cfg4, device=device)
+        st = e.run_rounds([props(e, 5, c, n) for c, n in enumerate(zipf)])
+        hverdicts = e.verify_all()
+        if device == dev:
+            got = counts()
+            want = k1_k4_launches(st)
+            launches_ok("channels_host", got, want)
+            htps = [s.n_txs / s.wall_s for s in st]
+            hst = st
+        if not all(all(v.values()) for v in hverdicts.values()):
+            raise AssertionError(f"Zipf host path on {device}: {hverdicts}")
+        hviews.append([window_view(e, c) for c in range(nch)])
+        e.store.close()
+        del e
+    for c in range(nch):
+        same_results(hviews[0][c], hviews[1][c], f"Zipf host path, channel "
+                     f"{c}, card against CPU")
+    out["host_zipf"] = {
+        "load": list(zipf), "launches": got,
+        "rounds": [s._asdict() for s in hst], "per_channel_tps": htps,
+        "aggregate_tps": sum(htps), "fairness": min(htps) / max(htps)}
+    log(f"[channels] host path, Zipf load {list(zipf)}: verify_all True; "
+        f"card = CPU; launches {got}; per-channel tx/s "
+        f"{[round(t, 1) for t in htps]} (shared wall {hst[0].wall_s:.4f} "
+        f"s), aggregate {sum(htps):.1f}, fairness "
+        f"{out['host_zipf']['fairness']:.4f}")
+
+    # (c) Durability: two channels, channel 1 doubled, then restore.
+    tmp = tempfile.TemporaryDirectory()
+    dcfg = dataclasses.replace(
+        cfg, n_channels=2, n_buckets=durable_nb,
+        snapshot_every_blocks=CHANNEL_DURABLE_EVERY,
+        **{k: os.path.join(tmp.name, k) for k in ("journal_dir",
+                                                   "snapshot_dir",
+                                                   "block_dir")})
+    zero_counts()
+    e = window_engine(dcfg, dev, 2)
+    drounds = [e.run_rounds([props(e, 7, c, round_txs) for c in range(2)])]
+    e.resize(2 * durable_nb, channel=1)
+    groups = len(e.window_committer.groups)
+    drounds.append(e.run_rounds([props(e, 8, c, round_txs)
+                                 for c in range(2)]))
+    dverdicts = e.verify_all()
+    got = counts()
+    want = channel_window_launches(drounds, WINDOW_DEPTH, 2, 0)
+    # After the resize each shape group runs its own step: K1 once a
+    # window and K4 once a block position, a group.
+    want["mac_many"] += (groups - 1) * -(-drounds[1][0].n_blocks
+                                         // WINDOW_DEPTH)
+    want["validate"] += (groups - 1) * drounds[1][0].n_blocks
+    launches_ok("channels_durable", got, {
+        k: want[k] for k in ("mac_many", "validate", "commit")})
+    if not all(all(v.values()) for v in dverdicts.values()) or groups != 2:
+        raise AssertionError(f"durable channels: {dverdicts}, {groups} "
+                             "groups")
+    live = [(e._peer_digest(c), e._peer_journal_head(c), e._ledger_head(c),
+             e.chans[c].next_block_no, e.chans[c].n_buckets)
+            for c in range(2)]
+    snaps = [[s.block_no for s in e.chans[c].snapshots] for c in range(2)]
+    e.store.close()
+    del e
+    t1 = time.perf_counter()
+    back = engine.FabricEngine.restore(dcfg, device=dev)
+    restore_s = time.perf_counter() - t1
+    rverdicts = back.verify_all()
+    for c in range(2):
+        got_c = (back._peer_digest(c), back._peer_journal_head(c),
+                 back._ledger_head(c), back.chans[c].next_block_no,
+                 back.chans[c].n_buckets)
+        if not all(np.array_equal(x, y) for x, y in zip(got_c, live[c])):
+            raise AssertionError(f"restored channel {c} differs from the "
+                                 "live one")
+    if not all(all(v.values()) for v in rverdicts.values()):
+        raise AssertionError(f"restored channels: verify_all {rverdicts}")
+    back.store.close()
+    del back
+    tmp.cleanup()
+    out["durable"] = {"verify_all": dverdicts, "restored": rverdicts,
+                      "launches": got, "snapshots": snaps,
+                      "n_buckets": [x[4] for x in live],
+                      "restore_s": restore_s}
+    log(f"[channels] durable, two channels from {durable_nb} x "
+        f"{cfg.slots}: channel 1 doubled ({groups} shape groups), "
+        f"snapshots {snaps}, launches {got}; restore() in {restore_s:.3f} "
+        f"s, every channel equal to the live one, verify_all True")
+
+    return out
+
+
+def k4_blocks(dev, k4_txs: tuple = None) -> list:
+    """K4 over NB = 1, 2, 4 and 8 independent blocks in one call, blocks of
+    ``k4_txs`` txs (one CTA a block at 100, tiled at 1,024), against its
+    plain version; on the card the wrapper's time (CUDA events), the
+    device time (profiler), the plain version's and the bound, beside NB
+    times the NB = 1 time. Phase 3 runs it: the profiler's device times
+    read low or zero later in the run (after the profiled rounds of phases
+    6 and 13), while phase 3's agree with the earlier calls'."""
+    from repro_torch.core import u32
+    from repro_torch.kernels.mvcc_validate import cases as mv_cases
+    from repro_torch.kernels.mvcc_validate import ops as mv_ops
+    from repro_torch.kernels.mvcc_validate import ref as mv_ref
+    cuda = torch.device(dev).type == "cuda"
+    rows = []
+    for b in k4_txs or K4_NB_TXS:
+        base = {}
+        for nblk in K4_NBS:
+            blocks = [mv_cases.random_block(b, 50 * nblk + k,
+                                            n_accounts=max(48, b * 2 // 5))
+                      for k in range(nblk)]
+            ins = [u32.from_numpy(a, dev) if a.dtype != np.bool_
+                   else torch.from_numpy(a).to(dev)
+                   for a in (np.stack(x) for x in zip(*blocks))]
+            want = mv_ref.validate_blocks_ref(*(t.cpu() for t in ins))
+            err = max_abs_err([mv_ops.validate_blocks(*ins).cpu()], [want])
+            if err:
+                raise AssertionError(f"validate_blocks NB={nblk} B={b}: "
+                                     f"differs from the plain version")
+            row = {"txs": b, "nb": nblk, "max_abs_err": err,
+                   "route": mv_ops.route_for(b, 2, 2, dev) if cuda
+                   else "plain"}
+            rows.append(row)
+            if not cuda:
+                continue
+            fn = lambda ins=ins: mv_ops.validate_blocks(*ins)
+            row["ms"] = event_ms(fn, 200)
+            row["device_ms"] = device_call_ms(fn, ("mvcc_",))
+            row["plain_ms"] = event_ms(
+                lambda ins=ins: mv_ref.validate_blocks_ref(*ins), 1, warmup=0)
+            # Each block's keys, versions and flags read once and verdicts
+            # written; the compares each tx's keys need against the valid
+            # txs before it (RK = WK = 2).
+            v = want.long()
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                nblk * (4 * b * 12 + 2 * b),
+                8 * int((torch.cumsum(v, 1) - v).sum()))
+            if nblk == 1:
+                base = row
+            row["nb_x_one_ms"] = nblk * base["ms"]
+            row["nb_x_one_device_ms"] = nblk * base["device_ms"]
+            log(f"[time] K4 validate_blocks, NB = {nblk} blocks of {b} "
+                f"({row['route']}, {1 if row['route'] == 'cta' else 2} "
+                f"launches): {row['ms']:.6f} ms a call (NB x NB = 1: "
+                f"{row['nb_x_one_ms']:.6f}), device {row['device_ms']:.8f} ms "
+                f"(NB x NB = 1: {row['nb_x_one_device_ms']:.8f}), bound "
+                f"{row['bound_ms']:.9f} ms ({row['bound_by']}), plain "
+                f"{row['plain_ms']:.3f} ms; equal to the plain version")
+    return rows
 
 
 def _profile_window(e, sync, n_accounts, round_txs) -> dict:
@@ -1246,6 +1533,8 @@ def main(argv=None) -> int:
         f"{-(-b // 32)} chunk steps, "
         f"{mv_t['device_ms'] / -(-b // 32) * 1e3:.5f} us of device time a "
         f"chunk")
+    # K4 over NB independent blocks in one call (phase 14 (d)).
+    mv_t["extra"]["blocks"] = k4_blocks(dev)
     # K4's two routes, each forced, at the block sizes where the wrapper
     # chooses between them (RK = WK = 2, dense conflicts): wrapper and
     # device time a call, the route the wrapper takes beside them.
@@ -2132,10 +2421,10 @@ def main(argv=None) -> int:
         for k, v in span_summary.items()))
     # The policy pass's stacked read at 2^20 x 8, then one manual resize of
     # this table to 2^21 (224 MiB -> 448 MiB a table, peer and replica).
-    e._shard_stats()
+    e._shard_stats((0,))
     t1 = time.perf_counter()
     for _ in range(5):
-        e._shard_stats()
+        e._shard_stats((0,))
     stats_read_s = (time.perf_counter() - t1) / 5
     digest = u32.to_numpy(ws.state_digest(e.peer_state.hash_state))
     torch.cuda.synchronize()
@@ -2330,6 +2619,14 @@ def main(argv=None) -> int:
     pipeline["card"] = card
     phase_done("13 block pipeline", t0)
 
+    # -- 14. several channels on one card -----------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    channels = channels_phase(cfg, counts, zero_counts, same_results,
+                              path_launches, dev, card=card)
+    channels["k4_blocks"] = mv_t["extra"]["blocks"]
+    phase_done("14 several channels", t0)
+
     kernels = [{
         "name": t["name"], "route": "cuda", "source": t["source"],
         "replaces": t["replaces"],
@@ -2348,6 +2645,7 @@ def main(argv=None) -> int:
     log(json.dumps({"durability": durability}, default=str))
     log(json.dumps({"observability": observability}, default=str))
     log(json.dumps({"pipeline": pipeline}, default=str))
+    log(json.dumps({"channels": channels}, default=str))
     log(json.dumps({"phase_s": phase_s,
                     "total_s": time.perf_counter() - t_start}))
     log(card)

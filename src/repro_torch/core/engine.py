@@ -1,5 +1,5 @@
 """End-to-end FastFabric engine: client -> endorse -> order -> commit ->
-store (port of repro.core.engine, one channel).
+store (port of repro.core.engine).
 
   client (synthetic proposals, numpy: both packages see the same ones)
     -> endorser (transfer chaincode on the replica; MAC tags)
@@ -29,8 +29,13 @@ Device-side block pipeline (``window_committer=``): a
 its depth instead of one block at a time, and the engine reads the peer's
 table, heads and overflow bits, snapshots, verifies and resizes through it.
 
-Not ported yet: several channels (``n_channels``, ``run_rounds``); the
-engine runs channel 0 of the reference's API.
+Several channels (``EngineConfig.n_channels``): each channel has its own
+peer and replica tables, heads, journal, snapshots, block chain and resize
+epochs (``_Channel``), and one ``BlockStore`` multiplexes their chains.
+:meth:`FabricEngine.run_rounds` runs one round on every channel: back to
+back on the host path, or through a multi-channel window committer, which
+commits every channel's window at one window position together. Channel 0
+is the channel of the single-channel API.
 """
 
 from __future__ import annotations
@@ -82,6 +87,10 @@ class EngineConfig:
     slots: int = 8
     n_endorsers: int = 3
     store_blocks: bool = True
+    # Independent channels, each with its own state, heads, journal,
+    # snapshots and resize epochs; their directories nest under the ones
+    # below (ledger.channel_dir). Channel 0 is the single-channel API's.
+    n_channels: int = 1
     # Block spill directory of the storage role: lets restore() rebuild
     # the ledger head of a snapshot that trails the journal tip.
     block_dir: str | None = None
@@ -143,6 +152,56 @@ class RoundStats(NamedTuple):
         return self.n_txs / self.wall_s if self.wall_s else float("inf")
 
 
+
+
+class _Channel:
+    """One channel's mutable state: the peer and endorser tables, the heads,
+    the durability layer and the resize history. Channel 0 is the target of
+    the single-channel API (the engine's property shims)."""
+
+    __slots__ = (
+        "peer_state", "endorser_state", "log_head", "journal", "snapshots",
+        "next_block_no", "overflow", "n_buckets", "reanchor_log",
+        "repaired_bits", "restored_overflow_bits", "obs_seen_bits",
+        "total_valid", "total_txs",
+    )
+
+    def __init__(self, cfg: EngineConfig, device, journal, n_buckets: int):
+        self.peer_state = committer.create_peer_state(
+            cfg.dims, n_buckets=cfg.n_buckets, slots=cfg.slots,
+            hash_state=cfg.peer.hash_state, device=device)
+        self.endorser_state = ws.create(cfg.n_buckets, cfg.slots,
+                                        cfg.dims.vw, device=device)
+        self.log_head = torch.zeros((2,), dtype=u32.WORD, device=device)
+        self.journal = journal
+        self.snapshots: list[snapshot.Snapshot] = []
+        self.next_block_no = 0
+        # Sticky: some commit dropped a write on a full bucket.
+        self.overflow = torch.zeros((), dtype=torch.bool, device=device)
+        # The table's CURRENT layout; resize epochs move it, while
+        # recovery and replay start from the genesis layout, cfg.n_buckets.
+        self.n_buckets = n_buckets
+        # Resize epochs the chain replay must cross: (boundary block, new
+        # bucket count), from resize() and from the journal's re-anchor
+        # records on restore.
+        self.reanchor_log: list[tuple[int, int]] = []
+        # Overflow bits an overflow-triggered grow already repaired (the
+        # sticky mask never un-latches, so the repair fires once a bit),
+        # the bits a restart re-latched from its snapshot, and the bits
+        # the obs latch counter has seen.
+        self.repaired_bits = 0
+        self.restored_overflow_bits = 0
+        self.obs_seen_bits = 0
+        self.total_valid = 0
+        self.total_txs = 0
+
+
+def _shim(name: str, doc: str | None = None) -> property:
+    """An engine attribute that is channel 0's."""
+    return property(lambda self: getattr(self.chans[0], name),
+                    lambda self, v: setattr(self.chans[0], name, v), doc=doc)
+
+
 class FabricEngine:
     """Single-host engine holding all roles, on one device.
 
@@ -150,8 +209,9 @@ class FabricEngine:
     unless the caller passes ``device='cpu'`` (the plain versions of the
     kernels then run). The obs handle (``cfg.obs``) gives the durability
     layer's journal and snapshot metrics their registry. A
-    ``window_committer`` (on the engine's device) takes over the commit:
-    the peer's table and heads are then its state, at its bucket count."""
+    ``window_committer`` (on the engine's device, driving
+    ``cfg.n_channels`` channels) takes over the commit: the peer's tables
+    and heads are then its state, at its bucket counts."""
 
     def __init__(self, cfg: EngineConfig = FASTFABRIC, *, device=None,
                  window_committer=None):
@@ -162,13 +222,19 @@ class FabricEngine:
                 "peer config with journal=True and hash_state=True (P-I): "
                 "snapshots cover the hash-table state and recovery replays "
                 "the journal the storage role materializes")
+        if cfg.n_channels < 1:
+            raise ValueError(f"n_channels must be >= 1, got {cfg.n_channels}")
         self.cfg = cfg
         self.device = resolve_device(device)
-        if (window_committer is not None
-                and window_committer.device != self.device):
-            raise ValueError(
-                f"window committer on {window_committer.device}, engine on "
-                f"{self.device}")
+        if window_committer is not None:
+            if window_committer.device != self.device:
+                raise ValueError(
+                    f"window committer on {window_committer.device}, engine "
+                    f"on {self.device}")
+            if window_committer.n_channels != cfg.n_channels:
+                raise ValueError(
+                    f"window committer drives {window_committer.n_channels} "
+                    f"channels, engine is configured for {cfg.n_channels}")
         # Observability handle: a per-engine tracer and registry, the
         # caller's, or the shared no-op pair. The window committer reports
         # through the same handle.
@@ -193,50 +259,60 @@ class FabricEngine:
             obs_mod.TxTracer(self.obs.registry, recorder=self.recorder)
             if self.obs.on else obs_mod.NULL_TXTRACER)
         # Health/SLO rollup: host-side per-round buckets, works obs-off.
-        self.health_rollup = obs_mod.HealthRollup(cfg.slo)
-        self.peer_state = committer.create_peer_state(
-            cfg.dims, n_buckets=cfg.n_buckets, slots=cfg.slots,
-            hash_state=cfg.peer.hash_state, device=self.device)
-        self.endorser_state = ws.create(cfg.n_buckets, cfg.slots,
-                                        cfg.dims.vw, device=self.device)
-        self.log_head = torch.zeros((2,), dtype=u32.WORD, device=self.device)
-        self.next_block_no = 0
-        # The table's CURRENT layout; resize epochs move it, while
-        # recovery and replay start from the genesis layout, cfg.n_buckets.
-        self.n_buckets = (cfg.n_buckets if window_committer is None
-                          else window_committer.n_buckets)
-        # Sticky: some commit dropped a write on a full bucket.
-        self.overflow = torch.zeros((), dtype=torch.bool, device=self.device)
-        # The overflow bitmask a restart re-latched from its snapshot.
-        self.restored_overflow_bits = 0
-        # Overflow bits an overflow-triggered grow already repaired (the
-        # sticky mask never un-latches, so the repair fires once a bit),
-        # and the bits the obs latch counter has seen.
-        self.repaired_bits = 0
-        self.obs_seen_bits = 0
-        # Resize epochs the chain replay must cross: (boundary block, new
-        # bucket count), from resize() and from the journal's re-anchor
-        # records on restore.
-        self.reanchor_log: list[tuple[int, int]] = []
-        self.snapshots: list[snapshot.Snapshot] = []
+        self.health_rollup = obs_mod.HealthRollup(
+            cfg.slo, n_channels=cfg.n_channels)
         # The journal rides the storage role's writer thread, attached only
         # when the durability layer is configured (a snapshot cadence or an
-        # on-disk journal); the commit-path head is independent of it.
-        self.journal = None
-        if (cfg.store_blocks and cfg.peer.journal
-                and (cfg.snapshot_every_blocks > 0
-                     or cfg.journal_dir is not None)):
-            self.journal = state_journal.StateJournal(
-                cfg.dims, spill_dir=cfg.journal_dir,
-                metrics=self.obs.registry)
+        # on-disk journal); the commit-path head is independent of it. Each
+        # channel journals into its own channel_dir.
+        want_journal = (cfg.store_blocks and cfg.peer.journal
+                        and (cfg.snapshot_every_blocks > 0
+                             or cfg.journal_dir is not None))
+
+        def make_journal(c: int):
+            if not want_journal:
+                return None
+            spill = (ledger.channel_dir(cfg.journal_dir, c)
+                     if cfg.journal_dir is not None else None)
+            return state_journal.StateJournal(cfg.dims, spill_dir=spill,
+                                              metrics=self.obs.registry)
+
+        self.chans = [
+            _Channel(cfg, self.device, make_journal(c),
+                     cfg.n_buckets if window_committer is None
+                     else window_committer.n_buckets_for(c))
+            for c in range(cfg.n_channels)]
+        # ONE store multiplexes every channel's chain and journal.
         self.store = None
         if cfg.store_blocks:
             if cfg.block_dir is not None:
                 os.makedirs(cfg.block_dir, exist_ok=True)
             self.store = ledger.BlockStore(cfg.block_dir,
-                                           journal=self.journal)
+                                           journal=self.chans[0].journal)
+            for c in range(1, cfg.n_channels):
+                if self.chans[c].journal is not None:
+                    self.store.set_journal(c, self.chans[c].journal)
         self.total_valid = 0
         self.total_txs = 0
+
+    # -- channel 0: the single-channel API ---------------------------------------
+
+    peer_state = _shim("peer_state", "Channel 0's committer-peer state.")
+    endorser_state = _shim("endorser_state")
+    log_head = _shim("log_head")
+    journal = _shim("journal")
+    snapshots = _shim("snapshots")
+    reanchor_log = _shim("reanchor_log")
+    n_buckets = _shim("n_buckets", "Channel 0's CURRENT table layout.")
+    next_block_no = _shim("next_block_no")
+    overflow = _shim("overflow", "Channel 0's sticky overflow flag.")
+    repaired_bits = _shim("repaired_bits")
+    restored_overflow_bits = _shim("restored_overflow_bits")
+    obs_seen_bits = _shim("obs_seen_bits")
+
+    @property
+    def n_channels(self) -> int:
+        return self.cfg.n_channels
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -269,47 +345,90 @@ class FabricEngine:
         return endorser.Proposal(*(u32.from_numpy(a, self.device) for a in (
             perm[:n], perm[n:], amount, client, nonce)))
 
-    # -- one full round ------------------------------------------------------
+    # -- rounds ----------------------------------------------------------------
 
-    def run_round(self, proposals: endorser.Proposal) -> RoundStats:
-        """One round: endorse (untimed) -> order -> commit -> replica update.
+    def run_round(self, proposals: endorser.Proposal,
+                  channel: int = 0) -> RoundStats:
+        """One round on ``channel``: endorse (untimed) -> order -> commit ->
+        replica update.
 
         As in the paper's measurement, the client sends pre-endorsed
         transactions, so endorsement and marshaling are outside the timed
-        window, and the endorser replica updates after it. An exception
-        escaping the round trips the flight recorder (``exception``).
+        window, and the endorser replica updates after it. A multi-channel
+        window committer commits every channel's window together: drive it
+        with :meth:`run_rounds`. An exception escaping the round trips the
+        flight recorder (``exception``).
         """
+        if self.window_committer is not None and self.cfg.n_channels > 1:
+            raise ValueError(
+                "multi-channel window committer commits all channels per "
+                "dispatch: drive rounds with run_rounds(proposals_by_"
+                "channel)")
         try:
-            return self._round(proposals)
+            return self._round(proposals, channel)
         except Exception as e:
-            self._fault("exception", where="run_round", channel=0,
+            self._fault("exception", where="run_round", channel=channel,
                         error=repr(e))
             raise
 
-    def _round(self, proposals: endorser.Proposal) -> RoundStats:
+    def run_rounds(self, proposals_by_channel: list) -> list[RoundStats]:
+        """One round on EVERY channel (entry c drives channel c).
+
+        Without a window committer the channels run back to back on the
+        host path; with one, every channel is ordered and then each window
+        position commits on every channel together
+        (:meth:`~repro_torch.pipeline.engine_bridge.WindowCommitter.commit_windows`),
+        so rounds must be shape-uniform across channels. Every returned
+        ``wall_s`` is the shared wall of all channels; per-channel tx/s is
+        a channel's txs over it."""
+        if len(proposals_by_channel) != self.cfg.n_channels:
+            raise ValueError(
+                f"expected {self.cfg.n_channels} proposal batches, got "
+                f"{len(proposals_by_channel)}")
+        try:
+            if self.window_committer is None:
+                t0 = time.perf_counter()
+                stats = [self._round(p, c)
+                         for c, p in enumerate(proposals_by_channel)]
+                wall = time.perf_counter() - t0
+                return [s._replace(wall_s=wall) for s in stats]
+            return self._rounds_meshed(proposals_by_channel)
+        except Exception as e:
+            self._fault("exception", where="run_rounds", error=repr(e))
+            raise
+
+    def _endorse(self, ch: _Channel, proposals: endorser.Proposal):
+        """Endorse and marshal a channel's round (untimed): (txb, wire)."""
         cfg = self.cfg
         n = int(proposals.src.shape[0])
-        bs = cfg.orderer.block_size
-        if n % bs:
-            raise ValueError(f"round of {n} txs not a multiple of {bs}")
-
+        if n % cfg.orderer.block_size:
+            raise ValueError(f"round of {n} txs not a multiple of "
+                             f"{cfg.orderer.block_size}")
         txb = endorser.execute_and_endorse(
-            self.endorser_state, proposals, cfg.dims,
+            ch.endorser_state, proposals, cfg.dims,
             n_endorsers=cfg.n_endorsers)
-        wire = unmarshal.marshal(txb, cfg.dims)
+        return txb, unmarshal.marshal(txb, cfg.dims)
+
+    def _round(self, proposals: endorser.Proposal, channel: int
+               ) -> RoundStats:
+        cfg = self.cfg
+        ch = self.chans[channel]
+        n = int(proposals.src.shape[0])
+        bs = cfg.orderer.block_size
+        txb, wire = self._endorse(ch, proposals)
         self._sync()
         # Tx-lifecycle sidecar at submission: the tx ids (the endorser's
         # content hashes) as u32, one host copy with obs on.
         txr = self.txtrace.begin_round(
-            0, u32.to_numpy(txb.tx_id) if self.obs.on else None, bs,
-            self.next_block_no)
+            channel, u32.to_numpy(txb.tx_id) if self.obs.on else None, bs,
+            ch.next_block_no)
         t0 = time.perf_counter()
 
         txr.order_start()
-        with self._edge("round.order", lambda: self.log_head, channel=0):
+        with self._edge("round.order", lambda: ch.log_head, channel=channel):
             blocks = orderer.order_batch(wire, txb.tx_id, txb.client,
-                                         self.log_head, cfg.orderer)
-            self.log_head = blocks.log_head
+                                         ch.log_head, cfg.orderer)
+            ch.log_head = blocks.log_head
         t_order = time.perf_counter()
         txr.ordered()
 
@@ -318,9 +437,9 @@ class FabricEngine:
         if wc is not None:
             # Device-side block pipeline: a window of the committer's depth
             # a call; the span ends on the committer's device sync.
-            with self._edge("round.commit", lambda: wc.state.ledger_head,
-                            n_blocks=n_blocks, channel=0):
-                retired = self._commit_windows(blocks, txr)
+            with self._edge("round.commit", wc.sync_target,
+                            n_blocks=n_blocks, channel=channel):
+                retired = self._commit_windows(blocks, channel, txr)
             t_commit = time.perf_counter()
         else:
             # Commit block by block; each block leaves for the store as
@@ -328,18 +447,19 @@ class FabricEngine:
             # fresh tensors).
             retired = []
             with self._edge("round.commit",
-                            lambda: self.peer_state.ledger_head,
-                            n_blocks=n_blocks, channel=0):
+                            lambda: ch.peer_state.ledger_head,
+                            n_blocks=n_blocks, channel=channel):
                 for b in range(n_blocks):
-                    bno = self.next_block_no
-                    self.next_block_no += 1
-                    prev_head = self.peer_state.ledger_head
+                    bno = ch.next_block_no
+                    ch.next_block_no += 1
+                    prev_head = ch.peer_state.ledger_head
                     res = committer.commit_block(
-                        self.peer_state, blocks.wire[b], cfg.dims, cfg.peer)
-                    self.peer_state = res.state
-                    self.overflow = self.overflow | res.overflow
+                        ch.peer_state, blocks.wire[b], cfg.dims, cfg.peer)
+                    ch.peer_state = res.state
+                    ch.overflow = ch.overflow | res.overflow
                     retired.append(self._ship(blocks.wire[b], bno, prev_head,
-                                              res.block_hash, res.valid))
+                                              res.block_hash, res.valid,
+                                              channel))
             t_commit = time.perf_counter()
             txr.validated(0, n_blocks)
             # Per-block commit latency: the round's order + commit window
@@ -350,24 +470,106 @@ class FabricEngine:
             for _ in range(n_blocks):
                 hist.record(dt)
 
-        n_valid, valids = self._endorser_replay(retired)
+        n_valid, valids = self._endorser_replay(retired, channel)
         t_replay = time.perf_counter()
         txr.committed()
-        self._policy_pass()
-        self._maybe_snapshot()
+        self._policy_pass((channel,))
+        self._maybe_snapshot(channel)
         wall = t_commit - t0
-        new_bits = self._count_round(n, n_valid, wall, n_blocks)
+        new_bits = self._count_round(channel, n, n_valid, wall, n_blocks)
         txr.finish(valids, overflow_latched=bool(new_bits))
         return RoundStats(
             n_txs=n, n_blocks=n_blocks, n_valid=n_valid, wall_s=wall,
             order_s=t_order - t0, commit_s=t_commit - t_order,
             replay_s=t_replay - t_commit)
 
-    def _commit_windows(self, blocks, txr) -> list:
-        """Slice the ordered round into windows of the committer's depth
-        (a shorter tail window last), commit each, and ship every block to
-        the store with the committer's chain hashes."""
+    def _rounds_meshed(self, proposals_by_channel: list) -> list[RoundStats]:
+        """The multi-channel window round: endorse and order every channel,
+        then commit window position by window position, each one
+        ``commit_windows`` call for every channel; then the replica
+        updates, ONE policy pass over all channels, and per-channel
+        snapshots and counts."""
+        cfg = self.cfg
+        nch = cfg.n_channels
+        bs = cfg.orderer.block_size
+        endorsed = [self._endorse(self.chans[c], p)
+                    for c, p in enumerate(proposals_by_channel)]
+        shapes = {tuple(w.shape) for _, w in endorsed}
+        if len(shapes) > 1:
+            raise ValueError(
+                f"lockstep rounds need shape-uniform channels, got {shapes}")
+        self._sync()
+        txrs = [self.txtrace.begin_round(
+            c, u32.to_numpy(endorsed[c][0].tx_id) if self.obs.on else None,
+            bs, self.chans[c].next_block_no) for c in range(nch)]
+        t0 = time.perf_counter()
+
+        ordered = []
+        for txr in txrs:
+            txr.order_start()
+        with self._edge("round.order", lambda: [b.log_head for b in ordered],
+                        channels=nch):
+            for c, (txb, wire) in enumerate(endorsed):
+                ch = self.chans[c]
+                blocks = orderer.order_batch(wire, txb.tx_id, txb.client,
+                                             ch.log_head, cfg.orderer)
+                ch.log_head = blocks.log_head
+                ordered.append(blocks)
+        t_order = time.perf_counter()
+        for txr in txrs:
+            txr.ordered()
+
         wc = self.window_committer
+        n_blocks = ordered[0].wire.shape[0]
+        retired: list[list] = [[] for _ in range(nch)]
+        with self._edge("round.commit", wc.sync_target, n_blocks=n_blocks,
+                        channels=nch):
+            for lo in range(0, n_blocks, wc.depth):
+                hi = min(lo + wc.depth, n_blocks)
+                res = wc.commit_windows(
+                    torch.stack([b.wire[lo:hi] for b in ordered]),
+                    torch.stack([b.tx_ids[lo:hi] for b in ordered]))
+                # The window's chain hashes came to the host in its drain
+                # span: blocks [lo, hi) of every channel validated there.
+                for txr in txrs:
+                    txr.validated(lo, hi)
+                for c in range(nch):
+                    ch = self.chans[c]
+                    for k in range(hi - lo):
+                        bno = ch.next_block_no
+                        ch.next_block_no += 1
+                        retired[c].append(self._ship(
+                            ordered[c].wire[lo + k], bno, res.prev_hash[c, k],
+                            res.block_hash[c, k], res.valid[c, k], c))
+        t_commit = time.perf_counter()
+
+        replayed = []
+        for c in range(nch):
+            replayed.append(self._endorser_replay(retired[c], c))
+            txrs[c].committed()
+        t_replay = time.perf_counter()
+        self._policy_pass(range(nch))
+        wall = t_commit - t0
+        stats = []
+        for c in range(nch):
+            n = int(proposals_by_channel[c].src.shape[0])
+            n_valid, valids = replayed[c]
+            self._maybe_snapshot(c)
+            new_bits = self._count_round(c, n, n_valid, wall, n_blocks)
+            txrs[c].finish(valids, overflow_latched=bool(new_bits))
+            stats.append(RoundStats(
+                n_txs=n, n_blocks=n_blocks, n_valid=n_valid, wall_s=wall,
+                order_s=t_order - t0, commit_s=t_commit - t_order,
+                replay_s=t_replay - t_commit))
+        return stats
+
+    def _commit_windows(self, blocks, channel: int, txr) -> list:
+        """Slice one channel's ordered round into windows of the
+        committer's depth (a shorter tail window last), commit each, and
+        ship every block to the store with the committer's chain hashes
+        (single-channel committer)."""
+        wc = self.window_committer
+        ch = self.chans[channel]
         retired = []
         n_blocks = blocks.wire.shape[0]
         for lo in range(0, n_blocks, wc.depth):
@@ -377,26 +579,27 @@ class FabricEngine:
             # blocks [lo, hi) validated on that edge.
             txr.validated(lo, hi)
             for k in range(hi - lo):
-                bno = self.next_block_no
-                self.next_block_no += 1
+                bno = ch.next_block_no
+                ch.next_block_no += 1
                 retired.append(self._ship(blocks.wire[lo + k], bno,
                                           res.prev_hash[k], res.block_hash[k],
-                                          res.valid[k]))
+                                          res.valid[k], channel))
         return retired
 
-    def _endorser_replay(self, retired: list) -> tuple:
-        """Endorser replica updates for the round's retired blocks; returns
-        ``(n_valid, valid_by_block)``. With obs on, each block's validity
-        comes to the host once (the tx-outcome feed; it replaces the
-        count's read), else ``valid_by_block`` is None."""
+    def _endorser_replay(self, retired: list, channel: int) -> tuple:
+        """Endorser replica updates for one channel's retired blocks;
+        returns ``(n_valid, valid_by_block)``. With obs on, each block's
+        validity comes to the host once (the tx-outcome feed; it replaces
+        the count's read), else ``valid_by_block`` is None."""
+        ch = self.chans[channel]
         n_valid = 0
         valids: list | None = [] if self.obs.on else None
         with self._edge("round.endorser_replay",
-                        lambda: self.endorser_state.versions, channel=0):
+                        lambda: ch.endorser_state.versions, channel=channel):
             for wire_b, valid in retired:
                 dec = unmarshal.unmarshal(wire_b, self.cfg.dims)
-                self.endorser_state = endorser.apply_validated(
-                    self.endorser_state, dec.txb, valid)
+                ch.endorser_state = endorser.apply_validated(
+                    ch.endorser_state, dec.txb, valid)
                 if valids is not None:
                     v = valid.cpu().numpy()
                     valids.append(v)
@@ -405,32 +608,43 @@ class FabricEngine:
                     n_valid += int(valid.sum())
         return n_valid, valids
 
-    def _count_round(self, n: int, n_valid: int, wall_s: float,
-                     n_blocks: int) -> int:
-        """Fold one round into the totals, the health rollup and (obs on)
-        the overflow gauges and the recorder's periodic snapshot. Returns
-        the NEWLY latched sticky overflow bits (0 with obs off): a non-zero
-        return is a fault edge."""
+    def _count_round(self, channel: int, n: int, n_valid: int,
+                     wall_s: float, n_blocks: int) -> int:
+        """Fold one channel's round into the totals, the health rollup and
+        (obs on) the overflow gauges and the recorder's periodic snapshot;
+        several channels also count ``txs.valid{channel=c}`` and
+        ``txs.invalid{channel=c}``. Returns the NEWLY latched sticky
+        overflow bits (0 with obs off): a non-zero return is a fault
+        edge."""
+        ch = self.chans[channel]
+        ch.total_valid += n_valid
+        ch.total_txs += n
         self.total_valid += n_valid
         self.total_txs += n
         reg = self.obs.registry
         reg.counter("txs.valid").inc(n_valid)
         reg.counter("txs.invalid").inc(n - n_valid)
-        self.health_rollup.push_round(0, n_txs=n, n_valid=n_valid,
+        if self.cfg.n_channels > 1:
+            reg.counter("txs.valid", channel=channel).inc(n_valid)
+            reg.counter("txs.invalid", channel=channel).inc(n - n_valid)
+        self.health_rollup.push_round(channel, n_txs=n, n_valid=n_valid,
                                       wall_s=wall_s, n_blocks=n_blocks)
         new_bits = 0
         if self.obs.on:
-            new_bits = self._record_overflow_metrics()
+            new_bits = self._record_overflow_metrics(channel)
             self.recorder.snapshot_registry()
             if new_bits:
-                self._fault("overflow_latch", channel=0, bits=new_bits)
+                self._fault("overflow_latch", channel=channel, bits=new_bits)
         return new_bits
 
-    def _ship(self, wire_b, bno: int, prev_head, block_hash, valid):
+    def _ship(self, wire_b, bno: int, prev_head, block_hash, valid,
+              channel: int = 0):
         """A block leaves the pipeline: async handoff to the storage role."""
         if self.store is not None:
-            with self.obs.tracer.span("block.ship", block_no=bno, channel=0):
-                self.store.submit(bno, prev_head, block_hash, wire_b, valid)
+            with self.obs.tracer.span("block.ship", block_no=bno,
+                                      channel=channel):
+                self.store.submit(bno, prev_head, block_hash, wire_b, valid,
+                                  channel=channel)
         return wire_b, valid
 
     # -- observability ---------------------------------------------------------
@@ -442,7 +656,8 @@ class FabricEngine:
         return self.obs.registry.collect()
 
     def stats_text(self) -> str:
-        """Prometheus text exposition of the engine metrics."""
+        """Prometheus text exposition of the engine metrics (per-channel
+        series carry a ``channel`` label)."""
         return self.obs.registry.to_prometheus()
 
     @property
@@ -458,14 +673,18 @@ class FabricEngine:
 
     def health(self) -> obs_mod.HealthVerdict:
         """The peer's SLO verdict NOW: ``healthy | degraded | critical``
-        with per-shard reasons. Feeds the rollup the live sticky overflow
-        bits and per-shard occupancy (one stacked read), evaluates the
-        rolling round window, and with obs on mirrors the verdict onto the
-        ``health.status`` / ``health.channel{channel=0}`` gauges. Works
-        with obs off, creating no gauge."""
-        occ, _min_free, cap, bits = self._shard_stats()
-        self.health_rollup.set_overflow(0, bits)
-        self.health_rollup.set_occupancy(0, [int(o) / cap for o in occ])
+        with per-channel, per-shard reasons. Feeds the rollup every
+        channel's live sticky overflow bits and per-shard occupancy (one
+        stacked read), evaluates the rolling round window, and with obs on
+        mirrors the verdict onto the ``health.status`` /
+        ``health.channel{channel=c}`` gauges. Works with obs off, creating
+        no gauge."""
+        chans = range(self.cfg.n_channels)
+        stats = self._shard_stats(chans)
+        for c in chans:
+            occ, _min_free, cap, bits = stats[c]
+            self.health_rollup.set_overflow(c, bits)
+            self.health_rollup.set_occupancy(c, [int(o) / cap for o in occ])
         verdict = self.health_rollup.evaluate()
         if self.obs.on:
             reg = self.obs.registry
@@ -476,18 +695,20 @@ class FabricEngine:
                     obs_mod.STATUS_RANK[info["status"]])
         return verdict
 
-    def _record_overflow_metrics(self) -> int:
-        """Per-shard overflow bits as a labeled gauge and a latch counter
-        that fires once per NEWLY set bit (one overflow read; obs on
-        only). Returns the newly latched bits."""
-        bits = self.overflow_bits()
+    def _record_overflow_metrics(self, channel: int = 0) -> int:
+        """A channel's per-shard overflow bits as a gauge labeled
+        ``{channel, shard}`` and a latch counter that fires once per NEWLY
+        set bit (one overflow read; obs on only). Returns the newly latched
+        bits."""
+        ch = self.chans[channel]
+        bits = self.overflow_bits(channel)
         reg = self.obs.registry
-        new = bits & ~self.obs_seen_bits
+        new = bits & ~ch.obs_seen_bits
         if new:
             reg.counter("overflow.latches").inc(bin(new).count("1"))
-            self.obs_seen_bits |= bits
+            ch.obs_seen_bits |= bits
         for m in range(self.n_shards):
-            reg.gauge("state.shard_overflow", channel=0,
+            reg.gauge("state.shard_overflow", channel=channel,
                       shard=m).set((bits >> m) & 1)
         return new
 
@@ -502,231 +723,269 @@ class FabricEngine:
             return self.window_committer.n_shards
         return self.cfg.snapshot_shards
 
-    def _state_view(self) -> ws.HashState:
-        """The peer's committed table: the window committer's, or the
+    def _state_view(self, channel: int = 0) -> ws.HashState:
+        """A channel's committed table: the window committer's, or the
         per-block peer state's."""
         if self.window_committer is not None:
-            return self.window_committer.hash_state()
-        return self.peer_state.hash_state
+            return self.window_committer.hash_state(channel)
+        return self.chans[channel].peer_state.hash_state
 
-    def _peer_digest(self) -> np.ndarray:
-        return u32.to_numpy(ws.state_digest(self._state_view()))
+    def _peer_digest(self, channel: int = 0) -> np.ndarray:
+        return u32.to_numpy(ws.state_digest(self._state_view(channel)))
 
-    def _peer_journal_head(self) -> np.ndarray:
+    def _peer_journal_head(self, channel: int = 0) -> np.ndarray:
         if self.window_committer is not None:
-            return self.window_committer.journal_head
-        return u32.to_numpy(self.peer_state.journal_head)
+            return self.window_committer.journal_head_for(channel)
+        return u32.to_numpy(self.chans[channel].peer_state.journal_head)
 
-    def _ledger_head(self) -> np.ndarray:
+    def _ledger_head(self, channel: int = 0) -> np.ndarray:
         if self.window_committer is not None:
-            return self.window_committer.ledger_head_for(0)
-        return u32.to_numpy(self.peer_state.ledger_head)
+            return self.window_committer.ledger_head_for(channel)
+        return u32.to_numpy(self.chans[channel].peer_state.ledger_head)
 
-    def _shard_stats(self) -> tuple:
-        """(per-shard occupancy ``(M,)``, min free slots, per-shard slot
-        capacity, sticky overflow bits) of the live table, in ONE stacked
-        device read. Restored overflow bits are ORed in, as in
+    def _shard_stats(self, channels) -> dict:
+        """channel -> (per-shard occupancy ``(M,)``, min free slots,
+        per-shard slot capacity, sticky overflow bits) for every channel of
+        ``channels``, in ONE stacked device read (one a shape group with a
+        window committer). Restored overflow bits are ORed in, as in
         :meth:`overflow_bits`."""
+        channels = list(channels)
         if self.window_committer is not None:
-            occ, min_free, cap, bits = self.window_committer.shard_stats()[0]
-            return occ, min_free, cap, bits | self.restored_overflow_bits
-        st = self.peer_state.hash_state
+            stats = self.window_committer.shard_stats(channels)
+            return {c: (occ, mf, cap,
+                        bits | self.chans[c].restored_overflow_bits)
+                    for c, (occ, mf, cap, bits) in stats.items()}
         m = self.n_shards
-        host = torch.cat([ws.shard_occupancy(st, m),
-                          ws.shard_min_free(st, m),
-                          self.overflow.reshape(1).long()]).cpu().numpy()
-        return (host[:m], int(host[m:2 * m].min()),
-                st.n_buckets // m * st.slots,
-                int(host[-1]) | self.restored_overflow_bits)
+        parts = []
+        for c in channels:
+            ch = self.chans[c]
+            st = ch.peer_state.hash_state
+            parts += [ws.shard_occupancy(st, m), ws.shard_min_free(st, m),
+                      ch.overflow.reshape(1).long()]
+        host = torch.cat(parts).cpu().numpy()
+        out = {}
+        for i, c in enumerate(channels):
+            ch = self.chans[c]
+            row = host[i * (2 * m + 1):(i + 1) * (2 * m + 1)]
+            st = ch.peer_state.hash_state
+            out[c] = (row[:m], int(row[m:2 * m].min()),
+                      st.n_buckets // m * st.slots,
+                      int(row[-1]) | ch.restored_overflow_bits)
+        return out
 
-    def _policy_pass(self) -> dict | None:
-        """The between-rounds policy trigger: one stacked stats read drives
-        the grow/shrink decision (grow under bucket pressure or after an
-        overflow, shrink a mostly empty table), the ``state.occupancy`` /
-        ``state.health`` gauges and the health rollup's occupancy feed. No
-        policy, no device read. Returns the resize info, if one ran."""
+    def _policy_pass(self, channels) -> dict:
+        """The between-rounds policy trigger: one stacked stats read
+        (:meth:`_shard_stats`) drives every channel's grow/shrink decision
+        (grow under bucket pressure or after an overflow, shrink a mostly
+        empty table), its ``state.occupancy`` / ``state.health`` gauges and
+        the health rollup's occupancy feed. No policy, no device read.
+        Returns ``{channel: resize info}`` for the channels that resized."""
         pol = self.cfg.resize_policy
         if pol is None:
-            return None
-        occ, min_free, cap, bits = self._shard_stats()
+            return {}
+        channels = list(channels)
+        stats = self._shard_stats(channels)
         reg = self.obs.registry
         if self.obs.on:
-            reg.counter("resize.policy_checks").inc(1)
-        fills = [int(o) / cap for o in occ]
-        self.health_rollup.set_occupancy(0, fills)
-        pressure = bool(
-            (pol.grow_free_slots and min_free <= pol.grow_free_slots)
-            or (pol.grow_fill and max(fills) >= pol.grow_fill))
-        if self.obs.on:
-            reg.gauge("state.occupancy", channel=0).set(max(fills))
-            # 2 = overflowed (fail-stop shard), 1 = under grow pressure,
-            # 0 = headroom.
-            reg.gauge("state.health", channel=0).set(
-                2 if bits else (1 if pressure else 0))
-        # Capacity repair: one overflow-triggered grow per NEWLY latched
-        # bit (the mask is sticky; comparing with the repaired bits keeps
-        # it from firing every round).
-        if pressure or (pol.grow_on_overflow
-                        and bits & ~self.repaired_bits):
-            if self.n_buckets * 2 <= pol.max_buckets:
+            reg.counter("resize.policy_checks").inc(len(channels))
+        out = {}
+        for c in channels:
+            ch = self.chans[c]
+            occ, min_free, cap, bits = stats[c]
+            fills = [int(o) / cap for o in occ]
+            self.health_rollup.set_occupancy(c, fills)
+            pressure = bool(
+                (pol.grow_free_slots and min_free <= pol.grow_free_slots)
+                or (pol.grow_fill and max(fills) >= pol.grow_fill))
+            if self.obs.on:
+                reg.gauge("state.occupancy", channel=c).set(max(fills))
+                # 2 = overflowed (fail-stop shard), 1 = under grow
+                # pressure, 0 = headroom.
+                reg.gauge("state.health", channel=c).set(
+                    2 if bits else (1 if pressure else 0))
+            # Capacity repair: one overflow-triggered grow per NEWLY latched
+            # bit (the mask is sticky; comparing with the repaired bits
+            # keeps it from firing every round).
+            if pressure or (pol.grow_on_overflow
+                            and bits & ~ch.repaired_bits):
+                if ch.n_buckets * 2 <= pol.max_buckets:
+                    self.obs.tracer.event(
+                        "resize.decision", action="grow", min_free=min_free,
+                        overflow_bits=bits, n_buckets=ch.n_buckets,
+                        channel=c)
+                    ch.repaired_bits |= bits
+                    out[c] = self.resize(ch.n_buckets * 2, c)
+                elif bits & ~ch.repaired_bits:
+                    # Overflowed at the ceiling: the repair cannot run, a
+                    # fault edge. The bits count as repaired so it trips
+                    # once.
+                    ch.repaired_bits |= bits
+                    self._fault("resize_refused", channel=c,
+                                n_buckets=ch.n_buckets,
+                                max_buckets=pol.max_buckets,
+                                overflow_bits=bits)
+                continue
+            if (pol.shrink_fill and ch.n_buckets // 2 >= pol.min_buckets
+                    and int(occ.sum()) < pol.shrink_fill
+                    * (ch.n_buckets // 2) * self.cfg.slots):
                 self.obs.tracer.event(
-                    "resize.decision", action="grow", min_free=min_free,
-                    overflow_bits=bits, n_buckets=self.n_buckets,
-                    channel=0)
-                self.repaired_bits |= bits
-                return self.resize(self.n_buckets * 2)
-            if bits & ~self.repaired_bits:
-                # Overflowed at the ceiling: the repair cannot run, a fault
-                # edge. The bits count as repaired so it trips once.
-                self.repaired_bits |= bits
-                self._fault("resize_refused", channel=0,
-                            n_buckets=self.n_buckets,
-                            max_buckets=pol.max_buckets, overflow_bits=bits)
-            return None
-        if (pol.shrink_fill and self.n_buckets // 2 >= pol.min_buckets
-                and int(occ.sum()) < pol.shrink_fill
-                * (self.n_buckets // 2) * self.cfg.slots):
-            self.obs.tracer.event(
-                "resize.decision", action="shrink", occupancy=int(occ.sum()),
-                n_buckets=self.n_buckets, channel=0)
-            return self.resize(self.n_buckets // 2)
-        return None
+                    "resize.decision", action="shrink",
+                    occupancy=int(occ.sum()), n_buckets=ch.n_buckets,
+                    channel=c)
+                out[c] = self.resize(ch.n_buckets // 2, c)
+        return out
 
-    def resize(self, new_n_buckets: int) -> dict:
-        """Halve or double the world state NOW (between rounds): drain the
-        store, rehash the peer's table and the endorser replica (its
-        capacity must track the peer's, or the two diverge on which inserts
-        drop), and commit a re-anchor record at the drained boundary when a
-        journal is attached, so replay and recovery cross the epoch.
+    def resize(self, new_n_buckets: int, channel: int = 0) -> dict:
+        """Halve or double ONE channel's world state NOW (between rounds):
+        drain the store, rehash the channel's peer table and endorser
+        replica (its capacity must track the peer's, or the two diverge on
+        which inserts drop), and commit a re-anchor record at the drained
+        boundary to the channel's journal, when one is attached, so replay
+        and recovery cross the epoch. Other channels are untouched.
         Returns the epoch's info dict (the reference's keys)."""
         if self.store is not None:
             self.store.drain()  # the journal tip must be at the boundary
-        old_nb = self.n_buckets
-        hot = self._hot_shard()
+        ch = self.chans[channel]
+        old_nb = ch.n_buckets
+        hot = self._hot_shard(channel)
         wc = self.window_committer
         if wc is not None:
             try:
-                info = wc.resize(new_n_buckets)
+                info = wc.resize(new_n_buckets, channel)
             except ValueError as e:
                 # The committer refused the epoch: a fault edge, as the
                 # caller believed a capacity change was needed.
-                self._fault("resize_refused", channel=0, n_buckets=old_nb,
-                            requested=new_n_buckets, error=str(e))
+                self._fault("resize_refused", channel=channel,
+                            n_buckets=old_nb, requested=new_n_buckets,
+                            error=str(e))
                 raise
             tree, bits = info.tree_head, info.overflow_bits
         else:
-            res = ws.resize(self.peer_state.hash_state, new_n_buckets)
-            self.peer_state = self.peer_state._replace(hash_state=res.state)
-            self.overflow = self.overflow | res.overflow
+            res = ws.resize(ch.peer_state.hash_state, new_n_buckets)
+            ch.peer_state = ch.peer_state._replace(hash_state=res.state)
+            ch.overflow = ch.overflow | res.overflow
             tree, bits = (ws.tree_head(res.state, self.n_shards),
-                          self.overflow_bits())
-        self.endorser_state = ws.resize(self.endorser_state,
-                                        new_n_buckets).state
-        self.n_buckets = new_n_buckets
-        bno = self.next_block_no - 1
-        if self.journal is not None:
-            self.journal.append_reanchor(
+                          self.overflow_bits(channel))
+        ch.endorser_state = ws.resize(ch.endorser_state, new_n_buckets).state
+        ch.n_buckets = new_n_buckets
+        bno = ch.next_block_no - 1
+        if ch.journal is not None:
+            ch.journal.append_reanchor(
                 bno, old_n_buckets=old_nb, new_n_buckets=new_n_buckets,
                 n_shards=self.n_shards, tree_head=tree, overflow_bits=bits)
         info = {"block_no": bno, "old_n_buckets": old_nb,
                 "new_n_buckets": new_n_buckets, "overflow_bits": bits,
-                "hot_shard": hot, "channel": 0}
-        self.reanchor_log.append((bno, new_n_buckets))
+                "hot_shard": hot, "channel": channel}
+        ch.reanchor_log.append((bno, new_n_buckets))
         self.obs.registry.counter(
             "resize.grow" if new_n_buckets > old_nb else "resize.shrink"
         ).inc()
         self.obs.tracer.event("resize.epoch", **info)
         return info
 
-    def _hot_shard(self) -> int:
+    def _hot_shard(self, channel: int = 0) -> int:
         if self.window_committer is not None:
-            return self.window_committer.hot_shard()
+            return self.window_committer.hot_shard(channel)
         return ws.hot_shard(
-            self.overflow_bits(),
-            ws.shard_occupancy(self.peer_state.hash_state, self.n_shards))
+            self.overflow_bits(channel),
+            ws.shard_occupancy(self.chans[channel].peer_state.hash_state,
+                               self.n_shards))
 
     # -- durability layer (storage/) --------------------------------------------
 
-    def _maybe_snapshot(self) -> None:
-        """Snapshot cadence, after the round's replica update: every
-        ``snapshot_every_blocks`` committed blocks, drain the storage role,
-        snapshot the peer's table, save and collect garbage (two kept), and
-        prune the chain and the journal up to the snapshot BEFORE the
-        newest, so the previous one stays recoverable if the newest is
-        lost."""
+    def _maybe_snapshot(self, channel: int = 0) -> None:
+        """Snapshot cadence of one channel, after its replica update: every
+        ``snapshot_every_blocks`` of its committed blocks, drain the
+        storage role, snapshot the channel's table into its
+        ``channel_dir``, save and collect garbage (two kept), and prune the
+        channel's chain and journal up to the snapshot BEFORE the newest,
+        so the previous one stays recoverable if the newest is lost."""
         cfg = self.cfg
         if not cfg.snapshot_every_blocks:
             return
-        last = self.snapshots[-1].block_no if self.snapshots else -1
-        tip = self.next_block_no - 1
+        ch = self.chans[channel]
+        last = ch.snapshots[-1].block_no if ch.snapshots else -1
+        tip = ch.next_block_no - 1
         if tip - last < cfg.snapshot_every_blocks:
             return
         self.store.drain()  # the journal must cover every shipped block
-        with self.obs.tracer.span("snapshot.take", block_no=tip, channel=0):
+        with self.obs.tracer.span("snapshot.take", block_no=tip,
+                                  channel=channel):
             snap = snapshot.take(
-                self._state_view(), block_no=tip,
-                journal_head=self._peer_journal_head(),
-                ledger_head=self._ledger_head(), n_shards=self.n_shards,
-                overflow_bits=self.overflow_bits(),
-                reanchor_head=self.journal.reanchor_head)
-        self.snapshots.append(snap)
+                self._state_view(channel), block_no=tip,
+                journal_head=self._peer_journal_head(channel),
+                ledger_head=self._ledger_head(channel),
+                n_shards=self.n_shards,
+                overflow_bits=self.overflow_bits(channel),
+                reanchor_head=ch.journal.reanchor_head)
+        ch.snapshots.append(snap)
         reg = self.obs.registry
         if cfg.snapshot_dir is not None:
-            snapshot.save(cfg.snapshot_dir, snap, registry=reg)
-            snapshot.gc(cfg.snapshot_dir, keep=2, registry=reg)
-        if cfg.prune_chain and len(self.snapshots) >= 2:
-            base = self.snapshots[-2].block_no
-            self.store.prune_upto(base)
-            self.journal.prune_upto(base)
-            self.snapshots = self.snapshots[-2:]
+            sdir = ledger.channel_dir(cfg.snapshot_dir, channel)
+            snapshot.save(sdir, snap, registry=reg)
+            snapshot.gc(sdir, keep=2, registry=reg)
+        if cfg.prune_chain and len(ch.snapshots) >= 2:
+            base = ch.snapshots[-2].block_no
+            self.store.prune_upto(base, channel)
+            ch.journal.prune_upto(base)
+            ch.snapshots = ch.snapshots[-2:]
 
-    def recover(self) -> recovery.RecoveryResult:
-        """Cold-start recovery on the engine's device from the newest
-        snapshot + the journal suffix."""
-        if self.journal is None:
+    def recover(self, channel: int = 0) -> recovery.RecoveryResult:
+        """Cold-start recovery of one channel on the engine's device from
+        its newest snapshot + its journal suffix."""
+        ch = self.chans[channel]
+        if ch.journal is None:
             raise recovery.RecoveryError("engine has no journal")
         self.store.drain()
         cfg = self.cfg
         return recovery.recover(
-            self.journal,
-            snapshot=self.snapshots[-1] if self.snapshots else None,
+            ch.journal, snapshot=ch.snapshots[-1] if ch.snapshots else None,
             n_buckets=cfg.n_buckets, slots=cfg.slots,
-            value_width=cfg.dims.vw, device=self.device)
+            value_width=cfg.dims.vw, device=self.device, channel=channel)
 
     @classmethod
     def restore(cls, cfg: EngineConfig, *, device=None) -> "FabricEngine":
         """Restart a peer on ``device`` (default: the card) from its
-        persisted snapshots and journal spill (``journal_dir`` and
-        ``snapshot_dir`` required).
+        persisted snapshots and journal spills (``journal_dir`` and
+        ``snapshot_dir`` required); every channel restores from its own
+        ``channel_dir``s.
 
-        When the newest complete snapshot covers the journal tip, its heads
-        restore directly. When it TRAILS the tip, the journal replays the
-        suffix's state and the ``block_dir`` spill rebuilds its ledger
-        head: the spilled blocks must chain from the snapshot's head, and
-        they re-seed the store so ``verify()`` replays the same suffix. The
-        persisted sticky overflow bitmask is re-latched (and counts as
-        repaired, so a restart does not grow the table once per boot), and
-        the peer resumes the persisted (post-resize) layout. As in the
-        reference, the orderer's ``log_head`` restarts at genesis.
+        When a channel's newest complete snapshot covers its journal tip,
+        its heads restore directly. When it TRAILS the tip, the journal
+        replays the suffix's state and the ``block_dir`` spill rebuilds its
+        ledger head: the spilled blocks must chain from the snapshot's
+        head, and they re-seed the channel's chain so ``verify()`` replays
+        the same suffix. The persisted sticky overflow bitmask is
+        re-latched (and counts as repaired, so a restart does not grow the
+        table once per boot), and the channel resumes the persisted
+        (post-resize) layout. As in the reference, the orderer's
+        ``log_head`` restarts at genesis.
         """
         if cfg.journal_dir is None or cfg.snapshot_dir is None:
             raise recovery.RecoveryError(
                 "restore requires journal_dir and snapshot_dir")
         eng = cls(cfg, device=device)
-        eng._restore_channel()
+        for c in range(cfg.n_channels):
+            eng._restore_channel(c)
+        if eng.store is not None:
+            # Once, after the last channel's journal loaded: the writer
+            # feeds every restored journal from here on.
+            for c, ch in enumerate(eng.chans):
+                eng.store.set_journal(c, ch.journal)
         return eng
 
-    def _restore_channel(self) -> None:
+    def _restore_channel(self, channel: int) -> None:
         cfg = self.cfg
-        jrnl = state_journal.StateJournal.load(cfg.dims, cfg.journal_dir,
-                                               metrics=self.obs.registry)
-        self.journal = jrnl
-        if self.store is not None:
-            self.store.set_journal(jrnl)
-        snap = snapshot.latest(cfg.snapshot_dir)
+        ch = self.chans[channel]
+        jrnl = state_journal.StateJournal.load(
+            cfg.dims, ledger.channel_dir(cfg.journal_dir, channel),
+            metrics=self.obs.registry)
+        ch.journal = jrnl
+        snap = snapshot.latest(ledger.channel_dir(cfg.snapshot_dir, channel))
         if snap is None:
             raise recovery.RecoveryError(
-                f"no complete snapshot in {cfg.snapshot_dir}")
+                f"no complete snapshot for channel {channel} in "
+                f"{cfg.snapshot_dir}")
         rec = recovery.recover(
             jrnl, snapshot=snap, n_buckets=cfg.n_buckets, slots=cfg.slots,
             value_width=cfg.dims.vw, device=self.device)
@@ -741,13 +1000,13 @@ class FabricEngine:
                     f"{snap.block_no}: the suffix's ledger head is not "
                     "recoverable without the block spill (cfg.block_dir)")
             suffix = [sb for sb in ledger.load_spilled_blocks(
-                cfg.block_dir, snap.block_no + 1)
+                cfg.block_dir, snap.block_no + 1, channel)
                 if sb.block_no <= rec.block_no]
             if not suffix or suffix[-1].block_no != rec.block_no:
                 have = suffix[-1].block_no if suffix else snap.block_no
                 raise recovery.RecoveryError(
-                    f"block spill covers only up to block {have}, journal "
-                    f"tip is {rec.block_no}")
+                    f"block spill covers channel {channel} only up to block "
+                    f"{have}, journal tip is {rec.block_no}")
             for sb in suffix:
                 if not np.array_equal(sb.prev_hash, ledger_head):
                     raise recovery.RecoveryError(
@@ -760,64 +1019,68 @@ class FabricEngine:
                         "hash (corrupt or tampered)")
                 ledger_head = sb.block_hash
             # Resize epochs inside the suffix re-enter the replay log.
-            self.reanchor_log.extend(
+            ch.reanchor_log.extend(
                 (r.block_no, r.new_n_buckets)
                 for r in jrnl.suffix_reanchors(snap.block_no))
         word = lambda a: u32.from_numpy(np.asarray(a, np.uint32), self.device)
-        self.snapshots = [snap]
-        self.peer_state = self.peer_state._replace(
+        ch.snapshots = [snap]
+        ch.peer_state = ch.peer_state._replace(
             hash_state=rec.state, ledger_head=word(ledger_head),
             journal_head=word(rec.journal_head),
             block_no=word(np.uint32(rec.block_no + 1)).reshape(()))
-        self.endorser_state = ws.HashState(*(t.clone() for t in rec.state))
-        self.n_buckets = rec.n_buckets
-        self.restored_overflow_bits = rec.overflow_bits
-        self.repaired_bits = rec.overflow_bits
-        self.next_block_no = rec.block_no + 1
+        ch.endorser_state = ws.HashState(*(t.clone() for t in rec.state))
+        ch.n_buckets = rec.n_buckets
+        ch.restored_overflow_bits = rec.overflow_bits
+        ch.repaired_bits = rec.overflow_bits
+        ch.next_block_no = rec.block_no + 1
         if self.store is not None:
             # The chain re-anchors at the snapshot; a rebuilt suffix
             # re-enters it, so verify() replays what recovery replayed.
-            self.store.base_block_no = snap.block_no
-            self.store.base_hash = np.asarray(snap.ledger_head)
-            self.store.chain = list(suffix)
+            self.store.base_block_nos[channel] = snap.block_no
+            self.store.base_hashes[channel] = np.asarray(snap.ledger_head)
+            self.store.chains[channel] = list(suffix)
 
     # -- checks ----------------------------------------------------------------
 
-    def overflow_bits(self) -> int:
-        """Sticky overflow bitmask: bit 0 once a commit dropped a write on
-        a full bucket (the window committer's bits when one is attached),
-        ORed with the bits a restart re-latched."""
+    def overflow_bits(self, channel: int = 0) -> int:
+        """A channel's sticky overflow bitmask: bit 0 once a commit dropped
+        a write on a full bucket (the window committer's bits when one is
+        attached), ORed with the bits a restart re-latched."""
+        ch = self.chans[channel]
         if self.window_committer is not None:
-            bits = self.window_committer.overflow_bits
+            bits = self.window_committer.overflow_bits_for(channel)
         else:
-            bits = int(bool(self.overflow))
-        return bits | self.restored_overflow_bits
+            bits = int(bool(ch.overflow))
+        return bits | ch.restored_overflow_bits
 
-    def overflowed(self) -> bool:
-        return bool(self.overflow_bits())
+    def overflowed(self, channel: int = 0) -> bool:
+        return bool(self.overflow_bits(channel))
 
-    def verify(self) -> dict:
-        """Drain storage, verify the chain, and check that no commit
-        overflowed a bucket. A peer with the hash table (P-I) also replays
-        the chain, from the snapshot that covers its pruned prefix, into a
-        table and compares it and the endorser replica with the peer, by
-        digest; the sorted store of the baseline is not compared, as in the
-        reference. With a journal attached, ``recovery_ok`` runs
-        :meth:`recover` and compares its state digest and journal head with
-        the live peer's; without one there is no recovery path and it stays
-        True. A pruned chain whose covering snapshot is gone fails
-        ``chain_ok`` and ``replay_ok``."""
+    def verify(self, channel: int = 0) -> dict:
+        """Drain storage, verify ONE channel's chain, and check that none of
+        its commits overflowed a bucket. A peer with the hash table (P-I)
+        also replays the chain, from the snapshot that covers its pruned
+        prefix, into a table and compares it and the endorser replica with
+        the peer, by digest; the sorted store of the baseline is not
+        compared, as in the reference. With a journal attached,
+        ``recovery_ok`` runs :meth:`recover` and compares its state digest
+        and journal head with the live peer's; without one there is no
+        recovery path and it stays True. A pruned chain whose covering
+        snapshot is gone fails ``chain_ok`` and ``replay_ok``. Tampering
+        with channel i's chain or journal flips only channel i's
+        verdicts."""
+        ch = self.chans[channel]
         out = {"chain_ok": True, "replica_ok": True, "replay_ok": True,
-               "recovery_ok": True, "overflow_ok": not self.overflowed()}
+               "recovery_ok": True, "overflow_ok": not self.overflowed(channel)}
         hashed = self.cfg.peer.hash_state
-        peer = self._peer_digest() if hashed else None
+        peer = self._peer_digest(channel) if hashed else None
         if self.store is not None:
             self.store.drain()
-            out["chain_ok"] = self.store.verify_chain()
-            base_bno = self.store.base_block_no
+            out["chain_ok"] = self.store.verify_chain(channel)
+            base_bno = self.store.base_block_nos.get(channel, -1)
             start = None
             if base_bno >= 0:
-                base = next((s for s in self.snapshots
+                base = next((s for s in ch.snapshots
                              if s.block_no == base_bno), None)
                 if base is None:
                     out["chain_ok"] = out["replay_ok"] = False
@@ -825,36 +1088,40 @@ class FabricEngine:
                     start = snapshot.to_state(base, self.device)
             if hashed and out["replay_ok"]:
                 resize_at: dict = {}
-                for bno, nb in self.reanchor_log:
+                for bno, nb in ch.reanchor_log:
                     if bno > base_bno:
                         resize_at.setdefault(bno, []).append(nb)
                 replayed = self.store.replay_state(
                     self.cfg.dims, self.cfg.n_buckets, self.cfg.slots,
                     start_state=start, resize_at=resize_at,
-                    device=self.device)
+                    device=self.device, channel=channel)
                 out["replay_ok"] = bool(np.array_equal(
                     u32.to_numpy(ws.state_digest(replayed)), peer))
-        if self.journal is not None and hashed:
+        if ch.journal is not None and hashed:
             try:
-                rec = self.recover()
+                rec = self.recover(channel)
                 out["recovery_ok"] = bool(
                     np.array_equal(rec.state_digest, peer)
                     and np.array_equal(rec.journal_head,
-                                       self._peer_journal_head()))
+                                       self._peer_journal_head(channel)))
             except recovery.RecoveryError:
                 out["recovery_ok"] = False
         if hashed:
             out["replica_ok"] = bool(np.array_equal(
-                u32.to_numpy(ws.state_digest(self.endorser_state)), peer))
+                u32.to_numpy(ws.state_digest(ch.endorser_state)), peer))
         if not all(out.values()):
             # Fault edge: the durability contract broke. Trip the recorder
             # with the verdict, and with the journal's reason when it can
             # name the record that broke its chain.
-            ctx = {"channel": 0,
+            ctx = {"channel": channel,
                    "verdict": {k: bool(v) for k, v in out.items()}}
-            if self.journal is not None:
-                jok, why = self.journal.verify_chain_reason()
+            if ch.journal is not None:
+                jok, why = ch.journal.verify_chain_reason()
                 if not jok:
                     ctx["journal_reason"] = why
             self._fault("verify_contract", **ctx)
         return out
+
+    def verify_all(self) -> dict[int, dict]:
+        """Per-channel :meth:`verify` verdicts for every channel."""
+        return {c: self.verify(c) for c in range(self.cfg.n_channels)}

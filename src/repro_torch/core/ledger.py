@@ -1,5 +1,5 @@
 """Hash-chained ledger + the decoupled block store, Opt P-II storage role
-(port of repro.core.ledger, channel 0).
+(port of repro.core.ledger).
 
 ``append_hash`` is the on-path part: the committer computes each block's
 chain hash. ``BlockStore`` is the off-path storage role: a writer thread
@@ -7,7 +7,9 @@ receives validated blocks, copies them to the host, spills them, feeds the
 state journal and keeps the chain, from which ``verify_chain``
 re-authenticates every block and ``replay_state`` rebuilds the world
 state. ``prune_upto`` compacts the chain up to a snapshot; the chain then
-re-anchors at the last pruned block's hash (``base_hash``).
+re-anchors at the last pruned block's hash (``base_hash``). One store
+multiplexes every channel of an engine: each channel has its own chain,
+pruning base, journal and spill directory (:func:`channel_dir`).
 """
 
 from __future__ import annotations
@@ -101,16 +103,23 @@ class BlockStore:
     """The storage role: async, append-only, off the critical path.
 
     A writer thread drains a queue of device blocks and, for each, copies
-    it to the host, spills it to ``spill_dir`` as ``block_%08d.npz`` (the
-    JAX package's format), hands it to the attached state journal, and
-    appends it to the chain last: a block is in the chain only if every
-    sink accepted it. The copy runs on the writer thread's current stream,
-    the default stream, behind the commit that produced the block; a
-    caller on another stream must record an event first. Submitted tensors
-    must not be written afterwards: the committer hands over fresh head,
-    hash and validity tensors, and the round's wire is never written. The
-    journal decodes and hashes from the host copy, on the CPU, so the
-    writer launches nothing on the card.
+    it to the host, spills it to its channel's ``channel_dir(spill_dir,
+    c)`` as ``block_%08d.npz`` (the JAX package's format), hands it to the
+    channel's state journal, and appends it to the channel's chain last: a
+    block is in a chain only if every sink accepted it. The copy runs on
+    the writer thread's current stream, the default stream, behind the
+    commit that produced the block; a caller on another stream must record
+    an event first. Submitted tensors must not be written afterwards: the
+    committer hands over fresh head, hash and validity tensors, and the
+    round's wire is never written. The journal decodes and hashes from the
+    host copy, on the CPU, so the writer launches nothing on the card.
+
+    One writer thread and one queue serve every channel: ``submit`` is
+    channel-tagged, and chains, pruning bases and journals are kept per
+    channel, so a corrupt record in channel i fails only channel i's
+    checks. The channel-0 surface (``.chain``, ``.base_block_no``,
+    ``.base_hash``, the methods without ``channel``) is the single-channel
+    store's.
 
     Once an append fails, its spill file is removed and everything behind
     it is dropped (fail-stop); the next ``drain``/``close`` raises the
@@ -119,22 +128,70 @@ class BlockStore:
 
     def __init__(self, spill_dir: str | None = None, *, journal=None):
         self._q: queue.Queue = queue.Queue()
-        self.chain: list[StoredBlock] = []
-        self.base_block_no = -1
-        self.base_hash = np.zeros(2, np.uint32)
+        self.chains: dict[int, list[StoredBlock]] = {0: []}
+        self.base_block_nos: dict[int, int] = {0: -1}
+        self.base_hashes: dict[int, np.ndarray] = {0: np.zeros(2, np.uint32)}
         self._spill_dir = spill_dir
-        self._journal = journal
+        self._journals: dict[int, object] = {}
+        if journal is not None:
+            self._journals[0] = journal
         self._err: Exception | None = None
         self._t = threading.Thread(target=self._run, daemon=True)
         self._t.start()
 
-    def set_journal(self, journal) -> None:
-        """Attach the state journal the writer feeds (drain first)."""
-        self._journal = journal
+    # -- channels --------------------------------------------------------------
 
-    def submit(self, block_no: int, prev_hash, block_hash, wire, valid
-               ) -> None:
-        self._q.put((block_no, prev_hash, block_hash, wire, valid))
+    def _chan(self, channel: int) -> list[StoredBlock]:
+        if channel not in self.chains:
+            self.chains[channel] = []
+            self.base_block_nos[channel] = -1
+            self.base_hashes[channel] = np.zeros(2, np.uint32)
+        return self.chains[channel]
+
+    def set_journal(self, channel: int, journal) -> None:
+        """Attach channel ``channel``'s state journal to the writer (drain
+        first)."""
+        self._journals[channel] = journal
+
+    @property
+    def chain(self) -> list[StoredBlock]:
+        """Channel 0's chain (the live list)."""
+        return self._chan(0)
+
+    @chain.setter
+    def chain(self, value: list[StoredBlock]) -> None:
+        self.chains[0] = value
+
+    @property
+    def base_block_no(self) -> int:
+        return self.base_block_nos[0]
+
+    @base_block_no.setter
+    def base_block_no(self, value: int) -> None:
+        self.base_block_nos[0] = value
+
+    @property
+    def base_hash(self) -> np.ndarray:
+        return self.base_hashes[0]
+
+    @base_hash.setter
+    def base_hash(self, value: np.ndarray) -> None:
+        self.base_hashes[0] = value
+
+    def _spill_path(self, channel: int, bno: int) -> str:
+        """A block's spill file; channel subdirectories are made on demand,
+        the base directory must exist (the writer fail-stops otherwise)."""
+        d = channel_dir(self._spill_dir, channel)
+        if channel != 0:
+            os.makedirs(d, exist_ok=True)
+        return os.path.join(d, f"block_{bno:08d}.npz")
+
+    # -- the writer -------------------------------------------------------------
+
+    def submit(self, block_no: int, prev_hash, block_hash, wire, valid,
+               channel: int = 0) -> None:
+        self._chan(channel)  # registered here, so the writer only appends
+        self._q.put((block_no, prev_hash, block_hash, wire, valid, channel))
 
     def _run(self) -> None:
         while True:
@@ -145,19 +202,18 @@ class BlockStore:
                     return
                 if self._err is not None:
                     continue  # fail-stop: no gap behind a failed append
-                bno, prev, bh, wire, valid = item
+                bno, prev, bh, wire, valid, channel = item
                 sb = StoredBlock(int(bno), u32.host_copy(prev),
                                  u32.host_copy(bh), _host(wire), _host(valid))
                 if self._spill_dir is not None:
-                    spill_path = os.path.join(self._spill_dir,
-                                              f"block_{sb.block_no:08d}.npz")
+                    spill_path = self._spill_path(channel, sb.block_no)
                     np.savez(spill_path, prev_hash=sb.prev_hash,
                              block_hash=sb.block_hash, wire=sb.wire,
                              valid=sb.valid)
-                if self._journal is not None:
-                    self._journal.append_block(sb.block_no, sb.wire,
-                                               sb.valid)
-                self.chain.append(sb)
+                jrnl = self._journals.get(channel)
+                if jrnl is not None:
+                    jrnl.append_block(sb.block_no, sb.wire, sb.valid)
+                self.chains[channel].append(sb)
             except Exception as e:  # raised by drain()/close()
                 self._err = e
                 # Un-spill: no reader of the spill directory may see a
@@ -185,38 +241,38 @@ class BlockStore:
         self._q.join()
         self._surface_err()
 
-    def resume(self) -> int:
+    def resume(self, channel: int = 0) -> int:
         """Supervised restart after a writer failure: wait for the writer
         to discard the dropped suffix, clear the latched error (without
-        raising it) and return the next block number the chain expects,
-        from which the caller resubmits."""
+        raising it) and return the next block number ``channel``'s chain
+        expects, from which the caller resubmits."""
         self._q.join()
         self._err = None
-        return (self.chain[-1].block_no if self.chain
-                else self.base_block_no) + 1
+        ch = self._chan(channel)
+        return (ch[-1].block_no if ch else self.base_block_nos[channel]) + 1
 
-    def prune_upto(self, block_no: int) -> int:
-        """Drop blocks <= ``block_no`` (covered by a snapshot) from memory
-        and from the spill directory; returns the number dropped. Call with
-        the writer drained."""
-        dropped = [sb for sb in self.chain if sb.block_no <= block_no]
+    def prune_upto(self, block_no: int, channel: int = 0) -> int:
+        """Drop ``channel``'s blocks <= ``block_no`` (covered by a
+        snapshot) from memory and from the spill directory; returns the
+        number dropped. Call with the writer drained."""
+        ch = self._chan(channel)
+        dropped = [sb for sb in ch if sb.block_no <= block_no]
         if dropped:
-            self.chain = [sb for sb in self.chain if sb.block_no > block_no]
-            self.base_block_no = dropped[-1].block_no
-            self.base_hash = dropped[-1].block_hash
+            self.chains[channel] = [sb for sb in ch if sb.block_no > block_no]
+            self.base_block_nos[channel] = dropped[-1].block_no
+            self.base_hashes[channel] = dropped[-1].block_hash
             if self._spill_dir is not None:
                 for sb in dropped:
-                    path = os.path.join(self._spill_dir,
-                                        f"block_{sb.block_no:08d}.npz")
+                    path = self._spill_path(channel, sb.block_no)
                     if os.path.exists(path):
                         os.remove(path)
         return len(dropped)
 
-    def verify_chain(self) -> bool:
-        """Re-derive every block hash from its body on the host, from the
-        pruning base."""
-        prev = self.base_hash
-        for sb in self.chain:
+    def verify_chain(self, channel: int = 0) -> bool:
+        """Re-derive every block hash of ``channel``'s chain from its body
+        on the host, from the pruning base."""
+        prev = self.base_hashes.get(channel, np.zeros(2, np.uint32))
+        for sb in self.chains.get(channel, ()):
             if not np.array_equal(sb.prev_hash, prev):
                 return False
             if not np.array_equal(chained_hash(prev, sb), sb.block_hash):
@@ -226,10 +282,10 @@ class BlockStore:
 
     def replay_state(self, dims: types.FabricDims, n_buckets: int,
                      slots: int, start_state: world_state.HashState | None
-                     = None, resize_at: dict | None = None, device=None
-                     ) -> world_state.HashState:
-        """Rebuild the world state on ``device`` (default: the card) from
-        the chain (crash recovery for P-I).
+                     = None, resize_at: dict | None = None, device=None,
+                     channel: int = 0) -> world_state.HashState:
+        """Rebuild ``channel``'s world state on ``device`` (default: the
+        card) from its chain (crash recovery for P-I).
 
         ``start_state``: the covering snapshot's state when the prefix was
         pruned (updated in place). ``resize_at`` maps a boundary block to
@@ -247,7 +303,7 @@ class BlockStore:
                 st = world_state.resize(st, nb).state
             return st
 
-        for sb in self.chain:
+        for sb in self.chains.get(channel, ()):
             st = cross(st, sb.block_no - 1)
             wk, wv = unmarshal.write_sets(_tensor(sb.wire, device), dims)
             st = world_state.commit_vectorized(

@@ -5,7 +5,8 @@ version the endorser observed, and (b) no earlier valid transaction of the
 same block wrote a key it reads or writes. (a) is parallel; (b) becomes the
 pairwise conflict matrix plus a B-step scan that propagates one bit per
 transaction. :func:`validate` runs both through the MVCC kernel
-(kernels/mvcc_validate).
+(kernels/mvcc_validate), and :func:`validate_blocks` runs NB independent
+blocks (a leading block dim) through one launch of it.
 """
 
 from __future__ import annotations
@@ -53,6 +54,26 @@ def validate(
     rk = txb.read_keys.contiguous()
     ok0 = _ok0(txb.batch, rk.device, checksum_ok, endorse_ok)
     return MvccResult(valid=mvcc_ops.validate(
+        rk, txb.read_vers.contiguous(), txb.write_keys.contiguous(),
+        current_versions.contiguous(), ok0))
+
+
+def validate_blocks(
+    txb: types.TxBatch,
+    current_versions: torch.Tensor,
+    *,
+    checksum_ok: torch.Tensor | None = None,
+) -> MvccResult:
+    """MVCC validation of NB independent blocks at once: ``txb`` fields and
+    ``current_versions`` (NB, B, RK) carry a leading block dim, as does
+    ``checksum_ok`` (NB, B); each block is validated on its own, in one
+    kernel call. ``valid`` is (NB, B)."""
+    rk = txb.read_keys.contiguous()
+    nblk, bsz = rk.shape[:2]
+    ok0 = torch.ones((nblk, bsz), dtype=torch.bool, device=rk.device)
+    if checksum_ok is not None:
+        ok0 = ok0 & checksum_ok
+    return MvccResult(valid=mvcc_ops.validate_blocks(
         rk, txb.read_vers.contiguous(), txb.write_keys.contiguous(),
         current_versions.contiguous(), ok0))
 

@@ -69,6 +69,15 @@
 // loads of chunk c+1's words from L2 complete before the second barrier,
 // so one L2 round trip remains in each chunk's step (~1 us a chunk on an
 // H100 at B = 2,048). Warp 0 prefetches the next diagonal word.
+//
+// ---- Several independent blocks (NB) in one launch, on both routes
+//
+// Blocks that do not depend on each other (the same window position of
+// several channels) share a launch: the one-CTA route runs NB CTAs, one a
+// block; the tiled route gives phase 1 a third grid dimension (blockIdx.z
+// = the block) and phase 2 a grid of NB scan CTAs, each block with its own
+// slice of the scratch buffer. So a call is one launch, or two, for any NB.
+// Block n's inputs start at n times one block's size in every array.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -223,8 +232,9 @@ mvcc_kernel(const uint32_t* __restrict__ rk, const uint32_t* __restrict__ rv,
   }
 }
 
-// Tiled route, phase 1: CTA (tile x, chunk row k) writes C[k*B+i] for the
-// txs i >= 32k of tile x; the CTAs of row 0 also write the tile's ok words.
+// Tiled route, phase 1: CTA (tile x, chunk row k, block z) writes C[k*B+i]
+// for the txs i >= 32k of tile x of block z; the CTAs of row 0 also write
+// the tile's ok words.
 template <int kNR, int kNW>
 __global__ void __launch_bounds__(kConfThreads)
 mvcc_conf_kernel(const uint32_t* __restrict__ rk,
@@ -238,6 +248,14 @@ mvcc_conf_kernel(const uint32_t* __restrict__ rk,
   const int nch = (b + 31) / 32;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const size_t blk = blockIdx.z;
+  rk += blk * b * nr * 2;
+  rv += blk * b * nr;
+  cur += blk * b * nr;
+  wk += blk * b * nw * 2;
+  ok0 += blk * b;
+  conf += blk * (static_cast<size_t>(nch) * b + nch);
+  okw += blk * (static_cast<size_t>(nch) * b + nch);
   const int i0 = blockIdx.x * kTileTx;
   const int i1 = min(b, i0 + kTileTx);
   const int k = blockIdx.y;
@@ -284,8 +302,9 @@ mvcc_conf_kernel(const uint32_t* __restrict__ rk,
   }
 }
 
-// Tiled route, phase 2: the chunk scan, one CTA of 32 warps (see the top).
-// Shared memory: 32 x 32 partial words, then nch valid words, nch ok words.
+// Tiled route, phase 2: the chunk scan, one CTA of 32 warps a block (see
+// the top). Shared memory: 32 x 32 partial words, then nch valid words, nch
+// ok words.
 __global__ void __launch_bounds__(kThreads)
 mvcc_scan_kernel(const uint32_t* __restrict__ conf,
                  const uint32_t* __restrict__ okw, uint8_t* __restrict__ valid,
@@ -299,6 +318,10 @@ mvcc_scan_kernel(const uint32_t* __restrict__ conf,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const size_t bb = b;
+  const size_t blk = blockIdx.x;
+  conf += blk * (nch * bb + nch);
+  okw += blk * (nch * bb + nch);
+  valid += blk * bb;
   for (int t = tid; t < nch; t += kThreads) s_ok[t] = okw[t];
   uint32_t part = 0;  // OR of C[k*B+i] & V[k] over this warp's k < c
   uint32_t held = 0;  // C[c*B+i] for i in chunk c+1 (warp c % 32)
@@ -357,12 +380,12 @@ int launch(const uint32_t* rk, const uint32_t* rv, const uint32_t* wk,
 template <int kNR, int kNW>
 int launch_tiled(const uint32_t* rk, const uint32_t* rv, const uint32_t* wk,
                  const uint32_t* cur, const uint8_t* ok0, uint8_t* valid,
-                 uint32_t* scratch, int b, int nr, int nw,
+                 uint32_t* scratch, int nblk, int b, int nr, int nw,
                  cudaStream_t stream) {
   const int nch = (b + 31) / 32;
   uint32_t* conf = scratch;
   uint32_t* okw = scratch + static_cast<size_t>(nch) * b;
-  const dim3 grid((b + kTileTx - 1) / kTileTx, nch);
+  const dim3 grid((b + kTileTx - 1) / kTileTx, nch, nblk);
   mvcc_conf_kernel<kNR, kNW><<<grid, kConfThreads, 0, stream>>>(
       rk, rv, wk, cur, ok0, conf, okw, b, nr, nw);
   cudaError_t e = cudaGetLastError();
@@ -370,7 +393,7 @@ int launch_tiled(const uint32_t* rk, const uint32_t* rv, const uint32_t* wk,
   const size_t smem = (kThreads + 2 * static_cast<size_t>(nch)) * 4;
   e = opt_in(mvcc_scan_kernel, smem, opted_scan);
   if (e != cudaSuccess) return static_cast<int>(e);
-  mvcc_scan_kernel<<<1, kThreads, smem, stream>>>(conf, okw, valid, b);
+  mvcc_scan_kernel<<<nblk, kThreads, smem, stream>>>(conf, okw, valid, b);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -387,7 +410,8 @@ extern "C" long long mvcc_validate_smem(int b, int nr, int nw) {
   return static_cast<long long>(smem_bytes(b, nr, nw));
 }
 
-// The scratch words the tiled route needs: conflict words, then ok words.
+// The scratch words the tiled route needs a block: conflict words, then ok
+// words (block n's slice starts at n times this).
 extern "C" long long mvcc_validate_scratch_words(int b) {
   const long long nch = (static_cast<long long>(b) + 31) / 32;
   return nch * b + nch;
@@ -408,11 +432,11 @@ extern "C" int mvcc_validate(const uint32_t* rk, const uint32_t* rv,
 extern "C" int mvcc_validate_tiled(const uint32_t* rk, const uint32_t* rv,
                                    const uint32_t* wk, const uint32_t* cur,
                                    const uint8_t* ok0, uint8_t* valid,
-                                   uint32_t* scratch, int b, int nr, int nw,
-                                   cudaStream_t stream) {
+                                   uint32_t* scratch, int nblk, int b, int nr,
+                                   int nw, cudaStream_t stream) {
   if (nr == 2 && nw == 2)
-    return launch_tiled<2, 2>(rk, rv, wk, cur, ok0, valid, scratch, b, nr, nw,
-                              stream);
-  return launch_tiled<0, 0>(rk, rv, wk, cur, ok0, valid, scratch, b, nr, nw,
-                            stream);
+    return launch_tiled<2, 2>(rk, rv, wk, cur, ok0, valid, scratch, nblk, b,
+                              nr, nw, stream);
+  return launch_tiled<0, 0>(rk, rv, wk, cur, ok0, valid, scratch, nblk, b, nr,
+                            nw, stream);
 }

@@ -2,10 +2,11 @@
 
 A CUDA tensor launches the kernel, a CPU tensor takes the plain version in
 ``ref.py``; there is no fallback between them. Two routes, both for any
-block size: one CTA (``mvcc_kernel``, one launch) for blocks of at most
-``CTA_MAX_TXS`` txs, else the tiled route (``mvcc_conf_kernel`` over a
+block size: one CTA a block (``mvcc_kernel``, one launch) for blocks of at
+most ``CTA_MAX_TXS`` txs, else the tiled route (``mvcc_conf_kernel`` over a
 grid, then ``mvcc_scan_kernel``: two launches, with the conflict words in
-a scratch buffer). ``launches`` counts kernel launches.
+a scratch buffer). :func:`validate_blocks` takes NB independent blocks in
+those one or two launches. ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -65,7 +66,18 @@ def route_for(b: int, nr: int, nw: int, device: torch.device) -> str:
 
 def validate(read_keys, read_vers, write_keys, current_versions, ok0, *,
              route: str | None = None):
-    """One block: (B,RK,2),(B,RK),(B,WK,2),(B,RK),(B,) bool -> (B,) bool.
+    """One block: (B,RK,2),(B,RK),(B,WK,2),(B,RK),(B,) bool -> (B,) bool;
+    :func:`validate_blocks` with NB = 1."""
+    return validate_blocks(read_keys[None], read_vers[None], write_keys[None],
+                           current_versions[None], ok0[None], route=route)[0]
+
+
+def validate_blocks(read_keys, read_vers, write_keys, current_versions, ok0,
+                    *, route: str | None = None):
+    """NB independent blocks in one call: (NB,B,RK,2), (NB,B,RK),
+    (NB,B,WK,2), (NB,B,RK), (NB,B) bool -> (NB,B) bool, each block validated
+    on its own. On the card it is one launch on the one-CTA route and two
+    on the tiled route, for any NB.
 
     ``route`` ("cta" or "tiled") overrides the choice by shape on the card,
     so that tests can hold each route against the plain version at any
@@ -73,20 +85,21 @@ def validate(read_keys, read_vers, write_keys, current_versions, ok0, *,
     does not is refused with a ValueError."""
     global launches
     dev = read_keys.device
-    b, nr, _ = read_keys.shape
-    nw = write_keys.shape[1]
-    build.check("read_keys", read_keys, u32.WORD, (b, nr, 2), dev)
-    build.check("read_vers", read_vers, u32.WORD, (b, nr), dev)
-    build.check("write_keys", write_keys, u32.WORD, (b, nw, 2), dev)
-    build.check("current_versions", current_versions, u32.WORD, (b, nr), dev)
-    build.check("ok0", ok0, torch.bool, (b,), dev)
+    nblk, b, nr, _ = read_keys.shape
+    nw = write_keys.shape[2]
+    build.check("read_keys", read_keys, u32.WORD, (nblk, b, nr, 2), dev)
+    build.check("read_vers", read_vers, u32.WORD, (nblk, b, nr), dev)
+    build.check("write_keys", write_keys, u32.WORD, (nblk, b, nw, 2), dev)
+    build.check("current_versions", current_versions, u32.WORD,
+                (nblk, b, nr), dev)
+    build.check("ok0", ok0, torch.bool, (nblk, b), dev)
     if route is not None and route not in ROUTES:
         raise ValueError(f"route {route!r}: expected one of {ROUTES}")
     if not build.dispatch(dev):
-        return ref.validate_ref(read_keys, read_vers, write_keys,
-                                current_versions, ok0)
-    valid = torch.empty((b,), dtype=torch.bool, device=dev)
-    if b == 0:
+        return ref.validate_blocks_ref(read_keys, read_vers, write_keys,
+                                       current_versions, ok0)
+    valid = torch.empty((nblk, b), dtype=torch.bool, device=dev)
+    if nblk * b == 0:
         return valid
     if route == "cta" and not fits_one_cta(b, nr, nw, dev):
         raise ValueError(
@@ -98,14 +111,14 @@ def validate(read_keys, read_vers, write_keys, current_versions, ok0, *,
                                    current_versions, ok0, valid)]
     if route == "cta":
         f = build.c_function("mvcc_validate", "mvcc_validate", 6, 4)
-        build.launch(f, "mvcc_validate", dev, *ptrs, 1, b, nr, nw)
+        build.launch(f, "mvcc_validate", dev, *ptrs, nblk, b, nr, nw)
         launches += 1
         return valid
     scratch = torch.empty(
-        (_c_size("mvcc_validate_scratch_words", 1)(b),), dtype=u32.WORD,
-        device=dev)
-    f = build.c_function("mvcc_validate", "mvcc_validate_tiled", 7, 3)
-    build.launch(f, "mvcc_validate_tiled", dev, *ptrs, scratch.data_ptr(), b,
-                 nr, nw)
+        (nblk * _c_size("mvcc_validate_scratch_words", 1)(b),),
+        dtype=u32.WORD, device=dev)
+    f = build.c_function("mvcc_validate", "mvcc_validate_tiled", 7, 4)
+    build.launch(f, "mvcc_validate_tiled", dev, *ptrs, scratch.data_ptr(),
+                 nblk, b, nr, nw)
     launches += 2
     return valid

@@ -40,6 +40,17 @@ def validate_ref(read_keys, read_vers, write_keys, current_versions, ok0):
     return valid
 
 
+def validate_blocks_ref(read_keys, read_vers, write_keys, current_versions,
+                        ok0):
+    """NB independent blocks, (NB,B,RK,2),(NB,B,RK),(NB,B,WK,2),(NB,B,RK),
+    (NB,B) bool -> valid (NB,B) bool: :func:`validate_ref` a block."""
+    valid = torch.zeros_like(ok0)
+    for n in range(ok0.shape[0]):
+        valid[n] = validate_ref(read_keys[n], read_vers[n], write_keys[n],
+                                current_versions[n], ok0[n])
+    return valid
+
+
 # -- a plain mirror of the kernel's two routes (tests only) --------------------
 
 UNWRITTEN = 0xFFFFFFFF  # the tiled route's scratch words that it never writes

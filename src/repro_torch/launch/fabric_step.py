@@ -1,4 +1,4 @@
-"""The FastFabric step over one channel on one device (port of
+"""The FastFabric step over C channels on one device (port of
 repro.launch.fabric_step).
 
 Per block: the syntactic check and endorsement MACs where the block was
@@ -7,15 +7,21 @@ under O-I only the structured prefix) into the log head, the deterministic
 order, the decode of the replicated rows, the read-set probe, MVCC and the
 commit, then the ledger and journal heads. With
 ``FabricStepConfig.pipeline_depth`` D > 1 the step takes a window of D
-blocks (pipeline/schedule): one endorsement launch, one probe and one fused
-commit for the whole window, bit-identical to D depth-1 steps.
+blocks (pipeline/schedule): one endorsement launch, one probe a channel
+and one fused commit a channel for the whole window, bit-identical to D
+depth-1 steps.
 
-The reference runs this under ``shard_map`` over a (data, model) mesh;
-here there is one device, one channel (C = 1) and one replica, so its
-collectives are identities. Bucket-sharded state (``shard_state``) and
-several channels are not ported yet: both are refused with a ValueError.
-The table is committed in place, as every commit of the port is: the
-state a step returns shares its table tensors with the state it was given.
+The reference runs this under ``shard_map`` over a (data, model) mesh and
+vmaps the channel math over the ``data`` axis; here the C channels are a
+leading dim on one device with one replica, so its collectives are
+identities. The channels share no state: the syntax check, endorsement
+MACs and decode run over every channel's rows at once (they are per row),
+the probes and commits run a channel at a time on its own table, and each
+block position's MVCC runs once for every channel's block (one K4 call,
+``mvcc.validate_blocks``). Bucket-sharded state (``shard_state``) is
+refused with a ValueError. The tables are committed in place, as every
+commit of the port is: the state a step returns shares its table tensors
+with the state it was given.
 """
 
 from __future__ import annotations
@@ -25,17 +31,19 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core import orderer, types, u32, unmarshal
+from repro_torch.core import mvcc, orderer, types, u32, unmarshal
 from repro_torch.core import world_state as ws
 from repro_torch.launch import state_sharding
 from repro_torch.pipeline import stages
 
-_NOT_PORTED = ("come with multi-channel and sharded state, which are not "
-               "ported yet")
+_SHARDED_STATE_LATER = (
+    "shard_state=True: bucket-sharded state (routed lookups, commits and "
+    "resize over torch.distributed) is the next slice of the port, not "
+    "ported yet")
 
 
 class FabricMeshState(NamedTuple):
-    """Per-channel peer state, channel dim leading (C = 1 here)."""
+    """Per-channel peer state, channel dim leading."""
 
     keys: torch.Tensor  # (C, NB, S, 2)
     versions: torch.Tensor  # (C, NB, S)
@@ -49,26 +57,23 @@ class FabricMeshState(NamedTuple):
     # bucket, after which the channel's version accounting is untrusted
 
 
-def _one_channel(n_channels: int) -> None:
-    if n_channels != 1:
-        raise ValueError(f"{n_channels} channels: several channels "
-                         + _NOT_PORTED)
-
-
 def create_mesh_state(n_channels: int, dims: types.FabricDims,
                       n_buckets: int = 1 << 10, slots: int = 8, *,
                       device=None) -> FabricMeshState:
-    """A fresh state of ``n_channels`` (= 1) channels on ``device``
-    (default: the card; raises without one unless ``device='cpu'``)."""
-    _one_channel(n_channels)
+    """A fresh state of ``n_channels`` channels on ``device`` (default: the
+    card; raises without one unless ``device='cpu'``)."""
+    if n_channels < 1:
+        raise ValueError(f"n_channels must be >= 1, got {n_channels}")
     table = ws.create(n_buckets, slots, dims.vw, device=device)
     dev = table.keys.device
     z = lambda *shape: torch.zeros(shape, dtype=u32.WORD, device=dev)
+    rep = lambda t: t[None].repeat(n_channels, *([1] * t.dim()))
     return FabricMeshState(
-        keys=table.keys[None], versions=table.versions[None],
-        values=table.values[None], log_head=z(1, 2), ledger_head=z(1, 2),
-        journal_head=z(1, 2), block_no=z(1),
-        overflow=z(1, state_sharding.OVERFLOW_LANES))
+        keys=rep(table.keys), versions=rep(table.versions),
+        values=rep(table.values), log_head=z(n_channels, 2),
+        ledger_head=z(n_channels, 2), journal_head=z(n_channels, 2),
+        block_no=z(n_channels),
+        overflow=z(n_channels, state_sharding.OVERFLOW_LANES))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,7 +82,7 @@ class FabricStepConfig:
     pipelined: bool = True  # O-II
     sequential_commit: bool = False  # paper-faithful serial commit (K3)
     tree_hash: bool = False  # O(log B) pairwise log and ledger folds
-    shard_state: bool = False  # bucket-sharded state: not ported, refused
+    shard_state: bool = False  # bucket-sharded state: refused (next slice)
     pipeline_depth: int = 1  # P-II device-side block pipeline: blocks a
     # step; D > 1 takes a (C, D, B, ...) window
 
@@ -98,43 +103,72 @@ FABRIC_V12_STEP = FabricStepConfig(
     separate_metadata=False, pipelined=False, sequential_commit=True)
 
 
+def table(keys, vers, vals, c: int) -> ws.HashState:
+    """Channel ``c``'s table: views of the stacked state's tensors, so a
+    commit into it commits into the state."""
+    return ws.HashState(keys=keys[c], versions=vers[c], values=vals[c])
+
+
 def _block_body(dims: types.FabricDims, cfg: FabricStepConfig, channel):
-    """The depth-1 step of one channel: one block, every stage in order."""
+    """The depth-1 step of C channels: one block a channel, every stage in
+    order; the syntax check, MACs and decode over all channels' rows at
+    once, one MVCC call for the C blocks."""
     spw = unmarshal.struct_prefix_words(dims)
 
     def body(keys, vers, vals, log_head, ledger_head, journal_head, bno,
              ovf, wire, ids):
-        words, txb_loc, checksum_ok = stages.stage_syntax(wire, dims)
-        ok = checksum_ok & stages.stage_endorse(txb_loc)
-        published = words[:, :spw] if cfg.separate_metadata else words
-        log_head = stages.fold_log_head(log_head, published, cfg)
-        order = orderer.consensus_order(ids)
-        ordered_words = published[order]
-        txb = stages.decode_published(ordered_words, dims)
-        st = ws.HashState(keys=keys, versions=vers, values=vals)
-        cur = ws.lookup(st, txb.read_keys.reshape(-1, 2)).versions
-        st, valid, blk_ovf = stages.stage_mvcc_commit(
-            st, txb, ok[order], cur.reshape(txb.batch, -1), cfg,
-            channel=channel)
-        led = stages.fold_ledger_head(ledger_head, ordered_words, valid, cfg)
-        jrn = stages.advance_journal_head(journal_head, bno, txb, valid)
-        return (st.keys, st.versions, st.values, log_head, led, jrn,
-                u32.add(bno, 1), ovf | blk_ovf, valid[torch.argsort(order)])
+        nch, b, wb = wire.shape
+        words, txb_loc, checksum_ok = stages.stage_syntax(
+            wire.reshape(nch * b, wb), dims)
+        ok = (checksum_ok & stages.stage_endorse(txb_loc)).reshape(nch, b)
+        published = (words[:, :spw] if cfg.separate_metadata
+                     else words).reshape(nch, b, -1)
+        orders = [orderer.consensus_order(ids[c]) for c in range(nch)]
+        ordered_words = torch.stack([published[c][o]
+                                     for c, o in enumerate(orders)])
+        txb = types.TxBatch(*(a.reshape(nch, b, *a.shape[1:]) for a in
+                              stages.decode_published(
+                                  ordered_words.reshape(nch * b, -1), dims)))
+        cur = torch.stack([
+            ws.lookup(table(keys, vers, vals, c),
+                      txb.read_keys[c].reshape(-1, 2)).versions.reshape(b, -1)
+            for c in range(nch)])
+        ok_ord = torch.stack([ok[c][o] for c, o in enumerate(orders)])
+        valid = mvcc.validate_blocks(txb, cur, checksum_ok=ok_ord).valid
+        heads = []
+        for c, order in enumerate(orders):
+            cres = ws.commit(table(keys, vers, vals, c),
+                             txb.write_keys[c], txb.write_vals[c], valid[c],
+                             sequential=cfg.sequential_commit)
+            heads.append((
+                stages.fold_log_head(log_head[c], published[c], cfg),
+                stages.fold_ledger_head(ledger_head[c], ordered_words[c],
+                                        valid[c], cfg),
+                stages.advance_journal_head(
+                    journal_head[c], bno[c],
+                    types.TxBatch(*(a[c] for a in txb)), valid[c]),
+                ovf[c] | state_sharding.overflow_bits(
+                    cres.overflow[None], channel=channel),
+                valid[c][torch.argsort(order)]))
+        log_h, led, jrn, ovf, valid = (torch.stack(x) for x in zip(*heads))
+        return (keys, vers, vals, log_h, led, jrn, u32.add(bno, 1), ovf,
+                valid)
 
     return body
 
 
 def make_fabric_step(dims: types.FabricDims, cfg: FabricStepConfig, *,
                      channel=None):
-    """The step ``apply(state, wire, ids) -> (state, valid)`` for one
-    channel on the state's device.
+    """The step ``apply(state, wire, ids) -> (state, valid)`` for the C
+    channels of ``state`` on its device.
 
-    Depth 1: ``wire`` (1, B, WB) u8, ``ids`` (1, B, 2), ``valid`` (1, B).
-    Depth D: ``wire`` (1, D, B, WB), ``ids`` (1, D, B, 2), ``valid``
-    (1, D, B), bit-identical to D depth-1 steps. ``valid`` is in ingest
-    order. ``channel`` names the channel in errors."""
+    Depth 1: ``wire`` (C, B, WB) u8, ``ids`` (C, B, 2), ``valid`` (C, B).
+    Depth D: ``wire`` (C, D, B, WB), ``ids`` (C, D, B, 2), ``valid``
+    (C, D, B), bit-identical to D depth-1 steps. ``valid`` is in ingest
+    order, and each channel's results equal a one-channel step fed that
+    channel's blocks. ``channel`` names the channel(s) in errors."""
     if cfg.shard_state:
-        raise ValueError("shard_state=True: sharded state " + _NOT_PORTED)
+        raise ValueError(_SHARDED_STATE_LATER)
     depth = cfg.pipeline_depth
     if depth > 1:
         from repro_torch.pipeline import schedule  # layering stays one-way
@@ -143,13 +177,15 @@ def make_fabric_step(dims: types.FabricDims, cfg: FabricStepConfig, *,
         body = _block_body(dims, cfg, channel)
 
     def apply(state: FabricMeshState, wire, ids):
-        _one_channel(state.keys.shape[0])
-        _one_channel(wire.shape[0])
+        if wire.shape[0] != state.keys.shape[0]:
+            raise ValueError(
+                f"a state of {state.keys.shape[0]} channels got a wire of "
+                f"{wire.shape[0]} channels")
         if depth > 1 and (wire.ndim != 4 or wire.shape[1] != depth):
             raise ValueError(
                 f"pipeline_depth={depth} expects wire (C, {depth}, B, WB); "
                 f"got {tuple(wire.shape)}")
-        out = body(*(a[0] for a in state), wire[0], ids[0])
-        return FabricMeshState(*(o[None] for o in out[:-1])), out[-1][None]
+        out = body(*state, wire, ids)
+        return FabricMeshState(*out[:-1]), out[-1]
 
     return apply

@@ -1,5 +1,5 @@
 """The engine's window committer on one device (port of
-repro.pipeline.engine_bridge, one channel).
+repro.pipeline.engine_bridge).
 
 ``FabricEngine(cfg, window_committer=WindowCommitter(...))`` orders each
 round as before, slices it into windows of ``pipeline_depth`` blocks and
@@ -10,10 +10,18 @@ per block: the validity bits and the store-chain hashes
 (:func:`_chain_hashes`). A round's tail shorter than the depth runs as one
 shallower window; a window of one block takes the depth-1 step.
 
-The committer owns the peer's table and heads (a ``FabricMeshState`` with
-one channel); the engine reads the state, digests, heads and overflow bits
-through it, and resizes through :meth:`WindowCommitter.resize` between
-windows. Several channels and bucket-sharded state are not ported yet.
+The committer drives ``n_channels`` independent channels. Channels that
+share a bucket layout form a shape group (``_ChannelGroup``), whose state is
+one ``FabricMeshState`` with a leading channel dim; a multi-channel engine
+calls :meth:`WindowCommitter.commit_windows` once a window position, which
+runs one step a group (one MVCC call a block position for all the group's
+channels). A per-channel resize splits its channel out of its group and
+merges it into a group at the new layout, if there is one. The engine
+reads each channel's state, digests, heads and overflow bits through the
+``*_for(channel)`` accessors, and resizes between windows. With one channel
+the single-channel surface (``state``, ``commit_window``, ``journal_head``,
+``overflow_bits``, ``resize(nb)``) is unchanged. Bucket-sharded state is
+refused (the next slice).
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ import torch
 
 from repro_torch import obs as obs_mod
 from repro_torch import resolve_device
-from repro_torch.core import ledger, types, u32
+from repro_torch.core import hashing, ledger, types, u32
 from repro_torch.core import world_state as ws
 from repro_torch.launch import fabric_step as fs
 from repro_torch.launch import state_sharding
@@ -55,93 +63,195 @@ class WindowResult(NamedTuple):
     block_hash: np.ndarray  # (D, 2) u32 store-chain hash of each block
 
 
+class MultiWindowResult(NamedTuple):
+    """Per-channel, per-block outputs of one window on every channel."""
+
+    valid: torch.Tensor  # (C, D, B) bool, ingest order
+    prev_hash: np.ndarray  # (C, D, 2) u32
+    block_hash: np.ndarray  # (C, D, 2) u32
+
+
 def _chain_hashes(prev_hash: torch.Tensor, block_no0: torch.Tensor,
                   wire: torch.Tensor, valid: torch.Tensor):
-    """Store-chain hashes of a window, from each block's wire (D, B, WB)
-    and validity bits (D, B) in ingest order and the first block's number:
-    (prevs (D, 2), hashes (D, 2)). The body digests of all D blocks are
-    hashed at once; the links then follow in order."""
-    digests = ledger.block_body_digest(wire, valid)  # (D, 2)
+    """Store-chain hashes of a window on one channel or several: each
+    block's wire (..., D, B, WB) and validity bits (..., D, B) in ingest
+    order, the channel's chain head (..., 2) and first block number (...)
+    -> (prevs (..., D, 2), hashes (..., D, 2)). The body digests of every
+    channel's D blocks are hashed in one pass; the links then follow block
+    by block, every channel's at once."""
+    lead = tuple(prev_hash.shape[:-1])
+    d, b, wb = wire.shape[-3:]
+    digests = ledger.block_body_digest(
+        wire.reshape(-1, b, wb), valid.reshape(-1, b)).reshape(-1, d, 2)
+    prev = prev_hash.reshape(-1, 2)
+    bno0 = block_no0.reshape(-1, 1)
     prevs, hashes = [], []
-    for k in range(wire.shape[0]):
-        prevs.append(prev_hash)
-        prev_hash = ledger.append_hash(prev_hash, u32.add(block_no0, k),
-                                       digests[k])
-        hashes.append(prev_hash)
-    return torch.stack(prevs), torch.stack(hashes)
+    for k in range(d):
+        prevs.append(prev)
+        # ledger.append_hash on every channel's row at once.
+        words = torch.cat([prev, u32.add(bno0, k), digests[:, k]], dim=1)
+        prev = torch.stack([hashing.hash_words(words, seed=hashing.SEED_A),
+                            hashing.hash_words(words, seed=hashing.SEED_B)],
+                           dim=1)
+        hashes.append(prev)
+    return (torch.stack(prevs, dim=1).reshape(*lead, d, 2),
+            torch.stack(hashes, dim=1).reshape(*lead, d, 2))
+
+
+class _ChannelGroup:
+    """Channels sharing one bucket layout, stacked in one state."""
+
+    __slots__ = ("channels", "state")
+
+    def __init__(self, channels: tuple, state: fs.FabricMeshState):
+        self.channels = channels
+        self.state = state
+
+    @property
+    def n_buckets(self) -> int:
+        return self.state.keys.shape[1]
+
+
+def _take(state: fs.FabricMeshState, idx: list) -> fs.FabricMeshState:
+    """The channels ``idx`` of a stacked state, as a state of their own."""
+    return fs.FabricMeshState(*(a[idx] for a in state))
 
 
 class WindowCommitter:
-    """The committer role backed by the windowed fabric step: one channel,
-    one device (default: the card; raises without one unless
-    ``device='cpu'``)."""
+    """The committer role backed by the windowed fabric step: ``n_channels``
+    channels on one device (default: the card; raises without one unless
+    ``device='cpu'``). Each channel's results equal a one-channel
+    committer's fed that channel's blocks."""
 
-    n_channels = 1
-    n_shards = 1  # the table is one bucket shard
+    n_shards = 1  # a table is one bucket shard
 
     def __init__(self, dims: types.FabricDims, cfg: fs.FabricStepConfig, *,
-                 n_buckets: int = 1 << 12, slots: int = 8, device=None):
+                 n_buckets: int = 1 << 12, slots: int = 8,
+                 n_channels: int = 1, device=None):
         if cfg.shard_state:
-            raise ValueError("shard_state=True: sharded state "
-                             + fs._NOT_PORTED)
+            raise ValueError(fs._SHARDED_STATE_LATER)
+        if n_channels < 1:
+            raise ValueError(f"n_channels must be >= 1, got {n_channels}")
         self.dims = dims
         self.cfg = cfg
         self.slots = slots
+        self.n_channels = n_channels
         self.device = resolve_device(device)
-        self.state = fs.create_mesh_state(1, dims, n_buckets, slots,
-                                          device=self.device)
-        self.prev_hash = torch.zeros((2,), dtype=u32.WORD,
-                                     device=self.device)
+        self.groups = [_ChannelGroup(
+            tuple(range(n_channels)),
+            fs.create_mesh_state(n_channels, dims, n_buckets, slots,
+                                 device=self.device))]
+        self._prev_hash = [torch.zeros((2,), dtype=u32.WORD,
+                                       device=self.device)
+                           for _ in range(n_channels)]
         self._steps: dict = {}
         self.obs = obs_mod.Obs.disabled()
 
     def attach_obs(self, obs) -> None:
         """Route window spans and metrics through ``obs``. Per window:
-        ``window.fill`` covers the step's launches and the chain hashes
+        ``window.fill`` covers the steps' launches and the chain hashes
         (host enqueue), ``window.steady`` ends on a device sync, and
         ``window.drain`` covers the host copy of the chain hashes."""
         self.obs = obs
+
+    # -- channels --------------------------------------------------------------
+
+    def _locate(self, channel: int) -> tuple:
+        for g in self.groups:
+            if channel in g.channels:
+                return g, g.channels.index(channel)
+        raise ValueError(f"channel {channel} out of range for "
+                         f"{self.n_channels} channel(s)")
 
     @property
     def depth(self) -> int:
         return max(self.cfg.pipeline_depth, 1)
 
     @property
-    def n_buckets(self) -> int:
-        return self.state.keys.shape[1]
+    def state(self) -> fs.FabricMeshState:
+        """THE state, while every channel shares one layout (always, with
+        one channel)."""
+        if len(self.groups) != 1:
+            raise ValueError("channels hold different bucket layouts: use "
+                             "channel_state(c)")
+        return self.groups[0].state
 
-    def _step_for(self, d: int):
-        if d not in self._steps:
-            self._steps[d] = fs.make_fabric_step(
-                self.dims, dataclasses.replace(self.cfg, pipeline_depth=d))
-        return self._steps[d]
+    def channel_state(self, channel: int) -> fs.FabricMeshState:
+        """One channel's state with a channel dim of 1 (views), shaped as a
+        one-channel committer's ``state``."""
+        g, pos = self._locate(channel)
+        return fs.FabricMeshState(*(a[pos:pos + 1] for a in g.state))
+
+    @property
+    def n_buckets(self) -> int:
+        """Channel 0's CURRENT bucket count."""
+        return self.n_buckets_for(0)
+
+    def n_buckets_for(self, channel: int) -> int:
+        return self._locate(channel)[0].n_buckets
+
+    def _step_for(self, d: int, channels: tuple):
+        key = (d, channels)
+        if key not in self._steps:
+            self._steps[key] = fs.make_fabric_step(
+                self.dims, dataclasses.replace(self.cfg, pipeline_depth=d),
+                channel=None if self.n_channels == 1 else channels)
+        return self._steps[key]
+
+    # -- windows ---------------------------------------------------------------
 
     def commit_window(self, wire: torch.Tensor, tx_ids: torch.Tensor
                       ) -> WindowResult:
         """Commit ``wire`` (D, B, WB) / ``tx_ids`` (D, B, 2), 1 <= D <=
-        depth, in block order."""
-        d = wire.shape[0]
+        depth, in block order: the one-channel surface."""
+        if self.n_channels != 1:
+            raise ValueError("commit_window drives one channel: use "
+                             f"commit_windows for {self.n_channels} channels")
+        res = self.commit_windows(wire[None], tx_ids[None])
+        return WindowResult(valid=res.valid[0], prev_hash=res.prev_hash[0],
+                            block_hash=res.block_hash[0])
+
+    def commit_windows(self, wires: torch.Tensor, tx_ids: torch.Tensor
+                       ) -> MultiWindowResult:
+        """Commit one window on EVERY channel: ``wires`` (C, D, B, WB) /
+        ``tx_ids`` (C, D, B, 2), 1 <= D <= depth; one step a shape group
+        (one while no channel's layout diverged)."""
+        if wires.shape[0] != self.n_channels:
+            raise ValueError(f"expected {self.n_channels} channel windows, "
+                             f"got {wires.shape[0]}")
+        d = wires.shape[1]
         if not 1 <= d <= self.depth:
             raise ValueError(f"a window holds 1 to {self.depth} blocks, "
                              f"got {d}")
         tracer, reg = self.obs.tracer, self.obs.registry
         t0 = time.perf_counter()
+        nch = self.n_channels
+        valid_c, prevs_c, hashes_c = [None] * nch, [None] * nch, [None] * nch
         with tracer.span("window.fill", depth=d):
-            step = self._step_for(d)
-            if d == 1:
-                self.state, valid = step(self.state, wire, tx_ids)
-            else:
-                self.state, valid = step(self.state, wire[None],
-                                         tx_ids[None])
-            valid = valid.reshape(d, -1)
-            bno0 = u32.sub(self.state.block_no[0], d)
-            prevs, hashes = _chain_hashes(self.prev_hash, bno0, wire, valid)
-            self.prev_hash = hashes[-1]
-        with tracer.span("window.steady", depth=d,
-                         sync=lambda: self.state.ledger_head):
+            for g in self.groups:
+                chans = list(g.channels)
+                if chans == list(range(nch)):
+                    wire_g, ids_g = wires, tx_ids
+                else:
+                    wire_g, ids_g = wires[chans], tx_ids[chans]
+                step = self._step_for(d, g.channels)
+                if d == 1:
+                    g.state, valid = step(g.state, wire_g[:, 0], ids_g[:, 0])
+                    valid = valid[:, None]
+                else:
+                    g.state, valid = step(g.state, wire_g, ids_g)
+                prevs, hashes = _chain_hashes(
+                    torch.stack([self._prev_hash[c] for c in chans]),
+                    u32.sub(g.state.block_no, d), wire_g, valid)
+                for i, c in enumerate(chans):
+                    self._prev_hash[c] = hashes[i, -1]
+                    valid_c[c], prevs_c[c], hashes_c[c] = (
+                        valid[i], prevs[i], hashes[i])
+        with tracer.span("window.steady", depth=d, sync=self.sync_target):
             pass  # the device finishes the window inside this span
         with tracer.span("window.drain", depth=d):
-            prevs, hashes = u32.to_numpy(prevs), u32.to_numpy(hashes)
+            prevs = u32.to_numpy(torch.stack(prevs_c))
+            hashes = u32.to_numpy(torch.stack(hashes_c))
         # Blocks of a window retire together: the per-block latency is the
         # window's, amortized.
         dt = (time.perf_counter() - t0) / d
@@ -149,30 +259,56 @@ class WindowCommitter:
         for _ in range(d):
             hist.record(dt)
         reg.counter("window.commits").inc()
-        reg.counter("blocks.committed").inc(d)
-        return WindowResult(valid=valid, prev_hash=prevs, block_hash=hashes)
+        reg.counter("blocks.committed").inc(d * nch)
+        if nch > 1:
+            for c in range(nch):
+                reg.counter("blocks.committed", channel=c).inc(d)
+        return MultiWindowResult(valid=torch.stack(valid_c), prev_hash=prevs,
+                                 block_hash=hashes)
 
     # -- elastic state ---------------------------------------------------------
 
     def resize(self, new_n_buckets: int, channel: int = 0) -> ReanchorInfo:
-        """Halve or double the table between windows (nothing is in flight:
-        the window write log assumes one layout a window) and latch any
-        shrink overflow; returns the epoch's :class:`ReanchorInfo`."""
-        self._check_channel(channel)
-        old_nb = self.n_buckets
+        """Halve or double ONE channel's table between windows (nothing is
+        in flight: the window write log assumes one layout a window): split
+        the channel out of its shape group, rehash it, merge it into a group
+        at the new layout if there is one, and latch any shrink overflow.
+        Other channels are untouched. Returns the epoch's
+        :class:`ReanchorInfo`."""
+        g, pos = self._locate(channel)
+        old_nb = g.n_buckets
         if new_n_buckets == old_nb:
             raise ValueError(f"resize to current size {old_nb}")
-        res = ws.resize(self.hash_state(), new_n_buckets)
-        self.state = self.state._replace(
+        lone = _take(g.state, [pos])
+        if len(g.channels) > 1:
+            g.state = _take(g.state, [i for i in range(len(g.channels))
+                                      if i != pos])
+            g.channels = tuple(c for c in g.channels if c != channel)
+        else:
+            self.groups.remove(g)
+        res = ws.resize(ws.HashState(lone.keys[0], lone.versions[0],
+                                     lone.values[0]), new_n_buckets)
+        lone = lone._replace(
             keys=res.state.keys[None], versions=res.state.versions[None],
             values=res.state.values[None],
-            overflow=self.state.overflow
+            overflow=lone.overflow
             | state_sharding.overflow_bits(res.overflow[None]))
+        target = next((h for h in self.groups
+                       if h.n_buckets == new_n_buckets), None)
+        if target is None:
+            self.groups.append(_ChannelGroup((channel,), lone))
+        else:
+            chans = target.channels + (channel,)
+            order = sorted(range(len(chans)), key=chans.__getitem__)
+            merged = fs.FabricMeshState(*(torch.cat([a, b]) for a, b in
+                                          zip(target.state, lone)))
+            target.state = _take(merged, order)
+            target.channels = tuple(sorted(chans))
         info = ReanchorInfo(
-            block_no=self.block_no_for(0) - 1, old_n_buckets=old_nb,
+            block_no=self.block_no_for(channel) - 1, old_n_buckets=old_nb,
             new_n_buckets=new_n_buckets, n_shards=self.n_shards,
-            tree_head=self.tree_head(), overflow_bits=self.overflow_bits,
-            channel=channel)
+            tree_head=self.tree_head(channel),
+            overflow_bits=self.overflow_bits_for(channel), channel=channel)
         self.obs.tracer.event(
             "reanchor.epoch", block_no=info.block_no, channel=channel,
             old_n_buckets=old_nb, new_n_buckets=new_n_buckets,
@@ -181,74 +317,91 @@ class WindowCommitter:
 
     def shard_stats(self, channels=(0,)) -> dict:
         """channel -> (per-shard occupancy (M,), min free slots, per-shard
-        slot capacity, sticky overflow bits), in one stacked read."""
-        for c in channels:
-            self._check_channel(c)
-        st = self.hash_state()
+        slot capacity, sticky overflow bits), in one stacked read a shape
+        group."""
+        want = set(channels)
+        for c in want:
+            self._locate(c)
         m = self.n_shards
-        host = torch.cat([ws.shard_occupancy(st, m), ws.shard_min_free(st, m),
-                          u32.to_u64(self.state.overflow[0])]).cpu().numpy()
-        stats = (host[:m], int(host[m:2 * m].min()),
-                 self.n_buckets // m * self.slots,
-                 state_sharding.bits_to_int(host[2 * m:]))
-        return {c: stats for c in channels}
+        out = {}
+        for g in self.groups:
+            sel = [i for i, c in enumerate(g.channels) if c in want]
+            if not sel:
+                continue
+            parts = []
+            for i in sel:
+                st = ws.HashState(g.state.keys[i], g.state.versions[i],
+                                  g.state.values[i])
+                parts += [ws.shard_occupancy(st, m), ws.shard_min_free(st, m),
+                          u32.to_u64(g.state.overflow[i])]
+            host = torch.cat(parts).cpu().numpy()
+            w = 2 * m + state_sharding.OVERFLOW_LANES
+            for k, i in enumerate(sel):
+                row = host[k * w:(k + 1) * w]
+                out[g.channels[i]] = (
+                    row[:m], int(row[m:2 * m].min()),
+                    g.n_buckets // m * self.slots,
+                    state_sharding.bits_to_int(row[2 * m:]))
+        return out
 
     def hot_shard(self, channel: int = 0) -> int:
         """The shard a grow should relieve: the first overflowed one, else
         the fullest."""
-        self._check_channel(channel)
-        return ws.hot_shard(self.overflow_bits, ws.shard_occupancy(
-            self.hash_state(), self.n_shards))
+        return ws.hot_shard(self.overflow_bits_for(channel),
+                            ws.shard_occupancy(self.hash_state(channel),
+                                               self.n_shards))
 
     # -- state accessors -------------------------------------------------------
 
-    def _check_channel(self, channel: int) -> None:
-        if channel != 0:
-            raise ValueError(f"channel {channel} out of range for 1 channel")
-
     def hash_state(self, channel: int = 0) -> ws.HashState:
-        """The committed table (views of the live tensors)."""
-        self._check_channel(channel)
-        return ws.HashState(self.state.keys[0], self.state.versions[0],
-                            self.state.values[0])
+        """A channel's committed table (views of the live tensors)."""
+        g, pos = self._locate(channel)
+        return ws.HashState(g.state.keys[pos], g.state.versions[pos],
+                            g.state.values[pos])
 
     def state_digest(self, channel: int = 0) -> np.ndarray:
         return u32.to_numpy(ws.state_digest(self.hash_state(channel)))
 
     def tree_head(self, channel: int = 0) -> np.ndarray:
-        """(2,) u32 digest-tree head of the table's shards."""
+        """(2,) u32 digest-tree head of a channel's table's shards."""
         return u32.to_numpy(ws.tree_head(self.hash_state(channel),
                                          self.n_shards))
+
+    def _head(self, name: str, channel: int) -> torch.Tensor:
+        g, pos = self._locate(channel)
+        return getattr(g.state, name)[pos]
 
     @property
     def journal_head(self) -> np.ndarray:
         return self.journal_head_for(0)
 
     def journal_head_for(self, channel: int) -> np.ndarray:
-        self._check_channel(channel)
-        return u32.to_numpy(self.state.journal_head[0])
+        return u32.to_numpy(self._head("journal_head", channel))
 
     def ledger_head_for(self, channel: int) -> np.ndarray:
-        self._check_channel(channel)
-        return u32.to_numpy(self.state.ledger_head[0])
+        return u32.to_numpy(self._head("ledger_head", channel))
 
     def block_no_for(self, channel: int) -> int:
-        self._check_channel(channel)
-        return int(u32.to_numpy(self.state.block_no[0]))
+        return int(u32.to_numpy(self._head("block_no", channel)))
 
     @property
     def overflow(self) -> bool:
-        """Sticky: some commit dropped a write on a full bucket."""
-        return bool(self.state.overflow.any())
+        """Sticky: some commit on some channel dropped a write on a full
+        bucket."""
+        return any(bool(g.state.overflow.any()) for g in self.groups)
 
     @property
     def overflow_bits(self) -> int:
-        """The sticky per-shard bitmask as one int (bit 0: the table)."""
+        """Channel 0's sticky per-shard bitmask as one int (bit 0: the
+        table)."""
         return self.overflow_bits_for(0)
 
     def overflow_bits_for(self, channel: int) -> int:
-        self._check_channel(channel)
-        return state_sharding.bits_to_int(self.state.overflow[0])
+        return state_sharding.bits_to_int(self._head("overflow", channel))
+
+    def sync_target(self) -> tuple:
+        """The tensors a sync on the committed windows waits for."""
+        return tuple(g.state.ledger_head for g in self.groups)
 
     def block_until_ready(self) -> None:
         if self.device.type == "cuda":

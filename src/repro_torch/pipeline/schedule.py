@@ -1,19 +1,24 @@
-"""Fill/steady/drain schedule of a (D, ...) window of blocks on one device
-(port of repro.pipeline.schedule).
+"""Fill/steady/drain schedule of a (C, D, ...) window of blocks of C
+channels on one device (port of repro.pipeline.schedule).
 
-  FILL    -- the work that batches across blocks: the checksum, decode and
-             endorsement MACs of all D * B transactions at once (one K1
-             launch), the window decode and ONE probe of every read and
-             write key (one K2 launch, :mod:`.batched_mvcc`); then block
-             0's prepare stage.
-  STEADY  -- for each block i: its VALIDATE stage (in-window version
-             repair, MVCC with one K4 launch, write plan, the log, ledger
-             and journal heads), then block i+1's PREPARE stage (consensus
+  FILL    -- the work that batches across blocks and channels: the
+             checksum, decode and endorsement MACs of all C * D * B
+             transactions at once (one K1 launch) and the window decode;
+             then ONE probe a channel of its read and write keys (one K2
+             launch a channel, :mod:`.batched_mvcc`); then block 0's
+             prepare stage on every channel.
+  STEADY  -- for each block position i: the VALIDATE stage of every
+             channel's block i (in-window version repair, then MVCC of the
+             C blocks in ONE K4 call, ``mvcc.validate_blocks``: the blocks
+             of different channels are independent, while block i of a
+             channel needs the write plans of its blocks before i; then a
+             channel at a time the write plan and the log, ledger and
+             journal heads), then block i+1's PREPARE stage (consensus
              order, ordered views, digests). The reference overlaps the two
-             inside a scan; here they follow each other on one stream,
-             with the same results.
-  DRAIN   -- the fused window commit: the planned write log applied with
-             one scatter (``world_state.commit_window``).
+             inside a scan and vmaps the channels; here they follow each
+             other on one stream, with the same results.
+  DRAIN   -- the fused window commit of each channel: its planned write log
+             applied with one scatter (``world_state.commit_window``).
 
 No block touches the table before the drain: the planner replays each
 block's commit (insert or update, slot budget, overflow) against the fill
@@ -31,6 +36,7 @@ import torch
 
 from repro_torch.core import hashing, mvcc, orderer, types, u32, unmarshal
 from repro_torch.core import world_state as ws
+from repro_torch.launch import fabric_step as fs
 from repro_torch.launch import state_sharding
 from repro_torch.pipeline import batched_mvcc, stages
 
@@ -50,14 +56,15 @@ class Prepared(NamedTuple):
 
 def make_window_body(dims: types.FabricDims, cfg, depth: int, *,
                      channel=None):
-    """The body of a depth-``depth`` window step for one channel.
+    """The body of a depth-``depth`` window step for C channels.
 
     ``body(keys, versions, values, log_head, ledger_head, journal_head,
-    block_no, overflow, wire, ids)`` takes the table (NB, S, ...), heads
-    (2,), block number (), overflow lanes (LANES,), ``wire`` (D, B, WB) u8
-    and ``ids`` (D, B, 2); it commits into the table in place and returns
-    (keys, versions, values, heads..., block_no, overflow, valid (D, B)),
-    ``valid`` in ingest order. ``channel`` names the channel in errors.
+    block_no, overflow, wire, ids)`` takes the tables (C, NB, S, ...),
+    heads (C, 2), block numbers (C,), overflow lanes (C, LANES), ``wire``
+    (C, D, B, WB) u8 and ``ids`` (C, D, B, 2); it commits into the tables
+    in place and returns (keys, versions, values, heads..., block_no,
+    overflow, valid (C, D, B)), ``valid`` in ingest order. ``channel``
+    names the channel(s) in errors.
     """
     spw = (unmarshal.struct_prefix_words(dims)
            if cfg.separate_metadata else None)
@@ -81,76 +88,96 @@ def make_window_body(dims: types.FabricDims, cfg, depth: int, *,
 
     def body(keys, vers, vals, log_head, ledger_head, journal_head,
              block_no, overflow, wire, ids):
-        d, b, wb = wire.shape
+        nch, d, b, wb = wire.shape
         if d != depth:
             raise ValueError(f"window body of depth {depth} got {d} blocks")
-        st = ws.HashState(keys=keys, versions=vers, values=vals)
-        nb = st.n_buckets
+        nb = keys.shape[1]
         dev = wire.device
 
-        # ---- FILL: syntax and endorsement over the whole window ----------
+        # ---- FILL: syntax and endorsement over every channel's window ----
         words, txb_loc, checksum_ok = stages.stage_syntax(
-            wire.reshape(d * b, wb), dims)
-        ok = (checksum_ok & stages.stage_endorse(txb_loc)).reshape(d, b)
+            wire.reshape(nch * d * b, wb), dims)
+        ok = (checksum_ok & stages.stage_endorse(txb_loc)).reshape(
+            nch, d, b)
         published = words[:, :spw] if cfg.separate_metadata else words
-        txb_win = stages.decode_published(published, dims)
-        fill = batched_mvcc.gather_window_state(st, txb_win.read_keys,
-                                                txb_win.write_keys)
-        log_rows = published.reshape(d, b, -1)
-        cur_win = fill.read_vers.reshape(d, b, -1)
-        wv_win = fill.write_vers.reshape(d, b, -1)
-        free_win = fill.write_free.reshape(d, b, -1)
-        txb_dw = types.TxBatch(*(a.reshape(d, b, *a.shape[1:])
-                                 for a in txb_win))
+        txb_all = stages.decode_published(published, dims)
+        log_rows = published.reshape(nch, d, b, -1)
+        txb_cdb = types.TxBatch(*(a.reshape(nch, d, b, *a.shape[1:])
+                                  for a in txb_all))
+        fills = []
+        for c in range(nch):
+            fill = batched_mvcc.gather_window_state(
+                fs.table(keys, vers, vals, c),
+                txb_cdb.read_keys[c].reshape(d * b, -1, 2),
+                txb_cdb.write_keys[c].reshape(d * b, -1, 2))
+            fills.append(tuple(x.reshape(d, b, -1) for x in fill))
 
-        def prepare_block(i):
-            return prepare(log_rows[i], ids[i], ok[i], cur_win[i], wv_win[i],
-                           free_win[i], types.TxBatch(*(a[i] for a in txb_dw)))
+        def prepare_block(c, i):
+            cur, wv, free = fills[c]
+            return prepare(log_rows[c, i], ids[c, i], ok[c, i], cur[i],
+                           wv[i], free[i],
+                           types.TxBatch(*(a[c, i] for a in txb_cdb)))
 
-        # The window write log, block-major, written a block's row at a
-        # time (a copy: no row aliases a prepared block).
+        # Each channel's window write log, block-major, written a block's
+        # row at a time (a copy: no row aliases a prepared block).
         lsz = b * dims.wk
-        wl_keys = torch.zeros((d, lsz, 2), dtype=u32.WORD, device=dev)
-        wl_vals = torch.zeros((d, lsz, dims.vw), dtype=u32.WORD, device=dev)
-        wl_bumps = torch.zeros((d, lsz), dtype=torch.bool, device=dev)
-        wl_new = torch.zeros((d, lsz), dtype=torch.bool, device=dev)
+        wl_keys = torch.zeros((nch, d, lsz, 2), dtype=u32.WORD, device=dev)
+        wl_vals = torch.zeros((nch, d, lsz, dims.vw), dtype=u32.WORD,
+                              device=dev)
+        wl_bumps = torch.zeros((nch, d, lsz), dtype=torch.bool, device=dev)
+        wl_new = torch.zeros((nch, d, lsz), dtype=torch.bool, device=dev)
 
-        valids = []
-        prep = prepare_block(0)
+        log_head, ledger_head, journal_head, block_no, overflow = (
+            list(x) for x in (log_head, ledger_head, journal_head, block_no,
+                              overflow))
+        valids = [[] for _ in range(nch)]
+        preps = [prepare_block(c, 0) for c in range(nch)]
         for bt in range(d):
-            # ---- VALIDATE block bt against the fill and the log so far ----
-            adj = batched_mvcc.version_adjustment(
-                prep.txb.read_keys, wl_keys[:bt], wl_bumps[:bt])
-            valid = mvcc.validate(prep.txb, u32.add(prep.cur_ord, adj),
-                                  checksum_ok=prep.ok_ord).valid
-            log_head = stages.fold_log_head(
-                log_head, prep.log_mat, cfg,
-                material_is_digests=cfg.pipelined)
-            ledger_head = fold_ledger(ledger_head,
-                                      prep.ledger_mat ^ valid.to(u32.WORD))
-            journal_head = stages.advance_journal_head(
-                journal_head, block_no, prep.txb, valid)
-            plan = batched_mvcc.plan_block_writes(
-                prep.txb.write_keys, valid, cfg.sequential_commit,
-                prep.wv_ord, prep.free_ord, wl_keys[:bt], wl_bumps[:bt],
-                wl_new[:bt], n_buckets_global=nb)
-            wl_keys[bt] = plan.keys
-            wl_vals[bt] = prep.txb.write_vals.reshape(lsz, -1)
-            wl_bumps[bt] = plan.bumps
-            wl_new[bt] = plan.new
-            overflow = overflow | state_sharding.dropped_write_bits(
-                plan.keys, plan.dropped, nb, 1, channel=channel)
-            block_no = u32.add(block_no, 1)
-            valids.append(valid[prep.inv])
-            # ---- PREPARE block bt + 1 ------------------------------------
+            # ---- VALIDATE block bt of every channel against its fill and
+            # its log so far: one MVCC call for the C blocks ---------------
+            cur = torch.stack([
+                u32.add(p.cur_ord, batched_mvcc.version_adjustment(
+                    p.txb.read_keys, wl_keys[c, :bt], wl_bumps[c, :bt]))
+                for c, p in enumerate(preps)])
+            txb_bt = types.TxBatch(*(torch.stack(f) for f in zip(
+                *(p.txb for p in preps))))
+            valid_bt = mvcc.validate_blocks(
+                txb_bt, cur,
+                checksum_ok=torch.stack([p.ok_ord for p in preps])).valid
+            for c, prep in enumerate(preps):
+                valid = valid_bt[c]
+                log_head[c] = stages.fold_log_head(
+                    log_head[c], prep.log_mat, cfg,
+                    material_is_digests=cfg.pipelined)
+                ledger_head[c] = fold_ledger(
+                    ledger_head[c], prep.ledger_mat ^ valid.to(u32.WORD))
+                journal_head[c] = stages.advance_journal_head(
+                    journal_head[c], block_no[c], prep.txb, valid)
+                plan = batched_mvcc.plan_block_writes(
+                    prep.txb.write_keys, valid, cfg.sequential_commit,
+                    prep.wv_ord, prep.free_ord, wl_keys[c, :bt],
+                    wl_bumps[c, :bt], wl_new[c, :bt], n_buckets_global=nb)
+                wl_keys[c, bt] = plan.keys
+                wl_vals[c, bt] = prep.txb.write_vals.reshape(lsz, -1)
+                wl_bumps[c, bt] = plan.bumps
+                wl_new[c, bt] = plan.new
+                overflow[c] = overflow[c] | state_sharding.dropped_write_bits(
+                    plan.keys, plan.dropped, nb, 1, channel=channel)
+                block_no[c] = u32.add(block_no[c], 1)
+                valids[c].append(valid[prep.inv])
+            # ---- PREPARE block bt + 1 of every channel -------------------
             if bt + 1 < d:
-                prep = prepare_block(bt + 1)
+                preps = [prepare_block(c, bt + 1) for c in range(nch)]
 
-        # ---- DRAIN: one fused commit of the window's write log -----------
-        st = ws.commit_window(st, wl_keys.reshape(-1, 2),
-                              wl_vals.reshape(-1, dims.vw),
-                              wl_bumps.reshape(-1), wl_new.reshape(-1))
-        return (st.keys, st.versions, st.values, log_head, ledger_head,
-                journal_head, block_no, overflow, torch.stack(valids))
+        # ---- DRAIN: one fused commit of each channel's write log ---------
+        for c in range(nch):
+            ws.commit_window(fs.table(keys, vers, vals, c),
+                             wl_keys[c].reshape(-1, 2),
+                             wl_vals[c].reshape(-1, dims.vw),
+                             wl_bumps[c].reshape(-1), wl_new[c].reshape(-1))
+        stack = torch.stack
+        return (keys, vers, vals, stack(log_head), stack(ledger_head),
+                stack(journal_head), stack(block_no), stack(overflow),
+                stack([stack(v) for v in valids]))
 
     return body

@@ -6,21 +6,18 @@ bit-identical to D depth-1 steps:
 
   1. :func:`stage_syntax`      -- wire words, payload checksum, decode;
   2. :func:`stage_endorse`     -- endorsement MACs (K1, one launch);
-  3. :func:`stage_mvcc_commit` -- MVCC (K4) and the commit (vectorized,
-     or K3 under a sequential commit).
 
-Plus the per-block head folds: the consensus log, the ledger and the state
-journal. The state lives in one shard and one channel here.
+then MVCC (K4, one call for every channel's block, ``mvcc.validate_blocks``)
+and the commit (vectorized, or K3 under a sequential commit), plus the
+per-block head folds: the consensus log, the ledger and the state journal.
+The state lives in one shard.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core import crypto, hashing, mvcc, orderer, types, u32
-from repro_torch.core import unmarshal
-from repro_torch.core import world_state as ws
-from repro_torch.launch import state_sharding
+from repro_torch.core import crypto, hashing, orderer, types, u32, unmarshal
 from repro_torch.storage import journal as state_journal
 
 
@@ -101,15 +98,3 @@ def decode_published(words: torch.Tensor, dims: types.FabricDims
     whole rows, which begin with it (the reference decodes those through
     the wire bytes to the same words)."""
     return unmarshal.unmarshal_prefix(words, dims)
-
-
-def stage_mvcc_commit(st: ws.HashState, txb: types.TxBatch, ok_ord, cur,
-                      cfg, *, channel=None):
-    """MVCC of a block against ``cur`` (B, RK) read versions (K4), then the
-    commit of its valid writes in place (K3 under a sequential commit).
-    Returns (state, valid (B,) bool, overflow lanes (LANES,))."""
-    res = mvcc.validate(txb, cur, checksum_ok=ok_ord)
-    cres = ws.commit(st, txb.write_keys, txb.write_vals, res.valid,
-                     sequential=cfg.sequential_commit)
-    bits = state_sharding.overflow_bits(cres.overflow[None], channel=channel)
-    return cres.state, res.valid, bits

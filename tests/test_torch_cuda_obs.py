@@ -64,7 +64,7 @@ def test_overflow_reads_and_health_card_equal_cpu(cuda, tmp_path):
             n_buckets=8, slots=2,
             recorder_dir=str(tmp_path / str(dev))), device=dev)
         eng.run_round(eng.make_proposals(2 * BLOCK))
-        occ, min_free, cap, bits = eng._shard_stats()
+        occ, min_free, cap, bits = eng._shard_stats((0,))[0]
         views.append((occ.tolist(), min_free, cap, bits,
                       eng.overflow_bits(), eng.health().to_dict(),
                       [t["reason"] for t in eng.recorder.trips],

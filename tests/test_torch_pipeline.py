@@ -92,12 +92,14 @@ def test_wrong_window_shape_raises(ff):
 
 
 def test_sharded_state_and_channels_are_refused():
-    """Sharded state and several channels come with a later slice: asked
-    for, they raise instead of running some other way."""
+    """Sharded state comes with a later slice: asked for, it raises
+    instead of running some other way. Several channels run (C = 2 is
+    held against JAX in test_torch_multichannel_step.py), but a wire of
+    another channel count than the state's is refused."""
     with pytest.raises(ValueError, match="sharded state"):
         tfs.make_fabric_step(TDIMS, tfs.FASTFABRIC_PIPELINED_STEP)
-    with pytest.raises(ValueError, match="channels"):
-        tfs.create_mesh_state(2, TDIMS, 256, 8, device="cpu")
+    assert tfs.create_mesh_state(2, TDIMS, 256, 8,
+                                 device="cpu").keys.shape[0] == 2
     step = tfs.make_fabric_step(TDIMS, tfs.FASTFABRIC_STEP)
     st = tfs.create_mesh_state(1, TDIMS, 256, 8, device="cpu")
     wire = torch.zeros((2, 16, 4 * TDIMS.payload_words), dtype=torch.uint8)
