@@ -154,11 +154,31 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
    launches), against its plain version; wrapper and device time beside
    NB x the NB = 1 time. (d) runs in phase 3 (``k4_blocks``), where the
    profiler's device times are read before the profiled rounds.
+15. Bucket-sharded world state on one card (``sharding_phase``), phase 4's
+   configuration in 4 shards of 2^18 buckets: (a) FASTFABRIC_SHARDED_STEP
+   over ten blocks of phase 4's proposals against FASTFABRIC_STEP (every
+   state tensor, head, validity bit and overflow lane identical; K2 twice
+   a shard a block) and one block of a sequential commit (K3 once a
+   shard); (b) a durable WindowCommitter(FASTFABRIC_PIPELINED_STEP,
+   n_shards=4) engine over phase 4's rounds, a snapshot every 10 blocks in
+   4 parts: the chain it keeps (pruned a snapshot behind), log and journal
+   heads and digests equal to phase 13's
+   replicated window engine, tree_head equal to the routed digest tree;
+   then rounds of 300 around a doubling, verify() all True, K1-K4 as
+   counted from the code; (c) the butterfly resize of (a)'s table, 2^20 ->
+   2^21 and back, against world_state.resize, timed; (d) an 8 x 2 table (2
+   buckets a shard) whose round overflows: the bits name the shards that
+   dropped writes, card = CPU; (e) recover_shard of each shard from (b)'s
+   directories, across the re-anchor, equal to the live shard, loading the
+   parts its range schedule names; (f) card = CPU at 2^14 buckets (the
+   depth-1 step over three blocks, the window engine over two rounds of
+   300); and the replicated and sharded window engines in turns
+   (replicated, sharded, sharded, replicated).
 
 The lines before the last give each phase's seconds, the card's name and
 power limit (as nvidia-smi prints them), the engine, ladder, serving,
-durability, observability, pipeline and channel summaries (with the
-storage objects' sizes)
+durability, observability, pipeline, channel and sharding summaries (with
+the storage objects' sizes)
 and the kernels; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -215,6 +235,17 @@ CHANNELS = 4
 CHANNEL_ZIPF = (2100, 900, 500, 400)
 CHANNEL_DURABLE_NB, CHANNEL_DURABLE_EVERY = 1 << 18, 10
 K4_NBS, K4_NB_TXS = (1, 2, 4, 8), (100, 1024)
+# Phase 15: four bucket shards (2^18 buckets each of phase 4's table); the
+# depth-1 step's blocks; the durable window engine's snapshot cadence
+# (snapshots at blocks 9 and 19) and the rounds around its doubling (3
+# blocks each: the journal suffix recover_shard replays after the snapshot
+# at block 19 crosses the re-anchor after block 22); the engines' turns;
+# the card-against-CPU table and round.
+SHARDS = 4
+SHARD_STEP_BLOCKS = 10
+SHARD_DURABLE_EVERY, SHARD_AFTER_TXS = 10, 300
+SHARD_TURNS = ("replicated", "sharded", "sharded", "replicated")
+SHARD_CHECK_NB, SHARD_CHECK_TXS = 1 << 14, 300
 ELASTIC_START, ELASTIC_ROUNDS, ELASTIC_EVERY = 1 << 11, 4, 25
 DUMP_FILES = {"trace.jsonl", "trace_chrome.json", "metrics.json",
               "lifecycles.json", "meta.json"}
@@ -271,22 +302,27 @@ def event_ms(fn, iters: int, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel_name: str, iters: int = 50) -> float | None:
+def device_ms(fn, kernel_name: str, iters: int = 50, tries: int = 3
+              ) -> float | None:
     """Mean device time of the CUDA kernel ``kernel_name`` over ``iters``
-    calls of ``fn``, from the profiler; None when it records no device
-    time."""
+    calls of ``fn``, from the profiler; None when ``tries`` profiled runs
+    all record no device time for it (a profiled run now and then records
+    none at all)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for ev in _device_events(prof):
-        if kernel_name in ev.key:
-            total += ev.self_device_time_total
-            count += ev.count
-    return total / count / 1e3 if count else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for ev in _device_events(prof):
+            if kernel_name in ev.key:
+                total += ev.self_device_time_total
+                count += ev.count
+        if count:
+            return total / count / 1e3
+    return None
 
 
 def device_call_ms(fn, kernel_names: tuple, iters: int = 50) -> float:
@@ -458,6 +494,7 @@ def window_phase(cfg, on_card, counts, zero_counts, same_results,
                  "per-block engine")
     out["rounds"] = [s._asdict() for s in st]
     out["launches"] = got
+    out["view"] = card_view  # phase 15's reference; main takes it out
     e.store.close()
     del e
     log(f"[pipeline] window engine, depth {WINDOW_DEPTH}: "
@@ -767,6 +804,345 @@ def channels_phase(cfg, counts, zero_counts, same_results, path_launches,
         f"snapshots {snaps}, launches {got}; restore() in {restore_s:.3f} "
         f"s, every channel equal to the live one, verify_all True")
 
+    return out
+
+
+def sharded_window_launches(stats, depth: int, n_shards: int) -> dict:
+    """The K1-K4 launches of a sharded window engine's rounds: as
+    :func:`window_launches` without a replay, but the window's fill and its
+    fused commit probe once a shard."""
+    n_blocks = sum(st.n_blocks for st in stats)
+    n_windows = sum(-(-st.n_blocks // depth) for st in stats)
+    return {"mac_many": 2 * len(stats) + n_windows,
+            "lookup": 2 * len(stats) + 2 * n_shards * n_windows + n_blocks,
+            "validate": n_blocks, "commit": 0}
+
+
+def sharding_phase(cfg, reference_view, counts, zero_counts, same_results,
+                   path_launches, dev, *, n_accounts: int = None,
+                   round_txs: int = None, check_nb: int = None,
+                   card: str = "") -> dict:
+    """Phase 15: bucket-sharded world state (``SHARDS`` shards) under phase
+    4's engine configuration ``cfg``; ``reference_view`` is phase 13's
+    replicated window engine's result on the same rounds. See the module
+    docstring. The keyword sizes default to the phase's; a rehearsal on
+    the CPU passes smaller ones."""
+    from repro_torch.core import endorser, engine, ledger, u32, unmarshal
+    from repro_torch.core import world_state as ws
+    from repro_torch.launch import fabric_step as fs
+    from repro_torch.launch import state_sharding as ss
+    from repro_torch.pipeline import engine_bridge as eb
+    from repro_torch.storage import recovery, snapshot
+    n_accounts = n_accounts or N_ACCOUNTS
+    round_txs = round_txs or ROUND_TXS
+    check_nb = check_nb or SHARD_CHECK_NB
+    m = SHARDS
+    dims, nb, slots = cfg.dims, cfg.n_buckets, cfg.slots
+    bsz = cfg.orderer.block_size
+    cuda = torch.device(dev).type == "cuda"
+    out = {"card": card, "n_shards": m, "nb_loc": nb // m}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def launches_ok(name, got, want):
+        path_launches[name] = got
+        bad = {k: (got[k], n) for k, n in want.items() if got[k] != n}
+        if bad:
+            raise AssertionError(f"{name}: launches (got, expected) {bad}")
+
+    def rounds(e, seeds, n=None):
+        return [e.run_round(e.make_proposals(n or round_txs, seed=s,
+                                             n_accounts=n_accounts))
+                for s in seeds]
+
+    def sharded_engine(c, device, depth=WINDOW_DEPTH):
+        wc = eb.WindowCommitter(
+            c.dims, dataclasses.replace(fs.FASTFABRIC_PIPELINED_STEP,
+                                        pipeline_depth=depth),
+            n_buckets=c.n_buckets, slots=c.slots, n_shards=m, device=device)
+        return engine.FabricEngine(c, device=device, window_committer=wc)
+
+    def replicated_engine(c, device):
+        wc = eb.WindowCommitter(
+            c.dims, fs.FabricStepConfig(pipeline_depth=WINDOW_DEPTH),
+            n_buckets=c.n_buckets, slots=c.slots, device=device)
+        return engine.FabricEngine(c, device=device, window_committer=wc)
+
+    def blocks(n, device, n_blocks):
+        """The first ``n_blocks`` blocks of a round of ``n`` of phase 4's
+        warm-up proposals, endorsed at genesis, as (D, B, WB) and (D, B, 2)
+        in proposal order."""
+        maker = engine.FabricEngine(dataclasses.replace(
+            cfg, n_buckets=1 << 10, store_blocks=False), device=device)
+        txb = endorser.execute_and_endorse(
+            maker.endorser_state, maker.make_proposals(
+                n, seed=SEEDS[0], n_accounts=n_accounts), dims)
+        wire = unmarshal.marshal(txb, dims)[:n_blocks * bsz]
+        return (wire.reshape(n_blocks, bsz, -1),
+                txb.tx_id[:n_blocks * bsz].reshape(n_blocks, bsz, 2))
+
+    def step_run(step_cfg, n_shards, wire, ids, device, table_nb):
+        step = fs.make_fabric_step(dims, step_cfg, n_shards=n_shards)
+        st = fs.create_mesh_state(1, dims, table_nb, slots, device=device)
+        valid = []
+        for k in range(wire.shape[0]):
+            st, v = step(st, wire[k][None], ids[k][None])
+            valid.append(v[0])
+        return st, torch.stack(valid)
+
+    def same_state(a, b, what):
+        (sa, va), (sb, vb) = a, b
+        for name, x, y in zip(fs.FabricMeshState._fields, sa, sb):
+            if not torch.equal(x.cpu(), y.cpu()):
+                raise AssertionError(f"{what}: {name} differs")
+        if not torch.equal(va.cpu(), vb.cpu()):
+            raise AssertionError(f"{what}: validity differs")
+
+    # (a) The sharded depth-1 step against the replicated one: ten blocks
+    # of phase 4's proposals on a 2^20 x 8 table; then one block of a
+    # sequential commit (K3 once a shard).
+    wire, ids = blocks(round_txs, dev, SHARD_STEP_BLOCKS)
+    repl = step_run(fs.FASTFABRIC_STEP, 1, wire, ids, dev, nb)
+    zero_counts()
+    t1 = time.perf_counter()
+    shard = step_run(fs.FASTFABRIC_SHARDED_STEP, m, wire, ids, dev, nb)
+    sync()
+    step_s = time.perf_counter() - t1
+    n = SHARD_STEP_BLOCKS
+    launches_ok("sharded_step", counts(), {
+        "mac_many": n, "lookup": 2 * m * n, "validate": n, "commit": 0})
+    same_state(shard, repl, "sharded depth-1 step against the replicated")
+    if ss.bits_to_int(shard[0].overflow[0]) or not bool(shard[1].all()):
+        raise AssertionError("sharded step: overflow or invalid txs")
+    seq = dataclasses.replace(fs.FASTFABRIC_SHARDED_STEP,
+                              sequential_commit=True)
+    seq_repl = step_run(dataclasses.replace(seq, shard_state=False), 1,
+                        wire[:1], ids[:1], dev, nb)
+    zero_counts()
+    seq_shard = step_run(seq, m, wire[:1], ids[:1], dev, nb)
+    sync()
+    launches_ok("sharded_step_sequential", counts(), {
+        "mac_many": 1, "lookup": m, "validate": 1, "commit": m})
+    same_state(seq_shard, seq_repl, "sharded sequential commit against "
+               "the replicated")
+    del seq_repl, seq_shard, repl
+    out["step"] = {"blocks": n, "launches": path_launches["sharded_step"],
+                   "step_s": step_s,
+                   "sequential": path_launches["sharded_step_sequential"]}
+    log(f"[sharding] depth-1 step, {m} shards of {nb // m} buckets, {n} "
+        f"blocks: every state tensor, head, validity bit and overflow lane "
+        f"equal to the replicated step's ({step_s:.3f} s); launches "
+        f"{path_launches['sharded_step']}; a sequential block: K3 "
+        f"{path_launches['sharded_step_sequential']['commit']} (once a "
+        f"shard), equal")
+
+    # (c) The butterfly resize of (a)'s table: 2^20 -> 2^21 and back.
+    table = fs.table(shard[0].keys, shard[0].versions, shard[0].values, 0)
+    resize = {}
+    for what, src, old_nb, new_nb in (("grow", table, nb, 2 * nb),
+                                      ("shrink", None, 2 * nb, nb)):
+        if src is None:
+            src = ws.HashState(*(torch.cat(p) for p in zip(*res.state)))
+        # Each timed on its second call (the first allocates).
+        for _ in range(2):
+            sync()
+            t1 = time.perf_counter()
+            res = ss.resize_sharded(ss.shard_views(src, m), new_nb // m,
+                                    old_nb, m)
+            sync()
+            routed_s = time.perf_counter() - t1
+        for _ in range(2):
+            t1 = time.perf_counter()
+            want = ws.resize(src, new_nb)
+            sync()
+            plain_s = time.perf_counter() - t1
+        got = ws.HashState(*(torch.cat(p) for p in zip(*res.state)))
+        if not all(torch.equal(x, y) for x, y in zip(got, want.state)) or \
+                bool(res.overflow) or bool(want.overflow):
+            raise AssertionError(f"resize_sharded {what} differs from "
+                                 f"world_state.resize")
+        resize[what] = {"from": old_nb, "to": new_nb, "routed_s": routed_s,
+                        "world_state_resize_s": plain_s}
+        del want, got
+    del res, src, table, shard
+    out["resize"] = resize
+    log(f"[sharding] butterfly resize, {m} shards: {resize}; equal to "
+        f"world_state.resize of the merged table")
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (b) The sharded window engine, durable, against phase 13's
+    # replicated one; then a round of 300, a doubling and another round of
+    # 300 for (e).
+    tmp = tempfile.TemporaryDirectory()
+    dirs = {k: os.path.join(tmp.name, k)
+            for k in ("journal_dir", "snapshot_dir", "block_dir")}
+    dcfg = dataclasses.replace(cfg, snapshot_every_blocks=SHARD_DURABLE_EVERY,
+                               **dirs)
+    zero_counts()
+    e = sharded_engine(dcfg, dev)
+    st = rounds(e, SEEDS)
+    view = window_view(e)
+    # The durable engine's chain is pruned a snapshot behind.
+    kept = [c for c in reference_view["chain"]
+            if c[0] >= view["chain"][0][0]]
+    if view["chain"][0][0] != e.store.base_block_no + 1:
+        raise AssertionError("sharded window engine: chain starts at block "
+                             f"{view['chain'][0][0]}, base "
+                             f"{e.store.base_block_no}")
+    same_results(dict(reference_view, chain=kept), view, "sharded window "
+                 "engine against phase 13's replicated window engine")
+    wc = e.window_committer
+    tree = wc.tree_head()
+    routed_tree = u32.to_numpy(ss.sharded_digest(ss.shard_views(
+        wc.hash_state(), m)))
+    if not (np.array_equal(tree, routed_tree) and np.array_equal(
+            tree, u32.to_numpy(ws.tree_head(wc.hash_state(), m)))):
+        raise AssertionError("sharded window engine: tree_head differs")
+    snaps = [sn.block_no for sn in e.snapshots]
+    man = snapshot.latest_manifest(dirs["snapshot_dir"])
+    parts = sorted(f for f in os.listdir(dirs["snapshot_dir"])
+                   if f.startswith(f"shard_{man.block_no:08d}_"))
+    if man.n_shards != m or len(parts) != m:
+        raise AssertionError(f"snapshot: {man.n_shards} shards, files "
+                             f"{parts}")
+    st += rounds(e, (SEEDS[-1] + 1,), SHARD_AFTER_TXS)
+    e.resize(2 * nb)
+    st += rounds(e, (SEEDS[-1] + 2,), SHARD_AFTER_TXS)
+    got = counts()
+    launches_ok("sharded_window", got,
+                sharded_window_launches(st, WINDOW_DEPTH, m))
+    verdict = e.verify()
+    if not all(verdict.values()):
+        raise AssertionError(f"sharded window engine: verify {verdict}")
+    out["window"] = {"verify": verdict, "launches": got, "snapshots": snaps,
+                     "snapshot_parts": len(parts),
+                     "tree_head": tree.tolist(),
+                     "rounds": [s._asdict() for s in st]}
+    log(f"[sharding] window engine, {m} shards, depth {WINDOW_DEPTH}, "
+        f"durable: chain (blocks {view['chain'][0][0]}-"
+        f"{view['chain'][-1][0]} kept), log head, journal head "
+        f"{view['journal_head']} and digests equal phase 13's replicated "
+        f"window engine; tree_head "
+        f"{tree.tolist()} = routed digest tree; snapshots {snaps} in {m} "
+        f"parts; rounds of {SHARD_AFTER_TXS} before and after a doubling "
+        f"to {2 * nb} buckets; verify {verdict}; launches {got}")
+
+    # (e) recover_shard for every shard from (b)'s directories.
+    e.store.drain()
+    live = ss.shard_views(wc.hash_state(), m)
+    recovered = []
+    for k in range(m):
+        sync()
+        t1 = time.perf_counter()
+        rec = recovery.recover_shard(
+            e.chans[0].journal, shard=k, device=dev,
+            snapshot_dir=ledger.channel_dir(dirs["snapshot_dir"], 0))
+        sync()
+        rec_s = time.perf_counter() - t1
+        sched = recovery._range_schedule(k, m, [nb, 2 * nb])
+        want_parts = sum(max(size // (nb // m), 1) for _, size in sched[0])
+        if not all(torch.equal(x, y) for x, y in zip(rec.state, live[k])) \
+                or rec.loaded_parts != want_parts \
+                or rec.crossed_reanchors != 1:
+            raise AssertionError(f"recover_shard({k}): differs from the live "
+                                 f"shard, or loaded {rec.loaded_parts} parts "
+                                 f"(schedule {want_parts}), crossed "
+                                 f"{rec.crossed_reanchors}")
+        recovered.append({"shard": k, "s": rec_s,
+                          "loaded_parts": rec.loaded_parts,
+                          "replayed_records": rec.replayed_records})
+    out["recover_shard"] = recovered
+    e.store.close()
+    del e, wc, live
+    tmp.cleanup()
+    log(f"[sharding] recover_shard of each of {m} shards equals the live "
+        f"shard: {recovered}")
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (b) timing: the replicated and the sharded window engines in turns.
+    turns = []
+    for mode in SHARD_TURNS:
+        e = (sharded_engine(cfg, dev) if mode == "sharded"
+             else replicated_engine(cfg, dev))
+        tst = rounds(e, SEEDS)[-1]
+        turns.append({"engine": mode, **tst._asdict(), "tps": tst.tps})
+        log(f"[sharding] turn {mode}: {tst.tps:.1f} tx/s, wall "
+            f"{tst.wall_s:.4f} s = order {tst.order_s:.4f} + commit "
+            f"{tst.commit_s:.4f}; replay {tst.replay_s:.4f} s")
+        e.store.close()
+        del e
+        if cuda:
+            torch.cuda.empty_cache()
+    med = lambda mode, k: float(np.median([t[k] for t in turns
+                                           if t["engine"] == mode]))
+    out["turns"] = turns
+    out["medians"] = {mode: {k: med(mode, k) for k in
+                             ("tps", "order_s", "commit_s", "wall_s")}
+                      for mode in ("replicated", "sharded")}
+    out["tps_ratio"] = (out["medians"]["sharded"]["tps"]
+                        / out["medians"]["replicated"]["tps"])
+    log(f"[sharding] medians {out['medians']}; sharded / replicated tx/s "
+        f"{out['tps_ratio']:.4f}")
+
+    # (d) Overflow: an 8 x 2 table in 4 shards (2 buckets each) at depth
+    # 4, a round of 200; card against CPU.
+    ocfg = dataclasses.replace(cfg, n_buckets=8, slots=2)
+    oviews = []
+    for device in (dev, "cpu"):
+        if device == dev:
+            zero_counts()
+        e = sharded_engine(ocfg, device, depth=4)
+        ost = rounds(e, (0,), 2 * bsz)
+        if device == dev:
+            launches_ok("sharded_overflow", counts(),
+                        sharded_window_launches(ost, 4, m))
+        over = e.verify()
+        bits = e.overflow_bits()
+        if over["overflow_ok"] or not over["chain_ok"] or not bits & ~1 \
+                or bits >> m:
+            raise AssertionError(f"sharded overflow: verify {over}, bits "
+                                 f"{bits:b}")
+        oviews.append((window_view(e), bits))
+        e.store.close()
+        del e
+    same_results(oviews[0][0], oviews[1][0], "sharded overflow, card "
+                 "against CPU")
+    if oviews[0][1] != oviews[1][1]:
+        raise AssertionError("sharded overflow: bits differ between card "
+                             "and CPU")
+    out["overflow"] = {"bits": oviews[0][1], "verify": over}
+    log(f"[sharding] overflow at 8 x 2 in {m} shards: bits "
+        f"{oviews[0][1]:0{m}b} (shards that dropped writes), card = CPU")
+
+    # (f) Card against CPU at 2^14 buckets: the depth-1 step over three
+    # blocks and the window engine over two rounds of 300.
+    cwire, cids = blocks(SHARD_CHECK_TXS, "cpu", SHARD_CHECK_TXS // bsz)
+    step_views = [step_run(fs.FASTFABRIC_SHARDED_STEP, m, cwire.to(device),
+                           cids.to(device), device, check_nb)
+                  for device in (dev, "cpu")]
+    same_state(*step_views, "sharded step, card against CPU")
+    ccfg = dataclasses.replace(cfg, n_buckets=check_nb)
+    cviews = []
+    for device in (dev, "cpu"):
+        e = sharded_engine(ccfg, device)
+        rounds(e, SEEDS, SHARD_CHECK_TXS)
+        cviews.append((window_view(e), e.verify(), e.window_committer
+                       .tree_head()))
+        e.store.close()
+        del e
+    same_results(cviews[0][0], cviews[1][0], "sharded window engine, card "
+                 "against CPU")
+    if cviews[0][1] != cviews[1][1] or not all(cviews[0][1].values()) or \
+            not np.array_equal(cviews[0][2], cviews[1][2]):
+        raise AssertionError(f"sharded check: verify {cviews[0][1]} / "
+                             f"{cviews[1][1]} or tree heads differ")
+    log(f"[sharding] card = CPU at {check_nb} buckets: the depth-1 step over "
+        f"{SHARD_CHECK_TXS // bsz} blocks and the window engine over two "
+        f"rounds of {SHARD_CHECK_TXS}")
     return out
 
 
@@ -2617,6 +2993,7 @@ def main(argv=None) -> int:
     pipeline = window_phase(cfg, on_card, counts, zero_counts, same_results,
                             path_launches, dev)
     pipeline["card"] = card
+    phase13_view = pipeline.pop("view")
     phase_done("13 block pipeline", t0)
 
     # -- 14. several channels on one card -----------------------------------
@@ -2626,6 +3003,13 @@ def main(argv=None) -> int:
                               path_launches, dev, card=card)
     channels["k4_blocks"] = mv_t["extra"]["blocks"]
     phase_done("14 several channels", t0)
+
+    # -- 15. bucket-sharded world state on one card -------------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    sharding = sharding_phase(cfg, phase13_view, counts, zero_counts,
+                              same_results, path_launches, dev, card=card)
+    phase_done("15 sharded state", t0)
 
     kernels = [{
         "name": t["name"], "route": "cuda", "source": t["source"],
@@ -2646,6 +3030,7 @@ def main(argv=None) -> int:
     log(json.dumps({"observability": observability}, default=str))
     log(json.dumps({"pipeline": pipeline}, default=str))
     log(json.dumps({"channels": channels}, default=str))
+    log(json.dumps({"sharding": sharding}, default=str))
     log(json.dumps({"phase_s": phase_s,
                     "total_s": time.perf_counter() - t_start}))
     log(card)

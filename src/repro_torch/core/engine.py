@@ -28,6 +28,9 @@ Device-side block pipeline (``window_committer=``): a
 ``pipeline.engine_bridge.WindowCommitter`` commits each round in windows of
 its depth instead of one block at a time, and the engine reads the peer's
 table, heads and overflow bits, snapshots, verifies and resizes through it.
+A committer with bucket-sharded state gives its shard count
+(:attr:`FabricEngine.n_shards`) to the snapshots' parts, the re-anchor
+records, the ``state.shard_overflow`` gauges and the policy's hot shard.
 
 Several channels (``EngineConfig.n_channels``): each channel has its own
 peer and replica tables, heads, journal, snapshots, block chain and resize

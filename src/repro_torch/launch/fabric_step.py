@@ -18,10 +18,20 @@ identities. The channels share no state: the syntax check, endorsement
 MACs and decode run over every channel's rows at once (they are per row),
 the probes and commits run a channel at a time on its own table, and each
 block position's MVCC runs once for every channel's block (one K4 call,
-``mvcc.validate_blocks``). Bucket-sharded state (``shard_state``) is
-refused with a ValueError. The tables are committed in place, as every
+``mvcc.validate_blocks``). The tables are committed in place, as every
 commit of the port is: the state a step returns shares its table tensors
 with the state it was given.
+
+Bucket-sharded state (``FabricStepConfig.shard_state``) splits each
+channel's table into the ``n_shards`` bucket shards of the reference's
+``model`` axis (launch/state_sharding): the state keeps the global layout
+(C, NB, S, ...), a shard is a view of it, reads route to their owner shard
+(one K2 probe a shard) and commits apply on the owner only. The overflow
+bits then name the shards that dropped a write. Sharded and replicated
+steps give identical tables, heads and validity bits; with replicated
+state ``n_shards`` changes nothing. The reference also splits each block's
+ingest over the ``model`` ranks and gathers it; here every row is processed
+where it is, which gives the same results.
 """
 
 from __future__ import annotations
@@ -31,16 +41,10 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core import mvcc, orderer, types, u32, unmarshal
+from repro_torch.core import orderer, types, u32, unmarshal
 from repro_torch.core import world_state as ws
 from repro_torch.launch import state_sharding
 from repro_torch.pipeline import stages
-
-_SHARDED_STATE_LATER = (
-    "shard_state=True: bucket-sharded state (routed lookups, commits and "
-    "resize over torch.distributed) is the next slice of the port, not "
-    "ported yet")
-
 
 class FabricMeshState(NamedTuple):
     """Per-channel peer state, channel dim leading."""
@@ -53,8 +57,9 @@ class FabricMeshState(NamedTuple):
     journal_head: torch.Tensor  # (C, 2) state-journal digest chain
     block_no: torch.Tensor  # (C,) next block number
     overflow: torch.Tensor  # (C, LANES) sticky per-shard overflow bitmask
-    # (state_sharding): bit 0 once a commit dropped a write on a full
-    # bucket, after which the channel's version accounting is untrusted
+    # (state_sharding): bit m once shard m (bit 0: a replicated table)
+    # dropped a write on a full bucket, after which the channel's version
+    # accounting is untrusted
 
 
 def create_mesh_state(n_channels: int, dims: types.FabricDims,
@@ -82,7 +87,7 @@ class FabricStepConfig:
     pipelined: bool = True  # O-II
     sequential_commit: bool = False  # paper-faithful serial commit (K3)
     tree_hash: bool = False  # O(log B) pairwise log and ledger folds
-    shard_state: bool = False  # bucket-sharded state: refused (next slice)
+    shard_state: bool = False  # bucket-sharded state (state_sharding)
     pipeline_depth: int = 1  # P-II device-side block pipeline: blocks a
     # step; D > 1 takes a (C, D, B, ...) window
 
@@ -109,10 +114,12 @@ def table(keys, vers, vals, c: int) -> ws.HashState:
     return ws.HashState(keys=keys[c], versions=vers[c], values=vals[c])
 
 
-def _block_body(dims: types.FabricDims, cfg: FabricStepConfig, channel):
+def _block_body(dims: types.FabricDims, cfg: FabricStepConfig,
+                n_shards: int, channel):
     """The depth-1 step of C channels: one block a channel, every stage in
     order; the syntax check, MACs and decode over all channels' rows at
-    once, one MVCC call for the C blocks."""
+    once, one MVCC call for the C blocks. Under ``cfg.shard_state`` the
+    read and the commit route over ``n_shards`` bucket shards."""
     spw = unmarshal.struct_prefix_words(dims)
 
     def body(keys, vers, vals, log_head, ledger_head, journal_head, bno,
@@ -129,17 +136,17 @@ def _block_body(dims: types.FabricDims, cfg: FabricStepConfig, channel):
         txb = types.TxBatch(*(a.reshape(nch, b, *a.shape[1:]) for a in
                               stages.decode_published(
                                   ordered_words.reshape(nch * b, -1), dims)))
+        tables = [table(keys, vers, vals, c) for c in range(nch)]
         cur = torch.stack([
-            ws.lookup(table(keys, vers, vals, c),
-                      txb.read_keys[c].reshape(-1, 2)).versions.reshape(b, -1)
+            stages.stage_read(tables[c], txb.read_keys[c].reshape(-1, 2),
+                              cfg, n_shards).reshape(b, -1)
             for c in range(nch)])
         ok_ord = torch.stack([ok[c][o] for c, o in enumerate(orders)])
-        valid = mvcc.validate_blocks(txb, cur, checksum_ok=ok_ord).valid
+        valid, blk_ovf = stages.stage_mvcc_commit(
+            tables, txb, ok_ord, cur, cfg, n_shards=n_shards,
+            channel=channel)
         heads = []
         for c, order in enumerate(orders):
-            cres = ws.commit(table(keys, vers, vals, c),
-                             txb.write_keys[c], txb.write_vals[c], valid[c],
-                             sequential=cfg.sequential_commit)
             heads.append((
                 stages.fold_log_head(log_head[c], published[c], cfg),
                 stages.fold_ledger_head(ledger_head[c], ordered_words[c],
@@ -147,8 +154,7 @@ def _block_body(dims: types.FabricDims, cfg: FabricStepConfig, channel):
                 stages.advance_journal_head(
                     journal_head[c], bno[c],
                     types.TxBatch(*(a[c] for a in txb)), valid[c]),
-                ovf[c] | state_sharding.overflow_bits(
-                    cres.overflow[None], channel=channel),
+                ovf[c] | blk_ovf[c],
                 valid[c][torch.argsort(order)]))
         log_h, led, jrn, ovf, valid = (torch.stack(x) for x in zip(*heads))
         return (keys, vers, vals, log_h, led, jrn, u32.add(bno, 1), ovf,
@@ -158,7 +164,7 @@ def _block_body(dims: types.FabricDims, cfg: FabricStepConfig, channel):
 
 
 def make_fabric_step(dims: types.FabricDims, cfg: FabricStepConfig, *,
-                     channel=None):
+                     n_shards: int = 1, channel=None):
     """The step ``apply(state, wire, ids) -> (state, valid)`` for the C
     channels of ``state`` on its device.
 
@@ -166,21 +172,30 @@ def make_fabric_step(dims: types.FabricDims, cfg: FabricStepConfig, *,
     Depth D: ``wire`` (C, D, B, WB), ``ids`` (C, D, B, 2), ``valid``
     (C, D, B), bit-identical to D depth-1 steps. ``valid`` is in ingest
     order, and each channel's results equal a one-channel step fed that
-    channel's blocks. ``channel`` names the channel(s) in errors."""
+    channel's blocks. ``n_shards`` is the size of the reference's
+    ``model`` axis: under ``cfg.shard_state`` each table is split into that
+    many bucket shards (a power of two, at most
+    ``state_sharding.MAX_OVERFLOW_SHARDS``, dividing the bucket count).
+    ``channel`` names the channel(s) in errors."""
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
     if cfg.shard_state:
-        raise ValueError(_SHARDED_STATE_LATER)
+        state_sharding.check_shard_count(n_shards, channel=channel)
     depth = cfg.pipeline_depth
     if depth > 1:
         from repro_torch.pipeline import schedule  # layering stays one-way
-        body = schedule.make_window_body(dims, cfg, depth, channel=channel)
+        body = schedule.make_window_body(dims, cfg, depth, n_shards=n_shards,
+                                         channel=channel)
     else:
-        body = _block_body(dims, cfg, channel)
+        body = _block_body(dims, cfg, n_shards, channel)
 
     def apply(state: FabricMeshState, wire, ids):
         if wire.shape[0] != state.keys.shape[0]:
             raise ValueError(
                 f"a state of {state.keys.shape[0]} channels got a wire of "
                 f"{wire.shape[0]} channels")
+        if cfg.shard_state:
+            ws.shard_buckets(state.keys.shape[1], n_shards)  # the split
         if depth > 1 and (wire.ndim != 4 or wire.shape[1] != depth):
             raise ValueError(
                 f"pipeline_depth={depth} expects wire (C, {depth}, B, WB); "

@@ -1,9 +1,10 @@
 """The window's batched state fill and its exact write planner (port of
-repro.pipeline.batched_mvcc, one shard).
+repro.pipeline.batched_mvcc).
 
 A window of D blocks probes the table once (:func:`gather_window_state`:
-the read and write keys of all D * B transactions in one K2 launch, plus
-the free slots of every write key's bucket), and then reconstructs what a
+the read and write keys of all D * B transactions in one K2 launch, or one
+a shard when the state is bucket-sharded, plus the free slots of every
+write key's bucket), and then reconstructs what a
 per-block probe would have returned at each block's commit point:
 
   version after block t-1  ==  version at the fill  +  the APPLIED valid
@@ -27,6 +28,7 @@ import torch
 
 from repro_torch.core import hashing, u32
 from repro_torch.core import world_state as ws
+from repro_torch.launch import state_sharding
 
 
 class WindowFill(NamedTuple):
@@ -39,19 +41,31 @@ class WindowFill(NamedTuple):
 
 
 def gather_window_state(local: ws.HashState, read_keys: torch.Tensor,
-                        write_keys: torch.Tensor) -> WindowFill:
+                        write_keys: torch.Tensor, shard_state: bool = False,
+                        *, n_buckets_global: int = None, n_shards: int = 1
+                        ) -> WindowFill:
     """One probe of a window's read keys (N, RK, 2) and write keys
     (N, WK, 2) together, in ingest order, and the free slots of the write
-    keys' buckets."""
+    keys' buckets. ``local`` is the channel's table; with ``shard_state``
+    the reads, writes and free counts go through one routed
+    ``sharded_window_fill`` over its ``n_shards`` shards of
+    ``n_buckets_global`` buckets in all."""
     n = read_keys.shape[0]
     rflat = read_keys.reshape(-1, 2)
     wflat = write_keys.reshape(-1, 2)
-    vers = ws.lookup(local, torch.cat([rflat, wflat])).versions
+    allk = torch.cat([rflat, wflat])
+    if shard_state:
+        vers, free = state_sharding.sharded_window_fill(
+            state_sharding.shard_views(local, n_shards), allk, wflat,
+            n_buckets_global, n_shards)
+    else:
+        vers = ws.lookup(local, allk).versions
+        free = ws.bucket_free_slots(local, wflat)
     nr = rflat.shape[0]
     return WindowFill(
         read_vers=vers[:nr].reshape(n, -1),
         write_vers=vers[nr:].reshape(n, -1),
-        write_free=ws.bucket_free_slots(local, wflat).reshape(n, -1))
+        write_free=free.reshape(n, -1))
 
 
 def version_adjustment(read_keys: torch.Tensor, wlog_keys: torch.Tensor,

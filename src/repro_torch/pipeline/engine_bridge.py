@@ -20,8 +20,15 @@ merges it into a group at the new layout, if there is one. The engine
 reads each channel's state, digests, heads and overflow bits through the
 ``*_for(channel)`` accessors, and resizes between windows. With one channel
 the single-channel surface (``state``, ``commit_window``, ``journal_head``,
-``overflow_bits``, ``resize(nb)``) is unchanged. Bucket-sharded state is
-refused (the next slice).
+``overflow_bits``, ``resize(nb)``) is unchanged.
+
+``n_shards`` is the size of the reference's ``model`` axis. Under a
+``shard_state`` config each channel's table is that many bucket shards
+(views of the channel's table, launch/state_sharding): the steps route
+their reads and commits over them, a resize is the butterfly exchange
+(``state_sharding.resize_sharded``), and the shard stats, hot shard, digest
+tree and the engine's snapshots and re-anchor records follow the shards.
+With replicated state a table is one shard.
 """
 
 from __future__ import annotations
@@ -121,19 +128,23 @@ class WindowCommitter:
     """The committer role backed by the windowed fabric step: ``n_channels``
     channels on one device (default: the card; raises without one unless
     ``device='cpu'``). Each channel's results equal a one-channel
-    committer's fed that channel's blocks."""
-
-    n_shards = 1  # a table is one bucket shard
+    committer's fed that channel's blocks. ``n_shards`` is the reference's
+    ``model`` size: the bucket shards of a table under ``cfg.shard_state``
+    (a power of two dividing ``n_buckets``)."""
 
     def __init__(self, dims: types.FabricDims, cfg: fs.FabricStepConfig, *,
                  n_buckets: int = 1 << 12, slots: int = 8,
-                 n_channels: int = 1, device=None):
-        if cfg.shard_state:
-            raise ValueError(fs._SHARDED_STATE_LATER)
+                 n_channels: int = 1, n_shards: int = 1, device=None):
         if n_channels < 1:
             raise ValueError(f"n_channels must be >= 1, got {n_channels}")
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        if cfg.shard_state:
+            state_sharding.check_shard_count(n_shards)
+            ws.shard_buckets(n_buckets, n_shards)
         self.dims = dims
         self.cfg = cfg
+        self.model_size = n_shards
         self.slots = slots
         self.n_channels = n_channels
         self.device = resolve_device(device)
@@ -168,6 +179,12 @@ class WindowCommitter:
         return max(self.cfg.pipeline_depth, 1)
 
     @property
+    def n_shards(self) -> int:
+        """Bucket shards of a channel's table: the ``model`` size when the
+        state is sharded, else 1."""
+        return self.model_size if self.cfg.shard_state else 1
+
+    @property
     def state(self) -> fs.FabricMeshState:
         """THE state, while every channel shares one layout (always, with
         one channel)."""
@@ -195,6 +212,7 @@ class WindowCommitter:
         if key not in self._steps:
             self._steps[key] = fs.make_fabric_step(
                 self.dims, dataclasses.replace(self.cfg, pipeline_depth=d),
+                n_shards=self.model_size,
                 channel=None if self.n_channels == 1 else channels)
         return self._steps[key]
 
@@ -271,14 +289,25 @@ class WindowCommitter:
     def resize(self, new_n_buckets: int, channel: int = 0) -> ReanchorInfo:
         """Halve or double ONE channel's table between windows (nothing is
         in flight: the window write log assumes one layout a window): split
-        the channel out of its shape group, rehash it, merge it into a group
-        at the new layout if there is one, and latch any shrink overflow.
-        Other channels are untouched. Returns the epoch's
-        :class:`ReanchorInfo`."""
+        the channel out of its shape group, rehash it (under
+        ``cfg.shard_state`` the butterfly exchange of its shards, one
+        doubling or halving at a time), merge it into a group at the new
+        layout if there is one, and latch any shrink overflow on the bits
+        of the shards that dropped entries. Other channels are untouched.
+        Returns the epoch's :class:`ReanchorInfo`."""
         g, pos = self._locate(channel)
         old_nb = g.n_buckets
         if new_n_buckets == old_nb:
             raise ValueError(f"resize to current size {old_nb}")
+        m = self.n_shards
+        if self.cfg.shard_state:
+            # Refuse before the channel leaves its group.
+            new_nb_loc = new_n_buckets // m
+            if new_n_buckets not in (2 * old_nb, old_nb // 2):
+                raise ValueError(
+                    f"resize_sharded steps by 2x only: nb_loc={old_nb // m}"
+                    f" -> {new_nb_loc}")
+            ws.shard_buckets(new_n_buckets, m)
         lone = _take(g.state, [pos])
         if len(g.channels) > 1:
             g.state = _take(g.state, [i for i in range(len(g.channels))
@@ -286,13 +315,20 @@ class WindowCommitter:
             g.channels = tuple(c for c in g.channels if c != channel)
         else:
             self.groups.remove(g)
-        res = ws.resize(ws.HashState(lone.keys[0], lone.versions[0],
-                                     lone.values[0]), new_n_buckets)
+        tab = ws.HashState(lone.keys[0], lone.versions[0], lone.values[0])
+        if self.cfg.shard_state:
+            res = state_sharding.resize_sharded(
+                state_sharding.shard_views(tab, m), new_nb_loc, old_nb, m)
+            new = ws.HashState(*(torch.cat(a) for a in zip(*res.state)))
+        else:
+            res = ws.resize(tab, new_n_buckets)
+            new = res.state
         lone = lone._replace(
-            keys=res.state.keys[None], versions=res.state.versions[None],
-            values=res.state.values[None],
-            overflow=lone.overflow
-            | state_sharding.overflow_bits(res.overflow[None]))
+            keys=new.keys[None], versions=new.versions[None],
+            values=new.values[None],
+            overflow=lone.overflow | state_sharding.overflow_bits(
+                res.shard_overflow if self.cfg.shard_state
+                else res.overflow[None]))
         target = next((h for h in self.groups
                        if h.n_buckets == new_n_buckets), None)
         if target is None:
@@ -392,8 +428,8 @@ class WindowCommitter:
 
     @property
     def overflow_bits(self) -> int:
-        """Channel 0's sticky per-shard bitmask as one int (bit 0: the
-        table)."""
+        """Channel 0's sticky per-shard bitmask as one int (bit m: shard m;
+        bit 0 for a replicated table)."""
         return self.overflow_bits_for(0)
 
     def overflow_bits_for(self, channel: int) -> int:

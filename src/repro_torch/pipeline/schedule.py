@@ -5,7 +5,8 @@ channels on one device (port of repro.pipeline.schedule).
              checksum, decode and endorsement MACs of all C * D * B
              transactions at once (one K1 launch) and the window decode;
              then ONE probe a channel of its read and write keys (one K2
-             launch a channel, :mod:`.batched_mvcc`); then block 0's
+             launch a channel, or a shard of it when the state is
+             bucket-sharded: :mod:`.batched_mvcc`); then block 0's
              prepare stage on every channel.
   STEADY  -- for each block position i: the VALIDATE stage of every
              channel's block i (in-window version repair, then MVCC of the
@@ -18,7 +19,9 @@ channels on one device (port of repro.pipeline.schedule).
              inside a scan and vmaps the channels; here they follow each
              other on one stream, with the same results.
   DRAIN   -- the fused window commit of each channel: its planned write log
-             applied with one scatter (``world_state.commit_window``).
+             applied with one scatter (``world_state.commit_window``), or
+             one a shard on the owned entries
+             (``state_sharding.commit_window_routed``).
 
 No block touches the table before the drain: the planner replays each
 block's commit (insert or update, slot budget, overflow) against the fill
@@ -55,7 +58,7 @@ class Prepared(NamedTuple):
 
 
 def make_window_body(dims: types.FabricDims, cfg, depth: int, *,
-                     channel=None):
+                     n_shards: int = 1, channel=None):
     """The body of a depth-``depth`` window step for C channels.
 
     ``body(keys, versions, values, log_head, ledger_head, journal_head,
@@ -63,9 +66,12 @@ def make_window_body(dims: types.FabricDims, cfg, depth: int, *,
     heads (C, 2), block numbers (C,), overflow lanes (C, LANES), ``wire``
     (C, D, B, WB) u8 and ``ids`` (C, D, B, 2); it commits into the tables
     in place and returns (keys, versions, values, heads..., block_no,
-    overflow, valid (C, D, B)), ``valid`` in ingest order. ``channel``
-    names the channel(s) in errors.
+    overflow, valid (C, D, B)), ``valid`` in ingest order. Under
+    ``cfg.shard_state`` each table is ``n_shards`` bucket shards: the fill
+    and the drain route over them, and a dropped write sets its owner
+    shard's overflow bit. ``channel`` names the channel(s) in errors.
     """
+    msize = n_shards if cfg.shard_state else 1
     spw = (unmarshal.struct_prefix_words(dims)
            if cfg.separate_metadata else None)
     fold_ledger = stages.ledger_fold(cfg)
@@ -109,7 +115,8 @@ def make_window_body(dims: types.FabricDims, cfg, depth: int, *,
             fill = batched_mvcc.gather_window_state(
                 fs.table(keys, vers, vals, c),
                 txb_cdb.read_keys[c].reshape(d * b, -1, 2),
-                txb_cdb.write_keys[c].reshape(d * b, -1, 2))
+                txb_cdb.write_keys[c].reshape(d * b, -1, 2),
+                cfg.shard_state, n_buckets_global=nb, n_shards=msize)
             fills.append(tuple(x.reshape(d, b, -1) for x in fill))
 
         def prepare_block(c, i):
@@ -162,7 +169,7 @@ def make_window_body(dims: types.FabricDims, cfg, depth: int, *,
                 wl_bumps[c, bt] = plan.bumps
                 wl_new[c, bt] = plan.new
                 overflow[c] = overflow[c] | state_sharding.dropped_write_bits(
-                    plan.keys, plan.dropped, nb, 1, channel=channel)
+                    plan.keys, plan.dropped, nb, msize, channel=channel)
                 block_no[c] = u32.add(block_no[c], 1)
                 valids[c].append(valid[prep.inv])
             # ---- PREPARE block bt + 1 of every channel -------------------
@@ -171,10 +178,14 @@ def make_window_body(dims: types.FabricDims, cfg, depth: int, *,
 
         # ---- DRAIN: one fused commit of each channel's write log ---------
         for c in range(nch):
-            ws.commit_window(fs.table(keys, vers, vals, c),
-                             wl_keys[c].reshape(-1, 2),
-                             wl_vals[c].reshape(-1, dims.vw),
-                             wl_bumps[c].reshape(-1), wl_new[c].reshape(-1))
+            log = (wl_keys[c].reshape(-1, 2), wl_vals[c].reshape(-1, dims.vw),
+                   wl_bumps[c].reshape(-1), wl_new[c].reshape(-1))
+            tab = fs.table(keys, vers, vals, c)
+            if cfg.shard_state:
+                state_sharding.commit_window_routed(
+                    state_sharding.shard_views(tab, msize), *log, nb, msize)
+            else:
+                ws.commit_window(tab, *log)
         stack = torch.stack
         return (keys, vers, vals, stack(log_head), stack(ledger_head),
                 stack(journal_head), stack(block_no), stack(overflow),

@@ -7,17 +7,22 @@ bit-identical to D depth-1 steps:
   1. :func:`stage_syntax`      -- wire words, payload checksum, decode;
   2. :func:`stage_endorse`     -- endorsement MACs (K1, one launch);
 
-then MVCC (K4, one call for every channel's block, ``mvcc.validate_blocks``)
-and the commit (vectorized, or K3 under a sequential commit), plus the
-per-block head folds: the consensus log, the ledger and the state journal.
-The state lives in one shard.
+then the read-set probe (:func:`stage_read`, K2), MVCC and the commit
+(:func:`stage_mvcc_commit`: K4, one call for every channel's block,
+``mvcc.validate_blocks``; the commit vectorized, or K3 under a sequential
+commit), plus the per-block head folds: the consensus log, the ledger and
+the state journal. Under ``cfg.shard_state`` the read and the commit route
+over the table's bucket shards (launch/state_sharding).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core import crypto, hashing, orderer, types, u32, unmarshal
+from repro_torch.core import (crypto, hashing, mvcc, orderer, types, u32,
+                              unmarshal)
+from repro_torch.core import world_state as ws
+from repro_torch.launch import state_sharding
 from repro_torch.storage import journal as state_journal
 
 
@@ -98,3 +103,41 @@ def decode_published(words: torch.Tensor, dims: types.FabricDims
     whole rows, which begin with it (the reference decodes those through
     the wire bytes to the same words)."""
     return unmarshal.unmarshal_prefix(words, dims)
+
+
+def stage_read(table: ws.HashState, keys: torch.Tensor, cfg, n_shards: int
+               ) -> torch.Tensor:
+    """Committed versions of a flat (K, 2) key batch in a channel's table:
+    one K2 probe, or under ``cfg.shard_state`` the routed probe over its
+    ``n_shards`` shards (one K2 probe a shard)."""
+    if cfg.shard_state:
+        return state_sharding.sharded_lookup(
+            state_sharding.shard_views(table, n_shards), keys,
+            table.n_buckets, n_shards).versions
+    return ws.lookup(table, keys).versions
+
+
+def stage_mvcc_commit(tables: list, txb: types.TxBatch, ok_ord, cur, cfg, *,
+                      n_shards: int = 1, channel=None):
+    """MVCC of the C channels' ordered blocks (``txb`` fields (C, B, ...),
+    ``ok_ord`` (C, B), read versions ``cur`` (C, B, RK)) in one K4 call,
+    then each channel's commit of its valid write sets into ``tables[c]``,
+    in place: vectorized or, under ``cfg.sequential_commit``, one K3
+    launch (a shard, under ``cfg.shard_state``). Returns (valid (C, B),
+    the blocks' overflow lanes (C, LANES): bit m == shard m dropped a
+    write on a full bucket; bit 0 for a replicated table)."""
+    valid = mvcc.validate_blocks(txb, cur, checksum_ok=ok_ord).valid
+    bits = []
+    for c, st in enumerate(tables):
+        if cfg.shard_state:
+            cres = state_sharding.sharded_commit(
+                state_sharding.shard_views(st, n_shards), txb.write_keys[c],
+                txb.write_vals[c], valid[c], st.n_buckets, n_shards,
+                sequential=cfg.sequential_commit)
+            ovf = cres.shard_overflow
+        else:
+            ovf = ws.commit(st, txb.write_keys[c], txb.write_vals[c],
+                            valid[c], sequential=cfg.sequential_commit
+                            ).overflow[None]
+        bits.append(state_sharding.overflow_bits(ovf, channel=channel))
+    return valid, torch.stack(bits)

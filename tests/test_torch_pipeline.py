@@ -92,12 +92,23 @@ def test_wrong_window_shape_raises(ff):
 
 
 def test_sharded_state_and_channels_are_refused():
-    """Sharded state comes with a later slice: asked for, it raises
-    instead of running some other way. Several channels run (C = 2 is
-    held against JAX in test_torch_multichannel_step.py), but a wire of
-    another channel count than the state's is refused."""
-    with pytest.raises(ValueError, match="sharded state"):
-        tfs.make_fabric_step(TDIMS, tfs.FASTFABRIC_PIPELINED_STEP)
+    """Sharded state runs (held against JAX in test_torch_sharded_step.py),
+    but a shard count that is no partition of the table, or more shards
+    than the overflow bitmask has bits, raises instead of running some
+    other way. Several channels run (C = 2 is held against JAX in
+    test_torch_multichannel_step.py), but a wire of another channel count
+    than the state's is refused."""
+    with pytest.raises(ValueError, match="<= 64 shards"):
+        tfs.make_fabric_step(TDIMS, tfs.FASTFABRIC_PIPELINED_STEP,
+                             n_shards=128)
+    wire, ids = window(8, seed=1)
+    for m, nb in ((3, 256), (16, 8)):
+        sstep = tfs.make_fabric_step(TDIMS, tfs.FASTFABRIC_PIPELINED_STEP,
+                                     n_shards=m)
+        with pytest.raises(ValueError, match="n_shards"):
+            sstep(tfs.create_mesh_state(1, TDIMS, nb, 8, device="cpu"),
+                  torch.from_numpy(wire[None].copy()), u32.from_numpy(
+                      ids[None]))
     assert tfs.create_mesh_state(2, TDIMS, 256, 8,
                                  device="cpu").keys.shape[0] == 2
     step = tfs.make_fabric_step(TDIMS, tfs.FASTFABRIC_STEP)

@@ -229,9 +229,14 @@ def test_overflowing_window_engine_is_unhealthy():
 
 
 def test_committer_refuses_what_is_not_ported():
-    with pytest.raises(ValueError, match="sharded state"):
+    with pytest.raises(ValueError, match="power of two"):
         teb.WindowCommitter(TDIMS, tfs.FASTFABRIC_PIPELINED_STEP,
-                            device="cpu")
+                            n_shards=3, device="cpu")
+    sharded = teb.WindowCommitter(TDIMS, tfs.FASTFABRIC_PIPELINED_STEP,
+                                  n_buckets=START, n_shards=4, device="cpu")
+    with pytest.raises(ValueError, match="2x only"):
+        sharded.resize(4 * START)
+    assert sharded.n_buckets == START and sharded.n_shards == 4
     wc = _committer()
     with pytest.raises(ValueError, match="channel 1"):
         wc.journal_head_for(1)
