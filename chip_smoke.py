@@ -39,7 +39,11 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
    at 200 and 8,192 queries; K3 at 200, 2,048 and 4,096 writes and on a
    hot bucket (64 writes of 6 keys); K4 at 100, 1,024, 2,048 and 4,096
    txs, device time a chunk, and each of its two routes, forced, at 32 to
-   1,235 txs, where the wrapper chooses between them.
+   1,235 txs, where the wrapper chooses between them. K5's backward at the
+   training shape (4, 2048, 28, 4, 128) bf16 causal: CUDA events and the
+   profiler's device time a call (its three kernels), beside its bound
+   (5 products, 2.5x the forward's causal operations, at 989 TFLOP/s),
+   its plain version and SDPA's backward (fwd+bwd - fwd, in turns).
 4. Run the FASTFABRIC engine on the card at PAPER_DIMS (2.9 KB
    transactions), blocks of 100, a 2^20-bucket x 8-slot world state, and
    proposals from 2^22 accounts: one warm-up round, then a timed round of
@@ -174,12 +178,36 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
    depth-1 step over three blocks, the window engine over two rounds of
    300); and the replicated and sharded window engines in turns
    (replicated, sharded, sharded, replicated).
+16. LM training on the card (``training_phase``), under torch's
+   deterministic algorithms (cuBLAS's workspace fixed at start): (a)
+   Qwen2-7B at full width (d 3,584, 28/4 heads, D = 128, d_ff 18,944,
+   vocab 152,064, untied head), bf16, cut to 4 layers (2.02 B parameters;
+   params, gradients and f32 moments take ~24 GB, all 28 layers ~91 GB),
+   random weights from --seed, batches of 4 x 2,048 tokens from the port's
+   pipeline, TrainConfig and AdamWConfig from launch/train.build: a
+   warm-up step, 6 timed steps (host clock + sync) and a profiled one;
+   every loss finite, every microbatch endorsed, none skipped; counters set
+   to 0 before the timed steps and read after, K5's forward and backward
+   each exactly 4 a step; a second run of 2 steps from the same seed equal
+   bit for bit (params, moments, ledger head) to the first run after 2;
+   tokens/s, median step ms, peak device memory, the profiled step's busy
+   share. (b) The same width at 1 layer, f32 (TF32 off), batch 1 x 256:
+   one step's loss, gradient norm and every gradient, card against CPU
+   (GRAD_TOL of each leaf's largest magnitude). (c) The qwen2-7b smoke
+   config in f32 and in bf16 (K5's CUDA-core and mma.sync instances): 6
+   steps straight against 3 + a Checkpointer save + restore into a fresh
+   state + 3, bit for bit, verify_chain() True. (d) K5's backward (its
+   dQ, dK, dV from the kernel's own O and LSE) against its plain version
+   on the inputs cast to f32 at FLASH_BWD_CASES (the training shape, 777
+   tokens, MHA at D = 96 in f32 and bf16, MQA at D = 16 in f32, one row
+   past a tile, no causal mask), the forward's LSE against the plain one,
+   and O with the LSE written equal bit for bit to O without it.
 
 The lines before the last give each phase's seconds, the card's name and
 power limit (as nvidia-smi prints them), the engine, ladder, serving,
-durability, observability, pipeline, channel and sharding summaries (with
-the storage objects' sizes)
-and the kernels; the last line is {"ok": true, "device": {...}}.
+durability, observability, pipeline, channel, sharding and training
+summaries (with the storage objects' sizes) and the kernels (K1-K5 and
+K5's backward); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -188,6 +216,7 @@ import argparse
 import ctypes
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -275,6 +304,34 @@ FLASH_TIMED = ((1, 2048, 28, 4, 128), (1, 777, 28, 4, 128),
 # relative through two layers and a 3,584-term head product on logits of
 # size ~1; 1e-4 leaves two orders of magnitude.
 LOGITS_TOL = 1e-4
+# Phase 16, training. (a) Qwen2-7B at full width cut to 4 layers: params,
+# gradients and f32 m and v take 12 B a parameter, so all 28 layers (7.62 B
+# parameters) would need ~91 GB, 4 layers (2.02 B) ~24 GB; batches of 4 x
+# 2,048 tokens (8,192 a step) from the port's pipeline, a warm-up step,
+# then 6 timed steps. (b) card against CPU at 1 layer, f32, batch 1 x 256.
+TRAIN_ARCH = "qwen2-7b"
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4, 2048, 4, 6
+TRAIN_CHECK_SEQ = 256
+# (b)'s limits. Both sides run the same f32 math (TF32 off), summed in
+# other orders: cuBLAS against MKL, K5's f32 kernels (tiles, shuffles)
+# against the plain attention, rmsnorm's row means over 3,584 and the
+# 152,064-way log-sum-exp. Each differs by ~1e-7-1e-6 of its terms, and a
+# gradient leaf's largest element is at least as large as its terms: 1e-4
+# of the leaf's largest magnitude leaves two orders of magnitude, as
+# LOGITS_TOL does, while a kernel fault (a key tile dropped, dS without
+# its - delta) moves a leaf by a good share of its largest element. The
+# loss and the gradient norm: 1e-5 relative (a 256-term mean of ~12).
+GRAD_TOL = 1e-4
+TRAIN_LOSS_TOL = 1e-5
+# (d) K5's backward against its plain version: (B, S, H, Hkv, D), dtype,
+# causal; the first is the training shape, timed in phase 3.
+FLASH_BWD_CASES = (((4, 2048, 28, 4, 128), "bfloat16", True),
+                   ((1, 777, 28, 4, 128), "bfloat16", True),
+                   ((2, 300, 32, 32, 96), "float32", True),
+                   ((2, 300, 32, 32, 96), "bfloat16", True),
+                   ((2, 64, 4, 1, 16), "float32", True),
+                   ((1, 129, 28, 4, 128), "bfloat16", True),
+                   ((1, 300, 28, 4, 128), "bfloat16", False))
 
 
 def log(*a):
@@ -1243,6 +1300,420 @@ def _profile_window(e, sync, n_accounts, round_txs) -> dict:
     return got
 
 
+def flash_bwd_timing(dev) -> dict:
+    """Phase 3's timing of K5's backward (a ``timing`` entry)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    # K5's backward at the training shape (phase 16's), beside its bound
+    # (5 products: 2.5x the forward's causal operations; Q, K, V, O, dO and
+    # the LSE read and dQ, dK, dV written once) and SDPA's backward
+    # (fwd+bwd - fwd), in turns: K5, SDPA fwd+bwd, SDPA fwd, twice.
+    (bb, bs, bh, bkv, bd), _, _ = FLASH_BWD_CASES[0]
+    g_ = torch.Generator(device=dev).manual_seed(400)
+    bq, bk_, bv, bdo = (torch.randn((bb, bs, n, bd), generator=g_,
+                                    device=dev).bfloat16()
+                        for n in (bh, bkv, bkv, bh))
+    bo, blse = fa_ops._forward(bq, bk_, bv, True, with_lse=True)
+    k5_bwd = lambda: fa_ops.flash_attention_bwd(bq, bk_, bv, bo, bdo, blse,
+                                                causal=True)
+    bflop = 2.5 * 4 * bb * bs * (bs + 1) // 2 * bh * bd
+    bbytes = (2 * 2 * (3 * bb * bs * bh * bd + 2 * bb * bs * bkv * bd)
+              - 2 * bb * bs * bh * bd + 4 * bb * bh * bs)
+    bq_t, bk_t, bv_t = (x.transpose(1, 2).contiguous().requires_grad_()
+                        for x in (bq, bk_, bv))
+    bdo_t = bdo.transpose(1, 2).contiguous()
+    sdpa_f = lambda: F.scaled_dot_product_attention(
+        bq_t, bk_t, bv_t, is_causal=True, enable_gqa=True)
+    sdpa_fb = lambda: torch.autograd.grad(sdpa_f(), (bq_t, bk_t, bv_t),
+                                          bdo_t)
+    turns = {"k5": [], "sdpa_fwd_bwd": [], "sdpa_fwd": []}
+    for _ in range(2):
+        turns["k5"].append(event_ms(k5_bwd, 100))
+        turns["sdpa_fwd_bwd"].append(event_ms(sdpa_fb, 100))
+        turns["sdpa_fwd"].append(event_ms(sdpa_f, 100))
+    mean = lambda xs: sum(xs) / len(xs)
+    bdev = device_call_ms(k5_bwd, ("flash_bwd",)) or float("nan")
+    lib_dev = device_total_ms(sdpa_fb) - device_total_ms(sdpa_f)
+    t = dict(
+        name="flash_attention_bwd", kernel="flash_bwd",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="none (no Pallas entry: the JAX package differentiates "
+                 "attn_naive, src/repro/models/layers.py:172)",
+        ms=mean(turns["k5"]),
+        plain_ms=event_ms(lambda: fa_ref.flash_attention_bwd_ref(
+            bq, bk_, bv, bo, bdo, blse, True), 3, warmup=1),
+        library_ms=mean(turns["sdpa_fwd_bwd"]) - mean(turns["sdpa_fwd"]),
+        device_ms=bdev,
+        bound=bound_ms(bbytes, bflop, TC_BF16_OPS_PER_S),
+        shape=f"(B, S, H, Hkv, D) = {FLASH_BWD_CASES[0][0]} bf16, causal",
+        turns={"events_ms": turns, "sdpa_bwd_device_ms": lib_dev,
+               "tflops": bflop / bdev / 1e9, "flop": bflop})
+    fb_t = t
+    log(f"[time] flash_attention_bwd ({fb_t['shape']}): {fb_t['ms']:.5f} ms "
+        f"a call (events, turns {turns['k5']}), device {bdev:.5f} ms "
+        f"({bflop / bdev / 1e9:.1f} TFLOP/s, "
+        f"{fb_t['bound'][0] / bdev * 100:.2f} % of its "
+        f"{fb_t['bound'][0]:.7f} ms bound, {fb_t['bound'][1]}: "
+        f"{bflop / 1e9:.1f} GFLOP), plain {fb_t['plain_ms']:.3f} ms; SDPA's "
+        f"backward (fwd+bwd - fwd) {fb_t['library_ms']:.5f} ms (turns "
+        f"{turns['sdpa_fwd_bwd']} - {turns['sdpa_fwd']}), device "
+        f"{lib_dev:.5f} ms; K5 / SDPA {fb_t['ms'] / fb_t['library_ms']:.3f}")
+    del bq, bk_, bv, bdo, bo, blse, bq_t, bk_t, bv_t, bdo_t, k5_bwd
+    del sdpa_f, sdpa_fb
+    torch.cuda.empty_cache()
+    return t
+
+
+def _state_to_host(state) -> list:
+    """Every leaf of a TrainState, copied to the host."""
+    from repro_torch.training import train_step as ts_lib
+    return [t.detach().to("cpu", copy=True)
+            for group in ts_lib.state_leaves(state) for t in group]
+
+
+def _same_state(state, host: list) -> bool:
+    """A TrainState equal bit for bit to a host copy (``_state_to_host``)."""
+    from repro_torch.training import train_step as ts_lib
+    leaves = [t for group in ts_lib.state_leaves(state) for t in group]
+    return len(leaves) == len(host) and all(
+        torch.equal(t.detach().cpu(), h) for t, h in zip(leaves, host))
+
+
+def flash_bwd_checks(dev, cases=FLASH_BWD_CASES) -> dict:
+    """Phase 16 (d): K5's backward (``ops.flash_attention_bwd``, dQ, dK, dV
+    from the kernel's own forward O and LSE) against the plain backward on
+    the inputs cast to f32, with each dtype's limit from ``ref.py``; the
+    forward's LSE against the plain version's; O with the LSE asked for
+    equal bit for bit to O without it (serving's null pointer)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    out = {"max_abs_err": 0.0, "lse_max_abs_err": 0.0, "cases": []}
+    for i, (shape, dtype, causal) in enumerate(cases):
+        b_, s_, h_, kv_, d_ = shape
+        g_ = torch.Generator(device=dev).manual_seed(300 + i)
+        q, k, v, do = (torch.randn((b_, s_, n, d_), generator=g_,
+                                   device=dev).to(getattr(torch, dtype))
+                       for n in (h_, kv_, kv_, h_))
+        o, lse = fa_ops._forward(q, k, v, causal, with_lse=True)
+        o_plain = fa_ops._forward(q, k, v, causal, with_lse=False)[0]
+        if not torch.equal(o, o_plain):
+            raise AssertionError(f"K5's O at {shape} {dtype} changes when "
+                                 f"the LSE is written")
+        got = fa_ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+        qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+        o_ref, lse_ref = fa_ref.flash_attention_lse_ref(qf, kf, vf,
+                                                        causal=causal)
+        want = fa_ref.flash_attention_bwd_ref(qf, kf, vf, o_ref, dof,
+                                              lse_ref, causal)
+        atol, rtol = ((fa_ref.BWD_F32_TOL, fa_ref.BWD_F32_TOL)
+                      if dtype == "float32"
+                      else (fa_ref.BWD_BF16_ATOL, fa_ref.BWD_BF16_RTOL))
+        lse_err = float((lse - lse_ref).abs().max())
+        if lse_err > fa_ref.LSE_TOL * (1 + float(lse_ref.abs().max())):
+            raise AssertionError(f"K5's LSE at {shape} {dtype}: "
+                                 f"max_abs_err {lse_err}")
+        row = {"shape": shape, "dtype": dtype, "causal": causal,
+               "lse_max_abs_err": lse_err}
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            e = (a.float() - w).abs()
+            row[name] = float(e.max())
+            row[name + "_ratio"] = float((e / (atol + rtol * w.abs())).max())
+            if not torch.allclose(a.float(), w, atol=atol, rtol=rtol):
+                raise AssertionError(f"K5's backward {name} at {shape} "
+                                     f"{dtype} causal={causal} disagrees "
+                                     f"with its plain version: {row}")
+        out["max_abs_err"] = max(out["max_abs_err"], row["dq"], row["dk"],
+                                 row["dv"])
+        out["lse_max_abs_err"] = max(out["lse_max_abs_err"], lse_err)
+        out["cases"].append(row)
+        share = max(row["dq_ratio"], row["dk_ratio"], row["dv_ratio"])
+        log(f"[train-check] K5 backward {shape} {dtype} causal={causal}: "
+            f"dq {row['dq']:.3e} dk {row['dk']:.3e} dv {row['dv']:.3e} "
+            f"(worst share of the limit {share:.3f}; atol {atol}, rtol "
+            f"{rtol}); LSE {lse_err:.3e}; O unchanged")
+        del q, k, v, do, o, o_plain, lse, got, qf, kf, vf, dof, o_ref
+        del lse_ref, want
+    return out
+
+
+def _train_full_width(dev, cfg, tcfg, batches, counts, zero_counts,
+                      path_launches, *, seed, seq, batch, steps) -> dict:
+    """Phase 16 (a): a warm-up step, ``steps`` timed steps and a profiled
+    one; then a second run of 2 steps from the same seed, bit for bit."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.lm import LM, tree_leaves
+    from repro_torch.training import train_step as ts_lib
+    cuda = torch.device(dev).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    layers = cfg.n_layers
+
+    def fresh():
+        model = LM(cfg, vocab_chunk=min(seq, 128), device=dev)
+        state = ts_lib.init_state(model, torch.Generator(dev).manual_seed(
+            seed))
+        return state, ts_lib.make_train_step(model, tcfg)
+
+    state, step_fn = fresh()
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    losses, step_s, after2 = [], [], None
+    for i in range(steps + 1):  # a warm-up step, then the timed ones
+        if i == 1:
+            sync()
+            zero_counts()
+        t1 = time.perf_counter()
+        state, m = step_fn(state, batches[i])
+        sync()
+        if i:
+            step_s.append(time.perf_counter() - t1)
+        losses.append(float(m["loss"]))
+        if not (math.isfinite(losses[-1])
+                and float(m["endorsed_mb"]) == tcfg.microbatches
+                and int(m["skipped"]) == 0):
+            raise AssertionError(f"training step {i}: loss {losses[-1]}, "
+                                 f"endorsed {float(m['endorsed_mb'])}, "
+                                 f"skipped {int(m['skipped'])}")
+        if i == 1:
+            after2 = _state_to_host(state)
+    got = counts()
+    path_launches["training"] = got
+    if (got["flash_attention"] != layers * steps
+            or got["flash_attention_bwd"] != layers * steps):
+        raise AssertionError(f"training: K5 launches {got}, want {layers} "
+                             f"forward and backward a step")
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    # One more step under the profiler: the device's busy share.
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    t1 = time.perf_counter()
+    with profile(activities=acts) as prof:
+        state, m = step_fn(state, batches[steps + 1])
+        sync()
+    wall = time.perf_counter() - t1
+    evs = _device_events(prof)
+    busy = sum(ev.self_device_time_total for ev in evs) / 1e6
+    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
+    med = sorted(step_s)[len(step_s) // 2]
+    out = {"config": cfg.name, "layers": layers, "dtype": cfg.dtype,
+           "params": n_params, "seq": seq, "batch": batch,
+           "tokens_per_step": batch * seq, "losses": losses,
+           "step_s": step_s, "median_step_ms": med * 1e3,
+           "tokens_per_s": batch * seq * len(step_s) / sum(step_s),
+           "peak_bytes": peak, "launches": got,
+           "profiled_step": {
+               "wall_s": wall, "device_busy_s": busy,
+               "busy_share": busy / wall, "busy_of_median": busy / med,
+               "device_ops": sum(e.count for e in evs),
+               "top": [(e.key[:70], e.self_device_time_total / 1e3, e.count)
+                       for e in top]}}
+    log(f"[train] {cfg.name} at {layers} layers, {n_params} parameters, "
+        f"{cfg.dtype}, batch {batch} x {seq}: losses {losses}; steps "
+        f"{[round(x * 1e3, 3) for x in step_s]} ms, median "
+        f"{med * 1e3:.3f} ms, {out['tokens_per_s']:.1f} tokens/s; peak "
+        f"device memory {(peak or 0) / 2**30:.3f} GiB; K5 "
+        f"{got['flash_attention']} forward, {got['flash_attention_bwd']} "
+        f"backward launches over {steps} steps")
+    log(f"[train] profiled step: {wall:.4f} s, device busy {busy:.4f} s "
+        f"({busy / wall * 100:.2f} % of it, {busy / med * 100:.2f} % of "
+        f"the median unprofiled step) over "
+        f"{out['profiled_step']['device_ops']} device ops")
+    for e in top:
+        log(f"[train]   {e.self_device_time_total / 1e3:10.3f} ms "
+            f"{e.count:6d}x {e.key[:90]}")
+    del state, step_fn, m, prof, evs, top
+    if cuda:
+        torch.cuda.empty_cache()
+    # The same seed again, 2 steps: bit for bit the first run's.
+    state, step_fn = fresh()
+    for i in range(2):
+        state, _ = step_fn(state, batches[i])
+    sync()
+    if not _same_state(state, after2):
+        raise AssertionError("training: a second run of 2 steps from the "
+                             "same seed differs")
+    del state, step_fn, after2
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _train_card_vs_cpu(dev, cfg, counts, zero_counts, *, seed,
+                       check_seq) -> dict:
+    """Phase 16 (b): ``cfg`` at 1 layer, f32, batch 1 x ``check_seq``: one
+    step's loss, gradient norm and gradients, card against CPU."""
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train
+    from repro_torch.models.lm import (LM, jax_leaves, map_tree,
+                                       tree_leaves, tree_unflatten)
+    from repro_torch.training import optimizer
+    from repro_torch.training import train_step as ts_lib
+    cuda = torch.device(dev).type == "cuda"
+    cfg1 = dataclasses.replace(cfg, n_layers=1, dtype="float32")
+    batch = pipeline.global_batch_for_step(pipeline.DataConfig(
+        vocab=cfg1.vocab, seq_len=check_seq, global_batch=1), 0)
+    chunk = min(check_seq, 128)
+    model_g = LM(cfg1, vocab_chunk=chunk, device=dev).init(
+        torch.Generator(dev).manual_seed(seed))
+    model_c = LM(cfg1, vocab_chunk=chunk, device="cpu").load_params(
+        map_tree(lambda t: t.detach().cpu(), model_g.params.tree()))
+    res = {}
+    for where, model, d_ in (("card", model_g, dev), ("cpu", model_c, "cpu")):
+        model.params.requires_grad_(True)
+        params = tree_leaves(model.params.tree())
+        zero_counts()
+        loss, _, grads = ts_lib.value_and_grad(
+            model, params, train.device_batch(batch, d_))
+        res[where] = (float(loss), float(optimizer.global_norm(grads)),
+                      tree_unflatten(model.params.tree(), grads),
+                      counts())
+    (lg, ng, gg, cg), (lc, nc, gc, _) = res["card"], res["cpu"]
+    worst = 0.0
+    for grp_g, grp_c in zip(jax_leaves(gg), jax_leaves(gc)):
+        for a, w in zip(grp_g, grp_c):
+            scale = float(w.abs().max()) or 1.0
+            worst = max(worst, float((a.cpu() - w).abs().max()) / scale)
+    out = {"loss": (lg, lc), "grad_norm": (ng, nc),
+           "worst_grad_share": worst, "grad_tol": GRAD_TOL,
+           "loss_tol": TRAIN_LOSS_TOL, "seq": check_seq, "launches": cg}
+    log(f"[train-check] {cfg1.name} 1 layer f32, batch 1 x {check_seq}: "
+        f"loss card {lg} / CPU {lc}, grad norm {ng} / {nc}; worst "
+        f"gradient difference {worst:.3e} of its leaf's largest magnitude "
+        f"(limit {GRAD_TOL}); K5 launches {cg}")
+    if not (abs(lg - lc) <= TRAIN_LOSS_TOL * abs(lc)
+            and abs(ng - nc) <= TRAIN_LOSS_TOL * abs(nc)
+            and worst <= GRAD_TOL) or (cuda and (
+                cg["flash_attention"] != 1
+                or cg["flash_attention_bwd"] != 1)):
+        raise AssertionError(f"training card against CPU: {out}")
+    del model_g, model_c, res, gg, gc
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _train_restart(dev, *, seed) -> dict:
+    """Phase 16 (c): the smoke config in f32 and bf16, 6 steps straight
+    against 3 + a Checkpointer save + restore into a fresh state + 3."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train
+    from repro_torch.models.lm import LM
+    from repro_torch.training import train_step as ts_lib
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg, _, tcfg, dcfg = train.build(TRAIN_ARCH, smoke=True, seq=64,
+                                         batch=8, microbatches=1, lr=1e-3,
+                                         total_steps=10, device=dev)
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+        batches = [train.device_batch(pipeline.global_batch_for_step(
+            dcfg, i), dev) for i in range(6)]
+
+        def start():
+            model = LM(cfg, vocab_chunk=16, device=dev)
+            state = ts_lib.init_state(
+                model, torch.Generator(dev).manual_seed(seed))
+            return state, ts_lib.make_train_step(model, tcfg)
+
+        s_a, step_a = start()
+        for i in range(6):
+            s_a, _ = step_a(s_a, batches[i])
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = Checkpointer(os.path.join(tmp, "ck"))
+            s_b, step_b = start()
+            for i in range(3):
+                s_b, _ = step_b(s_b, batches[i])
+            ck.save(3, s_b, blocking=True)
+            del s_b, step_b
+            s_c, step_c = start()
+            s_c, at = ck.restore(s_c)
+            chain_ok = ck.verify_chain()
+            for i in range(at, 6):
+                s_c, _ = step_c(s_c, batches[i])
+            ck.close()
+        same = _same_state(s_c, _state_to_host(s_a))
+        out[dtype] = {"restored_at": at, "chain_ok": chain_ok,
+                      "identical": same}
+        log(f"[train-check] restart {cfg.name} {dtype}: 6 steps straight "
+            f"against 3 + save + restore (step {at}) + 3: identical "
+            f"{same}, chain verified {chain_ok}")
+        if not (same and chain_ok and at == 3):
+            raise AssertionError(f"training restart {dtype}: {out[dtype]}")
+    return out
+
+
+def training_phase(dev, counts, zero_counts, path_launches, *,
+                   seed: int = 0, layers: int = TRAIN_LAYERS,
+                   seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
+                   steps: int = TRAIN_STEPS, check_seq: int = TRAIN_CHECK_SEQ,
+                   full: bool = True, flash_cases=FLASH_BWD_CASES) -> dict:
+    """Phase 16: LM training on the card. (a) Qwen2-7B at full width, bf16,
+    cut to ``layers`` layers, batches of the port's pipeline: a warm-up
+    step, ``steps`` timed steps and a profiled one; every loss finite,
+    every microbatch endorsed, K5's forward and backward launched once a
+    layer a step; a second run of 2 steps from the same seed bit-identical
+    to the first run's state after 2 steps. (b) The same width at 1 layer,
+    f32 (TF32 off), batch 1 at ``check_seq``: one step's loss, gradient
+    norm and gradients, card against CPU. (c) The smoke config, f32 and
+    bf16: 6 steps straight against 3 + a Checkpointer save + restore into
+    a fresh state + 3, bit for bit, the chain verified. (a)-(c) run under
+    torch's deterministic algorithms; then the embedding's backward is run
+    twice without them, to say whether it needed them. (d)
+    ``flash_bwd_checks``. ``full=False`` runs the smoke config in (a) and
+    (b) (a rehearsal on the CPU)."""
+    import warnings
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train
+    cuda = torch.device(dev).type == "cuda"
+    cfg, _, tcfg, dcfg = train.build(TRAIN_ARCH, smoke=not full, seq=seq,
+                                     batch=batch, microbatches=1, lr=1e-3,
+                                     total_steps=100, device=dev)
+    cfg = dataclasses.replace(cfg, n_layers=layers)
+    batches = [train.device_batch(pipeline.global_batch_for_step(dcfg, i),
+                                  dev) for i in range(steps + 2)]
+    out = {}
+    # Every op of the steps on its deterministic implementation where torch
+    # has one (the warnings name any that has none); cuBLAS's workspace was
+    # fixed before CUDA started (main).
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out["full_width"] = _train_full_width(
+                dev, cfg, tcfg, batches, counts, zero_counts, path_launches,
+                seed=seed, seq=seq, batch=batch, steps=steps)
+            out["card_vs_cpu"] = _train_card_vs_cpu(
+                dev, cfg, counts, zero_counts, seed=seed,
+                check_seq=check_seq)
+            out["restart"] = _train_restart(dev, seed=seed)
+        out["nondeterministic_warnings"] = sorted(
+            {str(w.message)[:200] for w in caught
+             if "deterministic" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log(f"[train] repeat run of 2 steps bit-identical (params, moments, "
+        f"ledger head); restarts bit-identical; ops without a deterministic "
+        f"implementation: {out['nondeterministic_warnings'] or 'none'}")
+    # Would the step be repeatable without the flag? Its one op that sums
+    # into shared rows is the embedding's backward (an index_put_ with
+    # accumulate over repeated tokens): run it twice with the flag off.
+    if cuda:
+        g_ = torch.Generator(dev).manual_seed(seed)
+        table = torch.randn((cfg.vocab_padded, cfg.d_model), generator=g_,
+                            device=dev).to(cfg.torch_dtype).requires_grad_()
+        toks = batches[0].tokens.long()
+        gy = torch.randn((*toks.shape, cfg.d_model), generator=g_,
+                         device=dev).to(cfg.torch_dtype)
+        emb = [torch.autograd.grad(table[toks], table, gy)[0]
+               for _ in range(2)]
+        out["embedding_backward_repeatable"] = bool(torch.equal(*emb))
+        log(f"[train] embedding backward without the deterministic flag "
+            f"repeatable: {out['embedding_backward_repeatable']}")
+        del table, gy, emb
+    out["flash_bwd"] = flash_bwd_checks(dev, flash_cases)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0,
@@ -1251,6 +1722,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # cuBLAS's workspace fixed before CUDA starts, so that phase 16 can run
+    # with torch's deterministic algorithms on (torch asks for it there).
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import torch.nn.functional as F
     from repro_torch.configs import base as cfg_base
@@ -1292,11 +1766,12 @@ def main(argv=None) -> int:
         return {"mac_many": mac_ops.launches, "lookup": ht_ops.launches,
                 "commit": ht_ops.commit_launches,
                 "validate": mv_ops.launches,
-                "flash_attention": fa_ops.launches}
+                "flash_attention": fa_ops.launches,
+                "flash_attention_bwd": fa_ops.launches_bwd}
 
     def zero_counts():
         mac_ops.launches = ht_ops.launches = ht_ops.commit_launches = 0
-        mv_ops.launches = fa_ops.launches = 0
+        mv_ops.launches = fa_ops.launches = fa_ops.launches_bwd = 0
 
     dims = types.PAPER_DIMS
     nb, slots = 1 << 20, 8
@@ -1329,7 +1804,7 @@ def main(argv=None) -> int:
     # -- 2. kernels against their plain versions ----------------------------
     t0 = time.perf_counter()
     errs = {"mac_many": 0, "lookup": 0, "commit": 0, "validate": 0,
-            "flash_attention": 0.0}
+            "flash_attention": 0.0, "flash_attention_bwd": None}
 
     def check(name, got, want, what):
         e = max_abs_err(got, want)
@@ -1843,6 +2318,7 @@ def main(argv=None) -> int:
             f"({flop / lib_dev / 1e9:.1f} TFLOP/s); K5 / SDPA "
             f"{k5_dev / lib_dev:.3f}")
         del tq, tk, tv, tq_t, tk_t, tv_t
+    timing["flash_attention_bwd"] = flash_bwd_timing(dev)
     # K1's ordered schedule: the verify block at step 1 (the serial check),
     # 16 (a tile) and 100 (whole), the serial admission of a ladder round,
     # and the launch floor; device time per step (the launch's device time
@@ -3011,11 +3487,21 @@ def main(argv=None) -> int:
                               same_results, path_launches, dev, card=card)
     phase_done("15 sharded state", t0)
 
+    # -- 16. LM training on the card ----------------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    training = training_phase(dev, counts, zero_counts, path_launches,
+                              seed=args.seed)
+    training["card"] = card
+    errs["flash_attention_bwd"] = training["flash_bwd"]["max_abs_err"]
+    phase_done("16 training", t0)
+
     kernels = [{
         "name": t["name"], "route": "cuda", "source": t["source"],
         "replaces": t["replaces"],
-        "launches": sum(c[key] for c in path_launches.values()),
-        "launches_by_path": {p: c[key] for p, c in path_launches.items()},
+        "launches": sum(c.get(key, 0) for c in path_launches.values()),
+        "launches_by_path": {p: c.get(key, 0)
+                             for p, c in path_launches.items()},
         "max_abs_err": errs[key], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
         "library_ms": t["library_ms"], "device_ms": t["device_ms"],
@@ -3031,6 +3517,7 @@ def main(argv=None) -> int:
     log(json.dumps({"pipeline": pipeline}, default=str))
     log(json.dumps({"channels": channels}, default=str))
     log(json.dumps({"sharding": sharding}, default=str))
+    log(json.dumps({"training": training}, default=str))
     log(json.dumps({"phase_s": phase_s,
                     "total_s": time.perf_counter() - t_start}))
     log(card)

@@ -3,7 +3,9 @@
 The JAX package's state, as numpy (u32 arrays, Python ints, stored blocks),
 goes into a port :class:`~repro_torch.core.engine.FabricEngine` on its
 device, and back out; the JAX ``LM.init`` weights go into a port
-:class:`~repro_torch.models.lm.LM`. Nothing here imports JAX: the caller
+:class:`~repro_torch.models.lm.LM`, and a JAX ``TrainState`` into the
+port's and back (leaves in the JAX flatten order of
+``training.train_step.state_leaves``). Nothing here imports JAX: the caller
 turns JAX arrays into numpy (``np.asarray``) first. The tests use this to
 start both packages from one state and one set of weights.
 """
@@ -126,3 +128,86 @@ def lm_params(np_params: dict, cfg: ModelConfig, device, **lm_kwargs) -> LM:
     per_layer = [tree(np_params["layers"], i) for i in range(cfg.n_layers)]
     return LM(cfg, device=device, **lm_kwargs).load_params(
         {**tree(top), "layers": per_layer})
+
+
+def _np_leaves(tree: dict) -> list:
+    """A JAX params tree's leaves (numpy, ``layers`` stacked) in the JAX
+    flatten order: dict keys sorted at every level."""
+    out = []
+    for key in sorted(tree):
+        val = tree[key]
+        out += _np_leaves(val) if isinstance(val, dict) else [val]
+    return out
+
+
+def _np_tree(groups: list, like: dict) -> dict:
+    """Numpy leaves (in the JAX order of ``like``, a JAX-layout tree) as a
+    tree of ``like``'s structure."""
+    it = iter(groups)
+
+    def build(node):
+        return {k: build(node[k]) if isinstance(node[k], dict) else next(it)
+                for k in sorted(node)}
+
+    return build(like)
+
+
+def _as_numpy(group: list) -> np.ndarray:
+    """One JAX leaf from the port's tensors (stacked when several), f32 for
+    floating leaves (numpy has no bf16)."""
+    t = group[0] if len(group) == 1 else torch.stack(group)
+    t = t.detach().cpu()
+    return t.float().numpy() if t.is_floating_point() else t.numpy()
+
+
+def train_state(np_state, cfg: ModelConfig, device, **lm_kwargs):
+    """A JAX ``TrainState`` with numpy leaves (``jax.tree.map(np.asarray,
+    state)``: ``params`` and ``opt.m``/``opt.v`` with stacked layers,
+    ``opt.step``, ``ledger_head`` u32) -> (port ``LM`` holding its params,
+    port ``TrainState``) on ``device``; ``lm_kwargs`` go to the LM."""
+    from repro_torch.training import train_step as ts_lib
+
+    model = lm_params(np_state.params, cfg, device, **lm_kwargs)
+    state = ts_lib.init_state(model)
+    src = ([np.asarray(np_state.opt.step)] + _np_leaves(np_state.opt.m)
+           + _np_leaves(np_state.opt.v))
+    dst = ts_lib.state_leaves(state)
+    n = len(_np_leaves(np_state.params))
+    with torch.no_grad():
+        for arr, group in zip(src, dst[n:-1]):
+            arr = np.asarray(arr)
+            parts = [arr] if len(group) == 1 else list(arr)
+            for t, a in zip(group, parts):
+                t.copy_(torch.from_numpy(np.array(
+                    a, np.float32 if t.is_floating_point() else None))
+                    .reshape(t.shape))
+    head = u32.from_numpy(np.asarray(np_state.ledger_head, np.uint32),
+                          device)
+    return model, state._replace(ledger_head=head)
+
+
+class TrainArrays(NamedTuple):
+    """A port ``TrainState`` as numpy in the JAX layout (stacked layers),
+    the fields of JAX ``TrainState(params, AdamWState(step, m, v),
+    ledger_head)``."""
+
+    params: dict
+    step: np.ndarray  # () int32
+    m: dict
+    v: dict
+    ledger_head: np.ndarray  # (2,) u32
+
+
+def export_train_state(state, np_like: dict) -> TrainArrays:
+    """The port ``TrainState`` as numpy, in the structure of ``np_like``
+    (a JAX-layout params tree, e.g. the JAX state's ``params``)."""
+    from repro_torch.training import train_step as ts_lib
+
+    groups = [_as_numpy(g) for g in ts_lib.state_leaves(state)]
+    n = len(_np_leaves(np_like))
+    return TrainArrays(
+        params=_np_tree(groups[:n], np_like),
+        step=groups[n],
+        m=_np_tree(groups[n + 1:2 * n + 1], np_like),
+        v=_np_tree(groups[2 * n + 1:3 * n + 1], np_like),
+        ledger_head=u32.to_numpy(state.ledger_head))

@@ -1,4 +1,6 @@
-// Flash-attention forward: GQA, optional causal mask, online softmax.
+// Flash attention: GQA, optional causal mask, online softmax. The forward
+// (below) and, since the training path needs it, the backward (after the
+// forward's kernels; it replaces no Pallas kernel, see there).
 //
 // Replaces the Pallas kernel src/repro/kernels/flash_attention/kernel.py:
 // flash_attention (_flash_kernel). For query head h (KV head h / (H/Hkv)):
@@ -61,6 +63,7 @@ constexpr int kBlockNBf16 = 64;  // kv rows per tile, bf16
 constexpr int kBlockNF32 = 32;   // kv rows per tile, f32
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // KV tiles a q tile visits: all of Skv, cut at the causal limit.
 __device__ __forceinline__ int kv_tiles(int iq, int skv, int block_n,
@@ -98,8 +101,9 @@ __global__ void __launch_bounds__(128)
     flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
-                          __nv_bfloat16* __restrict__ o, int s, int skv,
-                          int h, int hkv, float scale, bool causal) {
+                          __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, int s, int skv, int h,
+                          int hkv, float scale, bool causal) {
   constexpr int kN = kBlockNBf16;
   constexpr int kStrideK = D + 8;   // padded rows: conflict-free B reads
   constexpr int kStrideV = kN + 8;
@@ -265,6 +269,11 @@ __global__ void __launch_bounds__(128)
       *reinterpret_cast<uint32_t*>(oh + r1 * q_stride + col) =
           pack_bf16(acc[nd][2] * inv1, acc[nd][3] * inv1);
   }
+  if (lse != nullptr && t == 0) {  // m is in log2 units
+    float* lh = lse + (static_cast<size_t>(b) * h + hq) * s;
+    if (r0 < s) lh[r0] = m0 * kLn2 + logf(l0);
+    if (r1 < s) lh[r1] = m1 * kLn2 + logf(l1);
+  }
 }
 
 // f32: 4 threads per q row (adjacent lanes), thread `sub` holding dims
@@ -275,8 +284,8 @@ __global__ void __launch_bounds__(256)
     flash_fwd_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
-                         int s, int skv, int h, int hkv, float scale,
-                         bool causal) {
+                         float* __restrict__ lse, int s, int skv, int h,
+                         int hkv, float scale, bool causal) {
   constexpr int kN = kBlockNF32;
   constexpr int kPer = D / 4;
   __shared__ __align__(16) float ks[kN * D];
@@ -354,6 +363,8 @@ __global__ void __launch_bounds__(256)
 #pragma unroll
     for (int i = 0; i < kPer; ++i) oh[row * q_stride + i * 4 + sub] =
         acc[i] / denom;
+    if (lse != nullptr && sub == 0)
+      lse[(static_cast<size_t>(b) * h + hq) * s + row] = m + logf(l);
   }
 }
 
@@ -732,8 +743,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
-                           __nv_bfloat16* __restrict__ o, int s, int skv,
-                           int h, int hkv, int n_q_tiles, float scale2,
+                           __nv_bfloat16* __restrict__ o,
+                           float* __restrict__ lse, int s, int skv, int h,
+                           int hkv, int n_q_tiles, float scale2,
                            int causal) {
   using T = Tile<D>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -895,6 +907,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         *reinterpret_cast<uint32_t*>(o1 + col) =
             pack_bf16(acc[4 * nd + 2] * inv1, acc[4 * nd + 3] * inv1);
     }
+    if (lse != nullptr && qd == 0) {  // m is in log2 units
+      float* lh = lse + (static_cast<size_t>(b) * h + hq) * s;
+      if (r0 < s) lh[r0] = sm.m0 * kLn2 + logf(l0);
+      if (r1 < s) lh[r1] = sm.m1 * kLn2 + logf(l1);
+    }
   }
 }
 
@@ -948,8 +965,8 @@ bool encode(EncodeTiled enc, CUtensorMap* map, const void* ptr, int batch,
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int b, int s, int skv, int h, int hkv, bool causal,
-                   cudaStream_t stream) {
+                   float* lse, int b, int s, int skv, int h, int hkv,
+                   bool causal, cudaStream_t stream) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return cudaErrorSymbolNotFound;
   CUtensorMap mq, mk, mv;
@@ -979,7 +996,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       static_cast<float>(1.0 / std::sqrt(double(D))) * kLog2e;
   flash_fwd_wgmma_kernel<D>
       <<<n_q_tiles * h * b, kThreads, Tile<D>::kSmem, stream>>>(
-          mq, mk, mv, static_cast<__nv_bfloat16*>(o), s, skv, h, hkv,
+          mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, s, skv, h, hkv,
           n_q_tiles, scale2, causal);
   return cudaGetLastError();
 }
@@ -989,25 +1006,689 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // The one place that picks a kernel, by dtype and D (see the header).
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int b, int s, int skv, int h, int hkv, bool bf16,
-                   bool causal, cudaStream_t stream) {
+                   float* lse, int b, int s, int skv, int h, int hkv,
+                   bool bf16, bool causal, cudaStream_t stream) {
   const dim3 grid((s + kBlockM - 1) / kBlockM, h, b);
   const float scale = static_cast<float>(1.0 / std::sqrt(double(D)));
   if (bf16) {
     if constexpr (D >= 64) {
-      return hopper::launch<D>(q, k, v, o, b, s, skv, h, hkv, causal, stream);
+      return hopper::launch<D>(q, k, v, o, lse, b, s, skv, h, hkv, causal,
+                               stream);
     } else {
       flash_fwd_bf16_kernel<D><<<grid, 128, 0, stream>>>(
           static_cast<const __nv_bfloat16*>(q),
           static_cast<const __nv_bfloat16*>(k),
           static_cast<const __nv_bfloat16*>(v),
-          static_cast<__nv_bfloat16*>(o), s, skv, h, hkv, scale, causal);
+          static_cast<__nv_bfloat16*>(o), lse, s, skv, h, hkv, scale,
+          causal);
     }
   } else {
     flash_fwd_f32_kernel<D><<<grid, 256, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), s, skv, h, hkv,
-        scale, causal);
+        static_cast<const float*>(v), static_cast<float*>(o), lse, s, skv, h,
+        hkv, scale, causal);
+  }
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Backward (no Pallas kernel: the JAX package differentiates attn_naive, or
+// attn_chunked past 2 q_chunk; these kernels compute the same gradient). From
+// the forward's O and each row's log-sum-exp (natural log, (B, H, S) f32):
+//   delta = rowsum(dO o O);  P = exp(S - lse), recomputed from Q and K;
+//   dV = P^T dO;  dP = dO V^T;  dS = P o (dP - delta);
+//   dQ = dS K / sqrt(D);  dK = dS^T Q / sqrt(D);
+// dK and dV sum over the query heads that share a KV head (GQA). Three
+// kernels, launched in this order by flash_attention_bwd:
+//   * flash_bwd_delta_kernel: one warp a (b, row, head), f32 sum;
+//   * dK/dV: one CTA per (64-key tile, KV head, batch); it loops over the
+//     group's query heads and, for each, over the q tiles that the causal
+//     mask lets see the key tile, holding dK and dV in f32 registers, and
+//     writes them once;
+//   * dQ: one CTA per (64-row q tile, query head, batch); it loops over the
+//     key tiles up to the causal limit, as the forward does.
+// No atomics: every output element is summed by one thread in a fixed
+// order, so a launch is bit-for-bit repeatable. Both recompute P, and dP,
+// so the pair runs 7 products where 5 would do (2.5x the forward's causal
+// FLOPs, the bound: 0.30 ms at the training shape (4, 2048, 28, 4, 128)
+// bf16 at 989 TFLOP/s); making them fast (wgmma, TMA, one pass) is later
+// work. bf16 (any D): mma.sync m16n8k16 on 4 warps of 16 rows, P and dS
+// rounded to bf16 for their products, f32 accumulators, tiles staged through
+// padded shared memory, row-major where a product reads along D and
+// transposed where it reads along the rows. f32: CUDA cores, 4 threads a
+// row, each holding a quarter of D, as the forward's f32 kernel.
+
+constexpr int kBwdM = 64;  // q rows of a dQ CTA; keys of a dK/dV CTA
+constexpr int kBwdN = 64;  // keys of a dQ step
+constexpr int kBwdQ = 32;  // q rows of a dK/dV step
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// delta[b, h, i] = sum_d dO[b, i, h, d] O[b, i, h, d], f32; warp `row` of
+// the (B, S, H) rows, lanes strided over D.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                           float* __restrict__ delta, int rows, int s, int h,
+                           int d) {
+  const int row = blockIdx.x * 8 + static_cast<int>(threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;  // the whole warp
+  const T* op = o + static_cast<size_t>(row) * d;
+  const T* dp = dout + static_cast<size_t>(row) * d;
+  float acc = 0.f;
+  for (int i = lane; i < d; i += 32) acc += to_f32(op[i]) * to_f32(dp[i]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(kFull, acc, off);
+  if (lane == 0) {
+    const int hq = row % h, bi = row / h;
+    delta[(static_cast<size_t>(bi / s) * h + hq) * s + bi % s] = acc;
+  }
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// A fragment (16 x 16) of a row-major tile (`stride` elements a row): rows
+// r .. r + 15, columns k0 .. k0 + 15 (layouts above flash_fwd_bf16_kernel).
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4],
+                                       const __nv_bfloat16* tile, int stride,
+                                       int r, int k0, int g, int t) {
+  const __nv_bfloat16* p = tile + (r + g) * stride + k0 + 2 * t;
+  a[0] = ld32(p);
+  a[1] = ld32(p + 8 * stride);
+  a[2] = ld32(p + 8);
+  a[3] = ld32(p + 8 * stride + 8);
+}
+
+// B fragment (16 x 8) of a tile stored [n][k] (`stride` elements a row of
+// n): columns n0 .. n0 + 7, rows k0 .. k0 + 15.
+__device__ __forceinline__ void frag_b(uint32_t& b0, uint32_t& b1,
+                                       const __nv_bfloat16* tile, int stride,
+                                       int n0, int k0, int g, int t) {
+  const __nv_bfloat16* p = tile + (n0 + g) * stride + k0 + 2 * t;
+  b0 = ld32(p);
+  b1 = ld32(p + 8);
+}
+
+// Rows r0 .. r0 + n - 1 of one head of a (B, S, H, D) tensor (`stride`
+// elements a row) into a row-major tile of D + 8 columns, zero from row
+// `limit` on; 16 bytes a thread, coalesced.
+template <int D>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           size_t stride, int r0, int n,
+                                           int limit) {
+  for (int c = threadIdx.x; c < n * D / 8; c += blockDim.x) {
+    const int row = c / (D / 8), col = (c % (D / 8)) * 8;
+    uint4 w = make_uint4(0, 0, 0, 0);
+    if (r0 + row < limit)
+      w = *reinterpret_cast<const uint4*>(src + (r0 + row) * stride + col);
+    *reinterpret_cast<uint4*>(dst + row * (D + 8) + col) = w;
+  }
+}
+
+// The same rows transposed, dst[d][row] with n + 8 columns; a warp covers
+// 32 rows of one 8-column chunk (conflict-free stores).
+template <int D>
+__device__ __forceinline__ void stage_cols(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           size_t stride, int r0, int n,
+                                           int limit) {
+  for (int c = threadIdx.x; c < n * D / 8; c += blockDim.x) {
+    const int row = c % n, col = (c / n) * 8;
+    uint4 w = make_uint4(0, 0, 0, 0);
+    if (r0 + row < limit)
+      w = *reinterpret_cast<const uint4*>(src + (r0 + row) * stride + col);
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&w);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dst[(col + i) * (n + 8) + row] = e[i];
+  }
+}
+
+// Dynamic shared memory of the bf16 backward kernels, in bytes.
+template <int D>
+struct BwdSmem {
+  static constexpr int kRow = D + 8;
+  // dQ: Q and dO (kBwdM rows), K and V (kBwdN rows), K^T (D x kBwdN + 8).
+  static constexpr int kDq =
+      (2 * kBwdM * kRow + 2 * kBwdN * kRow + D * (kBwdN + 8)) * 2;
+  // dK/dV: K and V (kBwdM rows), Q and dO (kBwdQ rows), Q^T and dO^T
+  // (D x kBwdQ + 8), then lse and delta of the kBwdQ rows (f32).
+  static constexpr int kDkv =
+      (2 * kBwdM * kRow + 2 * kBwdQ * kRow + 2 * D * (kBwdQ + 8)) * 2 +
+      2 * kBwdQ * 4;
+  static_assert(kDq <= 227 * 1024 && kDkv <= 227 * 1024,
+                "over a block's shared memory");
+};
+
+// dQ, bf16: warp w holds q rows q0 + 16 w .. + 15 of the CTA's 64.
+template <int D>
+__global__ void __launch_bounds__(128)
+    flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ k,
+                             const __nv_bfloat16* __restrict__ v,
+                             const __nv_bfloat16* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             __nv_bfloat16* __restrict__ dq, int s, int skv,
+                             int h, int hkv, float scale, bool causal) {
+  constexpr int kRow = D + 8, kRowT = kBwdN + 8;
+  extern __shared__ __align__(16) uint8_t smem_bwd[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_bwd);
+  __nv_bfloat16* dos = qs + kBwdM * kRow;
+  __nv_bfloat16* ks = dos + kBwdM * kRow;
+  __nv_bfloat16* vs = ks + kBwdN * kRow;
+  __nv_bfloat16* kt = vs + kBwdN * kRow;  // kt[d][key]
+
+  const int iq = blockIdx.x, hq = blockIdx.y, b = blockIdx.z;
+  const int hk = hq / (h / hkv);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const size_t q_stride = static_cast<size_t>(h) * D;
+  const size_t kv_stride = static_cast<size_t>(hkv) * D;
+  const size_t q_off = static_cast<size_t>(b) * s * q_stride +
+                       static_cast<size_t>(hq) * D;
+  const size_t kv_off = static_cast<size_t>(b) * skv * kv_stride +
+                        static_cast<size_t>(hk) * D;
+  const int q0 = iq * kBwdM;
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  const float scale2 = scale * kLog2e;
+  const float* lh = lse + (static_cast<size_t>(b) * h + hq) * s;
+  const float* dh = delta + (static_cast<size_t>(b) * h + hq) * s;
+  const float lse0 = r0 < s ? lh[r0] * kLog2e : 0.f;
+  const float lse1 = r1 < s ? lh[r1] * kLog2e : 0.f;
+  const float dl0 = r0 < s ? dh[r0] : 0.f, dl1 = r1 < s ? dh[r1] : 0.f;
+
+  stage_rows<D>(qs, q + q_off, q_stride, q0, kBwdM, s);
+  stage_rows<D>(dos, dout + q_off, q_stride, q0, kBwdM, s);
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nd][i] = 0.f;
+
+  int n_tiles = (skv + kBwdN - 1) / kBwdN;
+  if (causal) n_tiles = min(n_tiles, (q0 + kBwdM + kBwdN - 1) / kBwdN);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int kv0 = j * kBwdN;
+    __syncthreads();  // the previous tile's reads are done
+    stage_rows<D>(ks, k + kv_off, kv_stride, kv0, kBwdN, skv);
+    stage_rows<D>(vs, v + kv_off, kv_stride, kv0, kBwdN, skv);
+    stage_cols<D>(kt, k + kv_off, kv_stride, kv0, kBwdN, skv);
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T for this warp's 16 rows x 64 keys.
+    float sc[kBwdN / 8][4], dp[kBwdN / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kBwdN / 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[nt][i] = dp[nt][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qa[4], da[4];
+      frag_a(qa, qs, kRow, warp * 16, kk * 16, g, t);
+      frag_a(da, dos, kRow, warp * 16, kk * 16, g, t);
+#pragma unroll
+      for (int nt = 0; nt < kBwdN / 8; ++nt) {
+        uint32_t b0, b1;
+        frag_b(b0, b1, ks, kRow, nt * 8, kk * 16, g, t);
+        mma_bf16(sc[nt], qa, b0, b1);
+        frag_b(b0, b1, vs, kRow, nt * 8, kk * 16, g, t);
+        mma_bf16(dp[nt], da, b0, b1);
+      }
+    }
+    // dS = P o (dP - delta), P = exp2(s scale log2e - lse log2e); 0 where
+    // masked and on rows past S.
+#pragma unroll
+    for (int nt = 0; nt < kBwdN / 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = i < 2 ? r0 : r1;
+        const int col = kv0 + nt * 8 + 2 * t + (i & 1);
+        const float p =
+            row >= s || masked(row, col, skv, causal)
+                ? 0.f
+                : exp2f(fmaf(sc[nt][i], scale2, i < 2 ? -lse0 : -lse1));
+        sc[nt][i] = p * (dp[nt][i] - (i < 2 ? dl0 : dl1));
+      }
+    // dQ += dS K: dS's C fragments of two key blocks are one A fragment.
+#pragma unroll
+    for (int kk = 0; kk < kBwdN / 16; ++kk) {
+      const uint32_t pa[4] = {
+          pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
+          pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
+          pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+          pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        uint32_t b0, b1;
+        frag_b(b0, b1, kt, kRowT, nd * 8, kk * 16, g, t);
+        mma_bf16(acc[nd], pa, b0, b1);
+      }
+    }
+  }
+
+  __nv_bfloat16* oh = dq + q_off;
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd) {
+    const int col = nd * 8 + 2 * t;
+    if (r0 < s)
+      *reinterpret_cast<uint32_t*>(oh + r0 * q_stride + col) =
+          pack_bf16(acc[nd][0] * scale, acc[nd][1] * scale);
+    if (r1 < s)
+      *reinterpret_cast<uint32_t*>(oh + r1 * q_stride + col) =
+          pack_bf16(acc[nd][2] * scale, acc[nd][3] * scale);
+  }
+}
+
+// dK and dV, bf16: warp w holds keys k0 + 16 w .. + 15 of the CTA's 64; the
+// products run keys by q rows (S^T = K Q^T, dP^T = V dO^T), so P^T and dS^T
+// are the A operands of dV += P^T dO and dK += dS^T Q.
+template <int D>
+__global__ void __launch_bounds__(128)
+    flash_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                               const __nv_bfloat16* __restrict__ k,
+                               const __nv_bfloat16* __restrict__ v,
+                               const __nv_bfloat16* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               __nv_bfloat16* __restrict__ dk,
+                               __nv_bfloat16* __restrict__ dv, int s, int skv,
+                               int h, int hkv, float scale, bool causal) {
+  constexpr int kRow = D + 8, kRowT = kBwdQ + 8;
+  extern __shared__ __align__(16) uint8_t smem_bwd[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_bwd);
+  __nv_bfloat16* vs = ks + kBwdM * kRow;
+  __nv_bfloat16* qs = vs + kBwdM * kRow;
+  __nv_bfloat16* dos = qs + kBwdQ * kRow;
+  __nv_bfloat16* qt = dos + kBwdQ * kRow;   // qt[d][q]
+  __nv_bfloat16* dot = qt + D * kRowT;      // dot[d][q]
+  float* ls = reinterpret_cast<float*>(dot + D * kRowT);
+  float* dls = ls + kBwdQ;
+
+  const int ik = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int group = h / hkv;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const size_t q_stride = static_cast<size_t>(h) * D;
+  const size_t kv_stride = static_cast<size_t>(hkv) * D;
+  const size_t kv_off = static_cast<size_t>(b) * skv * kv_stride +
+                        static_cast<size_t>(hk) * D;
+  const int k0 = ik * kBwdM;
+  const int kr0 = k0 + warp * 16 + g, kr1 = kr0 + 8;
+  const float scale2 = scale * kLog2e;
+
+  stage_rows<D>(ks, k + kv_off, kv_stride, k0, kBwdM, skv);
+  stage_rows<D>(vs, v + kv_off, kv_stride, k0, kBwdM, skv);
+
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dka[nd][i] = dva[nd][i] = 0.f;
+
+  const int n_q = (s + kBwdQ - 1) / kBwdQ;
+  // Causal: the first q tile with a row at or past the tile's first key.
+  const int i_first = causal ? min(k0 / kBwdQ, n_q) : 0;
+  for (int hq = hk * group; hq < (hk + 1) * group; ++hq) {
+    const size_t q_off = static_cast<size_t>(b) * s * q_stride +
+                         static_cast<size_t>(hq) * D;
+    const float* lh = lse + (static_cast<size_t>(b) * h + hq) * s;
+    const float* dh = delta + (static_cast<size_t>(b) * h + hq) * s;
+    for (int i = i_first; i < n_q; ++i) {
+      const int q0 = i * kBwdQ;
+      __syncthreads();  // the previous q tile's reads are done
+      stage_rows<D>(qs, q + q_off, q_stride, q0, kBwdQ, s);
+      stage_rows<D>(dos, dout + q_off, q_stride, q0, kBwdQ, s);
+      stage_cols<D>(qt, q + q_off, q_stride, q0, kBwdQ, s);
+      stage_cols<D>(dot, dout + q_off, q_stride, q0, kBwdQ, s);
+      for (int c = threadIdx.x; c < kBwdQ; c += blockDim.x) {
+        ls[c] = q0 + c < s ? lh[q0 + c] * kLog2e : 0.f;
+        dls[c] = q0 + c < s ? dh[q0 + c] : 0.f;
+      }
+      __syncthreads();
+
+      float st[kBwdQ / 8][4], dpt[kBwdQ / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < kBwdQ / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t ka[4], va[4];
+        frag_a(ka, ks, kRow, warp * 16, kk * 16, g, t);
+        frag_a(va, vs, kRow, warp * 16, kk * 16, g, t);
+#pragma unroll
+        for (int nt = 0; nt < kBwdQ / 8; ++nt) {
+          uint32_t b0, b1;
+          frag_b(b0, b1, qs, kRow, nt * 8, kk * 16, g, t);
+          mma_bf16(st[nt], ka, b0, b1);
+          frag_b(b0, b1, dos, kRow, nt * 8, kk * 16, g, t);
+          mma_bf16(dpt[nt], va, b0, b1);
+        }
+      }
+      // P^T and dS^T = P^T o (dP^T - delta); 0 where masked, on q rows
+      // past S and on keys past Skv.
+#pragma unroll
+      for (int nt = 0; nt < kBwdQ / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = e < 2 ? kr0 : kr1;
+          const int qi = nt * 8 + 2 * t + (e & 1), qrow = q0 + qi;
+          const float p = qrow >= s || masked(qrow, key, skv, causal)
+                              ? 0.f
+                              : exp2f(fmaf(st[nt][e], scale2, -ls[qi]));
+          st[nt][e] = p;
+          dpt[nt][e] = p * (dpt[nt][e] - dls[qi]);
+        }
+      // dV += P^T dO, dK += dS^T Q, 16 q rows a step.
+#pragma unroll
+      for (int kk = 0; kk < kBwdQ / 16; ++kk) {
+        const uint32_t pa[4] = {
+            pack_bf16(st[2 * kk][0], st[2 * kk][1]),
+            pack_bf16(st[2 * kk][2], st[2 * kk][3]),
+            pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
+            pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3])};
+        const uint32_t sa[4] = {
+            pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]),
+            pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]),
+            pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
+            pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
+#pragma unroll
+        for (int nd = 0; nd < D / 8; ++nd) {
+          uint32_t b0, b1;
+          frag_b(b0, b1, dot, kRowT, nd * 8, kk * 16, g, t);
+          mma_bf16(dva[nd], pa, b0, b1);
+          frag_b(b0, b1, qt, kRowT, nd * 8, kk * 16, g, t);
+          mma_bf16(dka[nd], sa, b0, b1);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd) {
+    const int col = nd * 8 + 2 * t;
+    if (kr0 < skv) {
+      const size_t at = kv_off + kr0 * kv_stride + col;
+      *reinterpret_cast<uint32_t*>(dk + at) =
+          pack_bf16(dka[nd][0] * scale, dka[nd][1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + at) =
+          pack_bf16(dva[nd][0], dva[nd][1]);
+    }
+    if (kr1 < skv) {
+      const size_t at = kv_off + kr1 * kv_stride + col;
+      *reinterpret_cast<uint32_t*>(dk + at) =
+          pack_bf16(dka[nd][2] * scale, dka[nd][3] * scale);
+      *reinterpret_cast<uint32_t*>(dv + at) =
+          pack_bf16(dva[nd][2], dva[nd][3]);
+    }
+  }
+}
+
+// dQ, f32: 4 threads a q row (thread `sub` holds dims sub, sub + 4, ...),
+// 32-key K/V tiles in shared memory, as flash_fwd_f32_kernel.
+template <int D>
+__global__ void __launch_bounds__(256)
+    flash_bwd_dq_f32_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            float* __restrict__ dq, int s, int skv, int h,
+                            int hkv, float scale, bool causal) {
+  constexpr int kN = kBlockNF32;
+  constexpr int kPer = D / 4;
+  __shared__ __align__(16) float ks[kN * D];
+  __shared__ __align__(16) float vs[kN * D];
+
+  const int iq = blockIdx.x, hq = blockIdx.y, b = blockIdx.z;
+  const int hk = hq / (h / hkv);
+  const int row = iq * kBlockM + threadIdx.x / 4, sub = threadIdx.x % 4;
+  const size_t q_stride = static_cast<size_t>(h) * D;
+  const size_t kv_stride = static_cast<size_t>(hkv) * D;
+  const size_t q_off = static_cast<size_t>(b) * s * q_stride +
+                       static_cast<size_t>(hq) * D;
+  const float* kh = k + static_cast<size_t>(b) * skv * kv_stride +
+                    static_cast<size_t>(hk) * D;
+  const float* vh = v + static_cast<size_t>(b) * skv * kv_stride +
+                    static_cast<size_t>(hk) * D;
+  const size_t lrow = (static_cast<size_t>(b) * h + hq) * s + row;
+  const float lr = row < s ? lse[lrow] : 0.f;
+  const float dl = row < s ? delta[lrow] : 0.f;
+
+  float qr[kPer], dor[kPer], acc[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const size_t at = q_off + row * q_stride + i * 4 + sub;
+    qr[i] = row < s ? q[at] * scale : 0.f;  // as the forward scales it
+    dor[i] = row < s ? dout[at] : 0.f;
+    acc[i] = 0.f;
+  }
+
+  const int n_tiles = kv_tiles(iq, skv, kN, causal);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int kv0 = j * kN;
+    for (int c = threadIdx.x; c < kN * D / 4; c += blockDim.x) {
+      const int r = c / (D / 4), col = (c % (D / 4)) * 4;
+      float4 kw = make_float4(0.f, 0.f, 0.f, 0.f), vw = kw;
+      if (kv0 + r < skv) {
+        kw = *reinterpret_cast<const float4*>(kh + (kv0 + r) * kv_stride +
+                                              col);
+        vw = *reinterpret_cast<const float4*>(vh + (kv0 + r) * kv_stride +
+                                              col);
+      }
+      *reinterpret_cast<float4*>(ks + r * D + col) = kw;
+      *reinterpret_cast<float4*>(vs + r * D + col) = vw;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int n = 0; n < kN; ++n) {
+      float sp = 0.f, dp = 0.f;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        sp += qr[i] * ks[n * D + i * 4 + sub];
+        dp += dor[i] * vs[n * D + i * 4 + sub];
+      }
+      sp += __shfl_xor_sync(kFull, sp, 1);
+      sp += __shfl_xor_sync(kFull, sp, 2);
+      dp += __shfl_xor_sync(kFull, dp, 1);
+      dp += __shfl_xor_sync(kFull, dp, 2);
+      const float p =
+          row >= s || masked(row, kv0 + n, skv, causal) ? 0.f
+                                                        : expf(sp - lr);
+      const float ds = p * (dp - dl);
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) acc[i] += ds * ks[n * D + i * 4 + sub];
+    }
+    __syncthreads();
+  }
+  if (row < s) {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+      dq[q_off + row * q_stride + i * 4 + sub] = acc[i] * scale;
+  }
+}
+
+// dK and dV, f32: 4 threads a key row of the CTA's 64, q tiles of 32 rows
+// (Q pre-scaled as the forward scales it, so dK comes out scaled) in shared
+// memory.
+template <int D>
+__global__ void __launch_bounds__(256)
+    flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const float* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              float* __restrict__ dk, float* __restrict__ dv,
+                              int s, int skv, int h, int hkv, float scale,
+                              bool causal) {
+  constexpr int kPer = D / 4;
+  __shared__ __align__(16) float qs[kBwdQ * D];
+  __shared__ __align__(16) float dos[kBwdQ * D];
+  __shared__ float ls[kBwdQ], dls[kBwdQ];
+
+  const int ik = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int group = h / hkv;
+  const int key = ik * kBwdM + threadIdx.x / 4, sub = threadIdx.x % 4;
+  const size_t q_stride = static_cast<size_t>(h) * D;
+  const size_t kv_stride = static_cast<size_t>(hkv) * D;
+  const size_t kv_at = static_cast<size_t>(b) * skv * kv_stride +
+                       static_cast<size_t>(hk) * D + key * kv_stride;
+
+  float kr[kPer], vr[kPer], dka[kPer], dva[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    kr[i] = key < skv ? k[kv_at + i * 4 + sub] : 0.f;
+    vr[i] = key < skv ? v[kv_at + i * 4 + sub] : 0.f;
+    dka[i] = dva[i] = 0.f;
+  }
+
+  const int n_q = (s + kBwdQ - 1) / kBwdQ;
+  const int i_first = causal ? min(ik * kBwdM / kBwdQ, n_q) : 0;
+  for (int hq = hk * group; hq < (hk + 1) * group; ++hq) {
+    const float* qh = q + static_cast<size_t>(b) * s * q_stride +
+                      static_cast<size_t>(hq) * D;
+    const float* doh = dout + static_cast<size_t>(b) * s * q_stride +
+                       static_cast<size_t>(hq) * D;
+    const size_t lh = (static_cast<size_t>(b) * h + hq) * s;
+    for (int i = i_first; i < n_q; ++i) {
+      const int q0 = i * kBwdQ;
+      __syncthreads();
+      for (int c = threadIdx.x; c < kBwdQ * D / 4; c += blockDim.x) {
+        const int r = c / (D / 4), col = (c % (D / 4)) * 4;
+        float4 qw = make_float4(0.f, 0.f, 0.f, 0.f), dw = qw;
+        if (q0 + r < s) {
+          qw = *reinterpret_cast<const float4*>(qh + (q0 + r) * q_stride +
+                                                col);
+          dw = *reinterpret_cast<const float4*>(doh + (q0 + r) * q_stride +
+                                                col);
+        }
+        qw.x *= scale;
+        qw.y *= scale;
+        qw.z *= scale;
+        qw.w *= scale;
+        *reinterpret_cast<float4*>(qs + r * D + col) = qw;
+        *reinterpret_cast<float4*>(dos + r * D + col) = dw;
+      }
+      for (int c = threadIdx.x; c < kBwdQ; c += blockDim.x) {
+        ls[c] = q0 + c < s ? lse[lh + q0 + c] : 0.f;
+        dls[c] = q0 + c < s ? delta[lh + q0 + c] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int n = 0; n < kBwdQ; ++n) {
+        float sp = 0.f, dp = 0.f;
+#pragma unroll
+        for (int e = 0; e < kPer; ++e) {
+          sp += kr[e] * qs[n * D + e * 4 + sub];
+          dp += vr[e] * dos[n * D + e * 4 + sub];
+        }
+        sp += __shfl_xor_sync(kFull, sp, 1);
+        sp += __shfl_xor_sync(kFull, sp, 2);
+        dp += __shfl_xor_sync(kFull, dp, 1);
+        dp += __shfl_xor_sync(kFull, dp, 2);
+        const int qrow = q0 + n;
+        const float p = qrow >= s || masked(qrow, key, skv, causal)
+                            ? 0.f
+                            : expf(sp - ls[n]);
+        const float ds = p * (dp - dls[n]);
+#pragma unroll
+        for (int e = 0; e < kPer; ++e) {
+          dva[e] += p * dos[n * D + e * 4 + sub];
+          dka[e] += ds * qs[n * D + e * 4 + sub];
+        }
+      }
+    }
+  }
+  if (key < skv) {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      dk[kv_at + i * 4 + sub] = dka[i];
+      dv[kv_at + i * 4 + sub] = dva[i];
+    }
+  }
+}
+
+// Shared memory above 48 KB: opted into once per device and kernel.
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, int bytes, bool (&done)[hopper::kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= hopper::kMaxDevices) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    done[dev] = true;
+  }
+  return cudaSuccess;
+}
+
+template <int D>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const void* o, const void* dout, const float* lse,
+                       float* delta, void* dq, void* dk, void* dv, int b,
+                       int s, int skv, int h, int hkv, bool bf16, bool causal,
+                       cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  const int rows = b * s * h;
+  const float scale = static_cast<float>(1.0 / std::sqrt(double(D)));
+  const dim3 grid_q((s + kBwdM - 1) / kBwdM, h, b);
+  const dim3 grid_kv((skv + kBwdM - 1) / kBwdM, hkv, b);
+  if (rows > 0) {
+    if (bf16)
+      flash_bwd_delta_kernel<bf><<<(rows + 7) / 8, 256, 0, stream>>>(
+          static_cast<const bf*>(o), static_cast<const bf*>(dout), delta,
+          rows, s, h, D);
+    else
+      flash_bwd_delta_kernel<float><<<(rows + 7) / 8, 256, 0, stream>>>(
+          static_cast<const float*>(o), static_cast<const float*>(dout),
+          delta, rows, s, h, D);
+  }
+  if (bf16) {
+    static bool dq_opted[hopper::kMaxDevices] = {};
+    static bool dkv_opted[hopper::kMaxDevices] = {};
+    cudaError_t err = opt_in(flash_bwd_dq_bf16_kernel<D>, BwdSmem<D>::kDq,
+                             dq_opted);
+    if (err == cudaSuccess)
+      err = opt_in(flash_bwd_dkdv_bf16_kernel<D>, BwdSmem<D>::kDkv,
+                   dkv_opted);
+    if (err != cudaSuccess) return err;
+    if (rows > 0)
+      flash_bwd_dq_bf16_kernel<D><<<grid_q, 128, BwdSmem<D>::kDq, stream>>>(
+          static_cast<const bf*>(q), static_cast<const bf*>(k),
+          static_cast<const bf*>(v), static_cast<const bf*>(dout), lse, delta,
+          static_cast<bf*>(dq), s, skv, h, hkv, scale, causal);
+    if (skv > 0 && b > 0)
+      flash_bwd_dkdv_bf16_kernel<D>
+          <<<grid_kv, 128, BwdSmem<D>::kDkv, stream>>>(
+              static_cast<const bf*>(q), static_cast<const bf*>(k),
+              static_cast<const bf*>(v), static_cast<const bf*>(dout), lse,
+              delta, static_cast<bf*>(dk), static_cast<bf*>(dv), s, skv, h,
+              hkv, scale, causal);
+  } else {
+    if (rows > 0)
+      flash_bwd_dq_f32_kernel<D><<<grid_q, 256, 0, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+          delta, static_cast<float*>(dq), s, skv, h, hkv, scale, causal);
+    if (skv > 0 && b > 0)
+      flash_bwd_dkdv_f32_kernel<D><<<grid_kv, 256, 0, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+          delta, static_cast<float*>(dk), static_cast<float*>(dv), s, skv, h,
+          hkv, scale, causal);
   }
   return cudaGetLastError();
 }
@@ -1015,24 +1696,54 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q (B, S, H, D), k/v (B, Skv, Hkv, D), o (B, S, H, D), all contiguous and
-// 16-byte aligned; bf16 != 0 for bfloat16, else float32. Returns nonzero
-// when the launch is refused or, for the wgmma kernel, the tensor maps
-// cannot be encoded.
+// 16-byte aligned; bf16 != 0 for bfloat16, else float32. lse, when not null,
+// receives each row's log-sum-exp of the scaled, masked scores, (B, H, S)
+// f32 in natural-log units (the backward's input); O is the same either
+// way. Returns nonzero when the launch is refused or, for the wgmma
+// kernel, the tensor maps cannot be encoded.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int b, int s,
-                                   int skv, int h, int hkv, int d, int bf16,
-                                   int causal, cudaStream_t stream) {
+                                   const void* v, void* o, float* lse, int b,
+                                   int s, int skv, int h, int hkv, int d,
+                                   int bf16, int causal,
+                                   cudaStream_t stream) {
   switch (d) {
-    case 16:
-      return launch<16>(q, k, v, o, b, s, skv, h, hkv, bf16, causal, stream);
-    case 32:
-      return launch<32>(q, k, v, o, b, s, skv, h, hkv, bf16, causal, stream);
-    case 64:
-      return launch<64>(q, k, v, o, b, s, skv, h, hkv, bf16, causal, stream);
-    case 96:
-      return launch<96>(q, k, v, o, b, s, skv, h, hkv, bf16, causal, stream);
-    case 128:
-      return launch<128>(q, k, v, o, b, s, skv, h, hkv, bf16, causal, stream);
+#define FLASH_FWD_CASE(D)                                                  \
+  case D:                                                                  \
+    return launch<D>(q, k, v, o, lse, b, s, skv, h, hkv, bf16, causal,     \
+                     stream);
+    FLASH_FWD_CASE(16)
+    FLASH_FWD_CASE(32)
+    FLASH_FWD_CASE(64)
+    FLASH_FWD_CASE(96)
+    FLASH_FWD_CASE(128)
+#undef FLASH_FWD_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The backward: q, o, dout, dq (B, S, H, D), k, v, dk, dv (B, Skv, Hkv, D),
+// lse (the forward's) and delta (scratch) (B, H, S) f32; contiguous and
+// 16-byte aligned, bf16 as for the forward. Writes every element of dq, dk
+// and dv. Returns nonzero when a launch is refused.
+extern "C" int flash_attention_bwd(const void* q, const void* k,
+                                   const void* v, const void* o,
+                                   const void* dout, const float* lse,
+                                   float* delta, void* dq, void* dk, void* dv,
+                                   int b, int s, int skv, int h, int hkv,
+                                   int d, int bf16, int causal,
+                                   cudaStream_t stream) {
+  switch (d) {
+#define FLASH_BWD_CASE(D)                                                  \
+  case D:                                                                  \
+    return launch_bwd<D>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, s,   \
+                         skv, h, hkv, bf16, causal, stream);
+    FLASH_BWD_CASE(16)
+    FLASH_BWD_CASE(32)
+    FLASH_BWD_CASE(64)
+    FLASH_BWD_CASE(96)
+    FLASH_BWD_CASE(128)
+#undef FLASH_BWD_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -84,11 +84,35 @@ def init_embedding(vocab: int, d_model: int, dtype, device, generator
 # ---------------------------------------------------------------------------
 
 
+class _RMSNorm(torch.autograd.Function):
+    """RMS norm with the JAX package's hand-written VJP
+    (``repro.models.layers._rmsnorm_bwd``), formula for formula: the
+    boundary tensors stay in the input dtype, f32 inside."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps: float):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        xf = x.float()
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps)
+        return (y * scale.float()).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        xf = x.float()
+        gf = dy.float() * scale.float()
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+        r = torch.rsqrt(var + ctx.eps)
+        xhat = xf * r
+        dx = r * (gf - xhat * (gf * xhat).mean(dim=-1, keepdim=True))
+        dscale = (dy.float() * xhat).reshape(-1, x.shape[-1]).sum(dim=0)
+        return dx.to(x.dtype), dscale.to(scale.dtype), None
+
+
 def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    return (y * p["scale"].float()).to(x.dtype)
+    return _RMSNorm.apply(x, p["scale"], eps)
 
 
 def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:

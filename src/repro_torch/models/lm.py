@@ -7,6 +7,7 @@ pytree, one entry of ``layers`` per layer (the JAX package stacks them for
   LM(cfg, device=...).init(generator)       -> the module, weights drawn
   .to(device)                               -> weights moved (nn.Module)
   forward(batch)                            -> hidden states (B, S, D)
+  loss(batch)                               -> (scalar CE, metrics)
   logits(batch)                             -> (B, S, V) f32
   init_cache(batch_size, seq_len)           -> DecodeCache
   prefill(batch, cache)                     -> (last-token logits, cache)
@@ -14,9 +15,15 @@ pytree, one entry of ``layers`` per layer (the JAX package stacks them for
 
 Caches are written IN PLACE (the JAX package returns updated copies): a
 full-width cache is hundreds of MB. The other families (moe, ssm, hybrid,
-encdec) raise ``NotImplementedError``; ``loss`` comes with the training
-slice. The JAX package's mesh-sharding knobs (``mesh_axes``, ``shard_*``,
-``remat``) have no counterpart here.
+encdec) raise ``NotImplementedError``. The JAX package's mesh-sharding
+knobs (``mesh_axes``, ``shard_*``, ``remat``) have no counterpart here.
+
+Weights are registered without a gradient, as serving wants them; the
+trainer turns gradients on (``model.params.requires_grad_()``, done by
+``training.train_step.init_state``) and updates the tensors in place.
+``jax_leaves`` lists a params tree in the JAX pytree's flatten order, the
+one order that the train step's digest, the checkpointer and ``convert``
+use.
 """
 
 from __future__ import annotations
@@ -33,10 +40,13 @@ from repro_torch.models import layers
 
 @dataclasses.dataclass(frozen=True)
 class Batch:
-    """Input bundle: tokens (B, S_text) int and, for a vision frontend,
-    precomputed ``prefix_embeds`` (B, S_prefix, D) placed before them."""
+    """Input bundle: tokens (B, S_text) int, the loss's ``labels`` (B,
+    S_text) int (-1 = masked) and, for a vision frontend, precomputed
+    ``prefix_embeds`` (B, S_prefix, D) placed before the tokens. The data
+    pipeline fills the fields with numpy arrays; the model takes tensors."""
 
     tokens: torch.Tensor
+    labels: torch.Tensor | None = None
     prefix_embeds: torch.Tensor | None = None
 
 
@@ -50,7 +60,8 @@ class DecodeCache:
 
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module: tensors become parameters
-    (no gradient), dicts sub-trees and lists ``ModuleList``s. Read like the
+    (no gradient until ``requires_grad_()``), dicts sub-trees and lists
+    ``ModuleList``s. Read like the
     JAX pytree: ``p["wq"]``, ``p.get("bq")``, ``p["layers"][i]``."""
 
     def __init__(self, tree: dict):
@@ -74,6 +85,77 @@ class ParamTree(nn.Module):
     def get(self, name: str, default=None):
         return self[name] if name in self else default
 
+    def tree(self) -> dict:
+        """The parameters as the nested dict they were built from (the same
+        tensors, ``layers`` a list)."""
+        out = dict(self._parameters)
+        for name, mod in self._modules.items():
+            out[name] = (mod.tree() if isinstance(mod, ParamTree)
+                         else [m.tree() for m in mod])
+        return out
+
+
+def map_tree(fn, tree):
+    """``fn`` over every tensor of a params tree (dicts and lists)."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [map_tree(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a params tree, in ``map_tree``'s order."""
+    out = []
+    map_tree(out.append, tree)
+    return out
+
+
+def tree_unflatten(like, leaves: list):
+    """``leaves`` (in ``tree_leaves`` order over ``like``) as a tree of
+    ``like``'s structure."""
+    it = iter(leaves)
+    return map_tree(lambda _: next(it), like)
+
+
+def _jax_paths(tree: dict) -> list[tuple]:
+    """The leaf paths of a params tree in the JAX pytree's flatten order:
+    dict keys sorted at every level; under ``layers`` (a list of per-layer
+    dicts here, one stacked dict in JAX) the paths of layer 0, each standing
+    for the stacked leaf."""
+    out = []
+    for key in sorted(tree):
+        val = tree[key]
+        if isinstance(val, (list, tuple)):
+            out += [(key,) + p for p in _jax_paths(val[0])] if val else []
+        elif isinstance(val, dict):
+            out += [(key,) + p for p in _jax_paths(val)]
+        else:
+            out.append((key,))
+    return out
+
+
+def jax_leaves(tree: dict) -> list[list[torch.Tensor]]:
+    """Each JAX leaf of a params tree, in the JAX flatten order, as the
+    list of the port's tensors it stacks: one tensor for a leaf outside
+    ``layers``, one a layer for a leaf under it."""
+    out = []
+    for path in _jax_paths(tree):
+        node = tree[path[0]]
+        if isinstance(node, (list, tuple)):
+            group = []
+            for layer in node:
+                x = layer
+                for key in path[1:]:
+                    x = x[key]
+                group.append(x)
+            out.append(group)
+        else:
+            for key in path[1:]:
+                node = node[key]
+            out.append([node])
+    return out
+
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family != "dense":
@@ -85,13 +167,15 @@ def _check_family(cfg: ModelConfig) -> None:
 
 class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, *, attn_impl: str = "auto",
-                 q_chunk: int = 2048, kv_chunk: int = 2048, device=None):
+                 q_chunk: int = 2048, kv_chunk: int = 2048,
+                 vocab_chunk: int = 512, device=None):
         super().__init__()
         _check_family(cfg)
         self.cfg = cfg
         self.attn_impl = attn_impl
         self.q_chunk = q_chunk
         self.kv_chunk = kv_chunk
+        self.vocab_chunk = vocab_chunk
         self._device = resolve_device(device)
         self.params: ParamTree | None = None
 
@@ -183,6 +267,45 @@ class LM(nn.Module):
         positions = torch.arange(x.shape[1], device=x.device)
         x, _ = self._blocks(x, positions)
         return layers.rmsnorm(self.params["final_norm"], x, self.cfg.norm_eps)
+
+    # ------------------------------------------------------------------ loss
+
+    def loss(self, batch: Batch):
+        """Chunked-vocab causal LM loss: (scalar CE f32, {"ce", "tokens"}).
+        Labels -1 are masked out; padded vocab rows are masked out of the
+        log-sum-exp. The hidden states meet the vocab table ``vocab_chunk``
+        positions at a time, so no (B, S, V) logits live at once in the
+        forward (autograd keeps each chunk's for the backward, as the JAX
+        scan's gradient does). The table is cast to f32 once for all
+        chunks."""
+        cfg = self.cfg
+        h = self.forward(batch)  # (B, S, D)
+        if batch.prefix_embeds is not None:
+            h = h[:, batch.prefix_embeds.shape[1]:]  # loss on text only
+        labels = batch.labels
+        b, s, d = h.shape
+        w = self._table().float()  # (Vp, D), as layers.unembed casts it
+        c = min(self.vocab_chunk, s)
+        while s % c:
+            c -= 1
+        vpad = cfg.vocab_padded
+        pad = (torch.arange(vpad, device=h.device) >= cfg.vocab
+               if vpad != cfg.vocab else None)
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        cnt = torch.zeros((), dtype=torch.int32, device=h.device)
+        for i in range(s // c):
+            logits = h[:, i * c:(i + 1) * c].float() @ w.T  # (B, c, Vp)
+            if pad is not None:  # mask padded vocab rows out of the lse
+                logits = logits.masked_fill(pad, float("-inf"))
+            lse = torch.logsumexp(logits, dim=-1)
+            ys = labels[:, i * c:(i + 1) * c]
+            mask = ys >= 0
+            ll = torch.gather(logits, -1,
+                              ys.clamp(min=0).long()[..., None])[..., 0]
+            tot = tot + torch.where(mask, lse - ll, 0.0).sum()
+            cnt = cnt + mask.sum(dtype=torch.int32)
+        ce = tot / torch.clamp(cnt, min=1)
+        return ce, {"ce": ce, "tokens": cnt}
 
     def logits(self, batch: Batch) -> torch.Tensor:
         """Full logits (B, S, V) f32 -- small models / tests only."""
