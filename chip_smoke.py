@@ -41,9 +41,10 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
    txs, device time a chunk, and each of its two routes, forced, at 32 to
    1,235 txs, where the wrapper chooses between them. K5's backward at the
    training shape (4, 2048, 28, 4, 128) bf16 causal: CUDA events and the
-   profiler's device time a call (its three kernels), beside its bound
-   (5 products, 2.5x the forward's causal operations, at 989 TFLOP/s),
-   its plain version and SDPA's backward (fwd+bwd - fwd, in turns).
+   profiler's device time a call (its three kernels, and each apart),
+   beside its bound (5 products, 2.5x the forward's causal operations, at
+   989 TFLOP/s), its plain version and SDPA's backward (fwd+bwd - fwd, in
+   turns); the same at phi3-mini's (1, 2048, 32, 32, 96).
 4. Run the FASTFABRIC engine on the card at PAPER_DIMS (2.9 KB
    transactions), blocks of 100, a 2^20-bucket x 8-slot world state, and
    proposals from 2^22 accounts: one warm-up round, then a timed round of
@@ -191,7 +192,7 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
    each exactly 4 a step; a second run of 2 steps from the same seed equal
    bit for bit (params, moments, ledger head) to the first run after 2;
    tokens/s, median step ms, peak device memory, the profiled step's busy
-   share. (b) The same width at 1 layer, f32 (TF32 off), batch 1 x 256:
+   share and K5's backward's part of it. (b) The same width at 1 layer, f32 (TF32 off), batch 1 x 256:
    one step's loss, gradient norm and every gradient, card against CPU
    (GRAD_TOL of each leaf's largest magnitude). (c) The qwen2-7b smoke
    config in f32 and in bf16 (K5's CUDA-core and mma.sync instances): 6
@@ -199,9 +200,11 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
    state + 3, bit for bit, verify_chain() True. (d) K5's backward (its
    dQ, dK, dV from the kernel's own O and LSE) against its plain version
    on the inputs cast to f32 at FLASH_BWD_CASES (the training shape, 777
-   tokens, MHA at D = 96 in f32 and bf16, MQA at D = 16 in f32, one row
-   past a tile, no causal mask), the forward's LSE against the plain one,
-   and O with the LSE written equal bit for bit to O without it.
+   tokens, MHA at D = 96 in f32 and bf16 and at 2,048 tokens, MQA at D =
+   16 in f32, one row past a 128- and a 64-row tile, D = 64 in GQA of 8,
+   Skv < S off the tiles, no causal mask), the forward's LSE against the
+   plain one, and O with the LSE written equal bit for bit to O without
+   it.
 
 The lines before the last give each phase's seconds, the card's name and
 power limit (as nvidia-smi prints them), the engine, ladder, serving,
@@ -323,15 +326,24 @@ TRAIN_CHECK_SEQ = 256
 # loss and the gradient norm: 1e-5 relative (a 256-term mean of ~12).
 GRAD_TOL = 1e-4
 TRAIN_LOSS_TOL = 1e-5
-# (d) K5's backward against its plain version: (B, S, H, Hkv, D), dtype,
-# causal; the first is the training shape, timed in phase 3.
-FLASH_BWD_CASES = (((4, 2048, 28, 4, 128), "bfloat16", True),
-                   ((1, 777, 28, 4, 128), "bfloat16", True),
-                   ((2, 300, 32, 32, 96), "float32", True),
-                   ((2, 300, 32, 32, 96), "bfloat16", True),
-                   ((2, 64, 4, 1, 16), "float32", True),
-                   ((1, 129, 28, 4, 128), "bfloat16", True),
-                   ((1, 300, 28, 4, 128), "bfloat16", False))
+# (d) K5's backward against its plain version: (B, S, Skv, H, Hkv, D),
+# dtype, causal; the first is the training shape, timed in phase 3. The
+# bf16 cases at D >= 64 sit on the edges of the wgmma kernels' tiles (64-row
+# q tiles of dK/dV, 128-row ones of dQ, 128-key tiles of both).
+FLASH_BWD_CASES = (((4, 2048, 2048, 28, 4, 128), "bfloat16", True),
+                   ((1, 777, 777, 28, 4, 128), "bfloat16", True),
+                   ((2, 300, 300, 32, 32, 96), "float32", True),
+                   ((2, 300, 300, 32, 32, 96), "bfloat16", True),
+                   ((2, 64, 64, 4, 1, 16), "float32", True),
+                   ((1, 129, 129, 28, 4, 128), "bfloat16", True),
+                   ((1, 300, 300, 28, 4, 128), "bfloat16", False),
+                   ((1, 65, 65, 28, 4, 128), "bfloat16", True),
+                   ((1, 333, 333, 16, 2, 64), "bfloat16", True),
+                   ((1, 2048, 2048, 32, 32, 96), "bfloat16", True),
+                   ((1, 200, 72, 28, 4, 128), "bfloat16", True))
+# Phase 3 times K5's backward, bf16 causal, in turns with SDPA's at these
+# (B, S, H, Hkv, D): the training shape and phi3-mini's MHA at D = 96.
+FLASH_BWD_TIMED = ((4, 2048, 28, 4, 128), (1, 2048, 32, 32, 96))
 
 
 def log(*a):
@@ -1300,68 +1312,100 @@ def _profile_window(e, sync, n_accounts, round_txs) -> dict:
     return got
 
 
+def device_split_ms(fn, groups: tuple, iters: int = 50) -> dict:
+    """Device time a call of ``fn`` spends in the CUDA kernels whose names
+    contain each of ``groups``, over ``iters`` calls of one profiled run."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = _device_events(prof)
+    return {g: sum(ev.self_device_time_total for ev in evs if g in ev.key)
+            / iters / 1e3 for g in groups}
+
+
 def flash_bwd_timing(dev) -> dict:
-    """Phase 3's timing of K5's backward (a ``timing`` entry)."""
+    """Phase 3's timing of K5's backward (a ``timing`` entry): at each of
+    FLASH_BWD_TIMED, in turns with SDPA's backward; the entry's own numbers
+    are the first shape's, the training shape."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
-    # K5's backward at the training shape (phase 16's), beside its bound
-    # (5 products: 2.5x the forward's causal operations; Q, K, V, O, dO and
-    # the LSE read and dQ, dK, dV written once) and SDPA's backward
-    # (fwd+bwd - fwd), in turns: K5, SDPA fwd+bwd, SDPA fwd, twice.
-    (bb, bs, bh, bkv, bd), _, _ = FLASH_BWD_CASES[0]
-    g_ = torch.Generator(device=dev).manual_seed(400)
-    bq, bk_, bv, bdo = (torch.randn((bb, bs, n, bd), generator=g_,
-                                    device=dev).bfloat16()
-                        for n in (bh, bkv, bkv, bh))
-    bo, blse = fa_ops._forward(bq, bk_, bv, True, with_lse=True)
-    k5_bwd = lambda: fa_ops.flash_attention_bwd(bq, bk_, bv, bo, bdo, blse,
-                                                causal=True)
-    bflop = 2.5 * 4 * bb * bs * (bs + 1) // 2 * bh * bd
-    bbytes = (2 * 2 * (3 * bb * bs * bh * bd + 2 * bb * bs * bkv * bd)
-              - 2 * bb * bs * bh * bd + 4 * bb * bh * bs)
-    bq_t, bk_t, bv_t = (x.transpose(1, 2).contiguous().requires_grad_()
-                        for x in (bq, bk_, bv))
-    bdo_t = bdo.transpose(1, 2).contiguous()
-    sdpa_f = lambda: F.scaled_dot_product_attention(
-        bq_t, bk_t, bv_t, is_causal=True, enable_gqa=True)
-    sdpa_fb = lambda: torch.autograd.grad(sdpa_f(), (bq_t, bk_t, bv_t),
-                                          bdo_t)
-    turns = {"k5": [], "sdpa_fwd_bwd": [], "sdpa_fwd": []}
-    for _ in range(2):
-        turns["k5"].append(event_ms(k5_bwd, 100))
-        turns["sdpa_fwd_bwd"].append(event_ms(sdpa_fb, 100))
-        turns["sdpa_fwd"].append(event_ms(sdpa_f, 100))
+    # K5's backward beside its bound (5 products: 2.5x the forward's causal
+    # operations; Q, K, V, O, dO and the LSE read and dQ, dK, dV written
+    # once) and SDPA's backward (fwd+bwd - fwd), in turns: K5, SDPA fwd+bwd,
+    # SDPA fwd, twice; the device time split over the three kernels.
     mean = lambda xs: sum(xs) / len(xs)
-    bdev = device_call_ms(k5_bwd, ("flash_bwd",)) or float("nan")
-    lib_dev = device_total_ms(sdpa_fb) - device_total_ms(sdpa_f)
-    t = dict(
-        name="flash_attention_bwd", kernel="flash_bwd",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="none (no Pallas entry: the JAX package differentiates "
-                 "attn_naive, src/repro/models/layers.py:172)",
-        ms=mean(turns["k5"]),
-        plain_ms=event_ms(lambda: fa_ref.flash_attention_bwd_ref(
-            bq, bk_, bv, bo, bdo, blse, True), 3, warmup=1),
-        library_ms=mean(turns["sdpa_fwd_bwd"]) - mean(turns["sdpa_fwd"]),
-        device_ms=bdev,
-        bound=bound_ms(bbytes, bflop, TC_BF16_OPS_PER_S),
-        shape=f"(B, S, H, Hkv, D) = {FLASH_BWD_CASES[0][0]} bf16, causal",
-        turns={"events_ms": turns, "sdpa_bwd_device_ms": lib_dev,
-               "tflops": bflop / bdev / 1e9, "flop": bflop})
-    fb_t = t
-    log(f"[time] flash_attention_bwd ({fb_t['shape']}): {fb_t['ms']:.5f} ms "
-        f"a call (events, turns {turns['k5']}), device {bdev:.5f} ms "
-        f"({bflop / bdev / 1e9:.1f} TFLOP/s, "
-        f"{fb_t['bound'][0] / bdev * 100:.2f} % of its "
-        f"{fb_t['bound'][0]:.7f} ms bound, {fb_t['bound'][1]}: "
-        f"{bflop / 1e9:.1f} GFLOP), plain {fb_t['plain_ms']:.3f} ms; SDPA's "
-        f"backward (fwd+bwd - fwd) {fb_t['library_ms']:.5f} ms (turns "
-        f"{turns['sdpa_fwd_bwd']} - {turns['sdpa_fwd']}), device "
-        f"{lib_dev:.5f} ms; K5 / SDPA {fb_t['ms'] / fb_t['library_ms']:.3f}")
-    del bq, bk_, bv, bdo, bo, blse, bq_t, bk_t, bv_t, bdo_t, k5_bwd
-    del sdpa_f, sdpa_fb
-    torch.cuda.empty_cache()
+    t, turns = None, []
+    for i, (bb, bs, bh, bkv, bd) in enumerate(FLASH_BWD_TIMED):
+        g_ = torch.Generator(device=dev).manual_seed(400 + i)
+        bq, bk_, bv, bdo = (torch.randn((bb, bs, n, bd), generator=g_,
+                                        device=dev).bfloat16()
+                            for n in (bh, bkv, bkv, bh))
+        bo, blse = fa_ops._forward(bq, bk_, bv, True, with_lse=True)
+        k5_bwd = lambda: fa_ops.flash_attention_bwd(
+            bq, bk_, bv, bo, bdo, blse, causal=True)
+        bflop = 2.5 * 4 * bb * bs * (bs + 1) // 2 * bh * bd
+        bbytes = (2 * 2 * (3 * bb * bs * bh * bd + 2 * bb * bs * bkv * bd)
+                  - 2 * bb * bs * bh * bd + 4 * bb * bh * bs)
+        bq_t, bk_t, bv_t = (x.transpose(1, 2).contiguous().requires_grad_()
+                            for x in (bq, bk_, bv))
+        bdo_t = bdo.transpose(1, 2).contiguous()
+        sdpa_f = lambda: F.scaled_dot_product_attention(
+            bq_t, bk_t, bv_t, is_causal=True, enable_gqa=True)
+        sdpa_fb = lambda: torch.autograd.grad(sdpa_f(), (bq_t, bk_t, bv_t),
+                                              bdo_t)
+        ev = {"k5": [], "sdpa_fwd_bwd": [], "sdpa_fwd": []}
+        for _ in range(2):
+            ev["k5"].append(event_ms(k5_bwd, 100))
+            ev["sdpa_fwd_bwd"].append(event_ms(sdpa_fb, 100))
+            ev["sdpa_fwd"].append(event_ms(sdpa_f, 100))
+        split = device_split_ms(k5_bwd, ("flash_bwd_dq", "flash_bwd_dkdv",
+                                         "flash_bwd_delta"))
+        bdev = device_call_ms(k5_bwd, ("flash_bwd",)) or float("nan")
+        lib_dev = device_total_ms(sdpa_fb) - device_total_ms(sdpa_f)
+        lib_ms = mean(ev["sdpa_fwd_bwd"]) - mean(ev["sdpa_fwd"])
+        bound = bound_ms(bbytes, bflop, TC_BF16_OPS_PER_S)
+        shape = (bb, bs, bh, bkv, bd)
+        turn = {"shape": shape, "events_ms": ev, "device_ms": bdev,
+                "device_split_ms": split, "bound_ms": bound[0],
+                "sdpa_bwd_ms": lib_ms, "sdpa_bwd_device_ms": lib_dev,
+                "tflops": bflop / bdev / 1e9, "flop": bflop}
+        turns.append(turn)
+        log(f"[time] flash_attention_bwd ((B, S, H, Hkv, D) = {shape} bf16, "
+            f"causal): {mean(ev['k5']):.5f} ms a call (events, turns "
+            f"{ev['k5']}), device {bdev:.5f} ms ({bflop / bdev / 1e9:.1f} "
+            f"TFLOP/s, {bound[0] / bdev * 100:.2f} % of its {bound[0]:.7f} "
+            f"ms bound, {bound[1]}: {bflop / 1e9:.1f} GFLOP; dQ "
+            f"{split['flash_bwd_dq']:.5f}, dK/dV "
+            f"{split['flash_bwd_dkdv']:.5f}, delta "
+            f"{split['flash_bwd_delta']:.5f} ms); SDPA's backward (fwd+bwd "
+            f"- fwd) {lib_ms:.5f} ms (turns {ev['sdpa_fwd_bwd']} - "
+            f"{ev['sdpa_fwd']}), device {lib_dev:.5f} ms; K5 / SDPA "
+            f"{mean(ev['k5']) / lib_ms:.3f} (events), {bdev / lib_dev:.3f} "
+            f"(device)")
+        if i == 0:
+            t = dict(
+                name="flash_attention_bwd", kernel="flash_bwd",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="none (no Pallas entry: the JAX package "
+                         "differentiates attn_naive, "
+                         "src/repro/models/layers.py:172)",
+                ms=mean(ev["k5"]),
+                plain_ms=event_ms(lambda: fa_ref.flash_attention_bwd_ref(
+                    bq, bk_, bv, bo, bdo, blse, True), 3, warmup=1),
+                library_ms=lib_ms, device_ms=bdev, bound=bound,
+                shape=f"(B, S, H, Hkv, D) = {shape} bf16, causal")
+            log(f"[time] flash_attention_bwd {t['shape']}: plain "
+                f"{t['plain_ms']:.3f} ms")
+        del bq, bk_, bv, bdo, bo, blse, bq_t, bk_t, bv_t, bdo_t, k5_bwd
+        del sdpa_f, sdpa_fb
+        torch.cuda.empty_cache()
+    t["turns"] = turns
     return t
 
 
@@ -1390,11 +1434,12 @@ def flash_bwd_checks(dev, cases=FLASH_BWD_CASES) -> dict:
     from repro_torch.kernels.flash_attention import ref as fa_ref
     out = {"max_abs_err": 0.0, "lse_max_abs_err": 0.0, "cases": []}
     for i, (shape, dtype, causal) in enumerate(cases):
-        b_, s_, h_, kv_, d_ = shape
+        b_, s_, skv_, h_, kv_, d_ = shape
         g_ = torch.Generator(device=dev).manual_seed(300 + i)
-        q, k, v, do = (torch.randn((b_, s_, n, d_), generator=g_,
+        q, k, v, do = (torch.randn((b_, n_s, n, d_), generator=g_,
                                    device=dev).to(getattr(torch, dtype))
-                       for n in (h_, kv_, kv_, h_))
+                       for n_s, n in ((s_, h_), (skv_, kv_), (skv_, kv_),
+                                      (s_, h_)))
         o, lse = fa_ops._forward(q, k, v, causal, with_lse=True)
         o_plain = fa_ops._forward(q, k, v, causal, with_lse=False)[0]
         if not torch.equal(o, o_plain):
@@ -1493,6 +1538,9 @@ def _train_full_width(dev, cfg, tcfg, batches, counts, zero_counts,
     wall = time.perf_counter() - t1
     evs = _device_events(prof)
     busy = sum(ev.self_device_time_total for ev in evs) / 1e6
+    # K5's backward kernels (delta, dQ, dK/dV) in the profiled step.
+    k5_bwd = sum(ev.self_device_time_total for ev in evs
+                 if "flash_bwd" in ev.key) / 1e6
     top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
     med = sorted(step_s)[len(step_s) // 2]
     out = {"config": cfg.name, "layers": layers, "dtype": cfg.dtype,
@@ -1504,6 +1552,8 @@ def _train_full_width(dev, cfg, tcfg, batches, counts, zero_counts,
            "profiled_step": {
                "wall_s": wall, "device_busy_s": busy,
                "busy_share": busy / wall, "busy_of_median": busy / med,
+               "k5_bwd_s": k5_bwd, "k5_bwd_share_of_busy": k5_bwd / busy
+               if busy else None,
                "device_ops": sum(e.count for e in evs),
                "top": [(e.key[:70], e.self_device_time_total / 1e3, e.count)
                        for e in top]}}
@@ -1517,7 +1567,9 @@ def _train_full_width(dev, cfg, tcfg, batches, counts, zero_counts,
     log(f"[train] profiled step: {wall:.4f} s, device busy {busy:.4f} s "
         f"({busy / wall * 100:.2f} % of it, {busy / med * 100:.2f} % of "
         f"the median unprofiled step) over "
-        f"{out['profiled_step']['device_ops']} device ops")
+        f"{out['profiled_step']['device_ops']} device ops; K5's backward "
+        f"{k5_bwd * 1e3:.4f} ms of it ("
+        f"{k5_bwd / busy * 100 if busy else 0:.3f} % of the busy time)")
     for e in top:
         log(f"[train]   {e.self_device_time_total / 1e3:10.3f} ms "
             f"{e.count:6d}x {e.key[:90]}")
@@ -1786,19 +1838,24 @@ def main(argv=None) -> int:
             if ("Used" in line or "spill" in line
                     or "Compiling entry" in line or "Performance Loss" in line):
                 log(f"[build] {name}: {line.strip()}")
-    # K5's wgmma kernel: registers a thread at launch (the warpgroups then
-    # move them with setmaxnreg: producer 24, consumers 240), spills, and
+    # K5's wgmma kernels: registers a thread at launch (the warpgroups then
+    # move them with setmaxnreg: producer 24, consumers 240 in the forward;
+    # 40 and 232 in the backward's dQ and dK/dV), spills, and the forward's
     # shared memory (static, plus the dynamic Q tile and K/V ring).
     smem_of = build.libraries()["flash_attention"].flash_attention_wgmma_smem
     smem_of.argtypes, smem_of.restype = [ctypes.c_int], ctypes.c_int
     fa_log = build.build_log("flash_attention").splitlines()
     for i, line in enumerate(fa_log):
-        if "Compiling entry" in line and "flash_fwd_wgmma_kernel" in line:
-            d_ = int(line.split("flash_fwd_wgmma_kernelILi")[1].split("E")[0])
+        for kname in ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                      "flash_bwd_dkdv_wgmma_kernel"):
+            if "Compiling entry" not in line or kname not in line:
+                continue
+            d_ = int(line.split(kname + "ILi")[1].split("E")[0])
             info = [x.strip() for x in fa_log[i + 1:i + 4]
                     if "spill" in x or "Used" in x]
-            log(f"[build] flash_fwd_wgmma_kernel D = {d_}: {'; '.join(info)}"
-                f"; dynamic shared memory {smem_of(d_)} bytes")
+            smem = (f"; dynamic shared memory {smem_of(d_)} bytes"
+                    if kname.startswith("flash_fwd") else "")
+            log(f"[build] {kname} D = {d_}: {'; '.join(info)}{smem}")
     phase_done("1 build", t0)
 
     # -- 2. kernels against their plain versions ----------------------------

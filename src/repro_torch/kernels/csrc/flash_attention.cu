@@ -380,21 +380,20 @@ constexpr int kMaxDevices = 64;
 constexpr int kThreads = 128 * (1 + kConsumers);
 static_assert(kM == kN, "Q, K and V tiles share one box shape");
 
-// A tile of D columns is D / CW TMA boxes of (128 rows, CW columns), each
+// A tile of D columns is D / CW TMA boxes of (R rows, CW columns), each
 // row CW * 2 bytes under the swizzle of that span: 128 bytes (CW = 64)
 // where D % 64 == 0, 64 bytes (CW = 32) for D = 96. Eight rows are one
-// swizzle atom; boxes are 1,024-byte aligned.
-template <int D>
+// swizzle atom; boxes are 1,024-byte aligned. R is 128 but for the
+// backward's 64-row Q and dO tiles.
+template <int D, int R = kM>
 struct Tile {
   static constexpr int kCW = D % 64 == 0 ? 64 : 32;
   static constexpr int kChunks = D / kCW;
   static constexpr int kRowBytes = kCW * 2;
   static constexpr int kAtom = 8 * kRowBytes;
-  static constexpr int kChunkBytes = kM * kRowBytes;
+  static constexpr int kChunkBytes = R * kRowBytes;
   static constexpr int kBytes = kChunks * kChunkBytes;  // one Q, K or V tile
   static constexpr uint64_t kLayout = kCW == 64 ? 1 : 2;  // wgmma B128 / B64
-  static constexpr CUtensorMapSwizzle kSwizzle =
-      kCW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   static constexpr int kSmem = (1 + 2 * kStages) * kBytes + 1024;
   static_assert(kSmem <= 227 * 1024, "over a block's shared memory");
 };
@@ -514,6 +513,30 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (64 x 64 f32) = A (64 x 16, shared, K-major) B^T (B: 64 x 16, shared,
+// K-major); d is overwritten when scale_d == 0.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d (64 x 64 f32) += A (64 x 16, registers) B (16 x 64, shared, MN-major:
 // the transpose bit reads V as it lies, keys by rows).
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
@@ -620,36 +643,42 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
-// S = Q K^T for one K tile: D / 16 steps along D, both operands K-major;
-// one commit group.
-template <int D>
-__device__ __forceinline__ void mma_qk(float (&sc)[kN / 2], uint32_t q_wg,
-                                         uint32_t k_st) {
-  using T = Tile<D>;
+// d = A B^T along D: A the 64 rows at `a` of an RA-row tile, B all RB rows
+// of an RB-row tile (the product's N, 64 or 128), both K-major as TMA left
+// them; D / 16 steps, no commit. S = Q K^T (forward, dQ) is <D, 128, 128>,
+// S^T = K Q^T (dK/dV) <D, 128, 64>.
+template <int D, int RA, int RB>
+__device__ __forceinline__ void mma_abt(float (&d)[RB / 2], uint32_t a,
+                                        uint32_t b) {
+  using TA = Tile<D, RA>;
+  using TB = Tile<D, RB>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk * 16 / T::kCW) * T::kChunkBytes +
-                         (kk * 16 % T::kCW) * 2;
-    wgmma_ss_n128(sc, desc(q_wg + off, 16, T::kAtom, T::kLayout),
-                  desc(k_st + off, 16, T::kAtom, T::kLayout), kk > 0);
+    const int c = kk * 16 / TA::kCW, x = (kk * 16 % TA::kCW) * 2;
+    const uint64_t da =
+        desc(a + c * TA::kChunkBytes + x, 16, TA::kAtom, TA::kLayout);
+    const uint64_t db =
+        desc(b + c * TB::kChunkBytes + x, 16, TB::kAtom, TB::kLayout);
+    if constexpr (RB == 128)
+      wgmma_ss_n128(d, da, db, kk > 0);
+    else
+      wgmma_ss_n64(d, da, db, kk > 0);
   }
-  wgmma_commit();
 }
 
-// O += P V for one V tile: kN / 16 steps along the keys; V is MN-major (D
-// contiguous), boxes of CW columns LBO apart, 8-key atoms SBO apart; one
-// commit group.
-template <int D>
-__device__ __forceinline__ void mma_pv(float (&acc)[D / 2],
-                                         const uint32_t (&pa)[kN / 4],
-                                         uint32_t v_st) {
-  using T = Tile<D>;
+// d (64 x D) += A B: A (64 x R) in registers as wgmma's A fragments, B an
+// R-row tile read as it lies (MN-major, D contiguous) under the transpose
+// bit (the forward's O += P V reads V so); R / 16 steps, no commit.
+template <int D, int R>
+__device__ __forceinline__ void mma_ab(float (&d)[D / 2],
+                                       const uint32_t (&a)[R / 4],
+                                       uint32_t b) {
+  using T = Tile<D, R>;
 #pragma unroll
-  for (int kk = 0; kk < kN / 16; ++kk)
-    wgmma_rs(acc, pa + 4 * kk,
-             desc(v_st + kk * 16 * T::kRowBytes, T::kChunkBytes, T::kAtom,
+  for (int kk = 0; kk < R / 16; ++kk)
+    wgmma_rs(d, a + 4 * kk,
+             desc(b + kk * 16 * T::kRowBytes, T::kChunkBytes, T::kAtom,
                   T::kLayout));
-  wgmma_commit();
 }
 
 // 2^x on the MUFU, denormal results flushed to 0: a P below 2^-126 is far
@@ -714,12 +743,14 @@ struct Softmax {
   }
 };
 
-// P rounded to bf16 as wgmma's A fragments. Run only when no product that
-// reads pa is in flight: a write to its registers would serialize wgmma.
-__device__ __forceinline__ void pack_p(const float (&sc)[kN / 2],
-                                       uint32_t (&pa)[kN / 4]) {
+// An accumulator (P, dS) rounded to bf16 as the next product's A
+// fragments. Run only when no product that reads `a` is in flight: a write
+// to its registers would serialize wgmma.
+template <int N>
+__device__ __forceinline__ void pack_frags(const float (&x)[N],
+                                           uint32_t (&a)[N / 2]) {
 #pragma unroll
-  for (int i = 0; i < kN / 4; ++i) pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+  for (int i = 0; i < N / 2; ++i) a[i] = pack_bf16(x[2 * i], x[2 * i + 1]);
 }
 
 template <int D>
@@ -843,13 +874,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       bar_sync(1 + w, 256);
       fence_regs(sc);
       wgmma_fence();
-      mma_qk<D>(sc, q_wg, sk);
+      mma_abt<D, kM, kN>(sc, q_wg, sk);
+      wgmma_commit();
       bar_arrive(2 - w, 256);
       wgmma_wait<0>();
       fence_regs(sc);
       sm.step(sc, alpha0, alpha1, needs_mask(0), 0, r0, r1, qd, skv, causal,
               scale2);
-      pack_p(sc, pa);
+      pack_frags(sc, pa);
       for (int j = 1; j < n_tiles; ++j) {
         const int st = j % kStages, sp = (j - 1) % kStages;
         mbar_wait(bk + 8 * st, (j / kStages) & 1);
@@ -857,11 +889,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         bar_sync(1 + w, 256);
         fence_regs(sc);
         wgmma_fence();
-        mma_qk<D>(sc, q_wg, sk + st * T::kBytes);
+        mma_abt<D, kM, kN>(sc, q_wg, sk + st * T::kBytes);
+        wgmma_commit();
         rescale<D>(acc, alpha0, alpha1);  // while S is in flight
         fence_regs(acc);
         wgmma_fence();
-        mma_pv<D>(acc, pa, sv + sp * T::kBytes);
+        mma_ab<D, kN>(acc, pa, sv + sp * T::kBytes);
+        wgmma_commit();
         bar_arrive(2 - w, 256);
         wgmma_wait<1>();
         fence_regs(sc);
@@ -870,7 +904,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_wait<0>();
         fence_regs(acc);
         mbar_arrive(be + 8 * sp);
-        pack_p(sc, pa);
+        pack_frags(sc, pa);
       }
       const int sl = (n_tiles - 1) % kStages;
       mbar_wait(bv + 8 * sl, ((n_tiles - 1) / kStages) & 1);
@@ -878,7 +912,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       rescale<D>(acc, alpha0, alpha1);
       fence_regs(acc);
       wgmma_fence();
-      mma_pv<D>(acc, pa, sv + sl * T::kBytes);
+      mma_ab<D, kN>(acc, pa, sv + sl * T::kBytes);
+      wgmma_commit();
       if (w == 0) bar_arrive(2 - w, 256);  // no turn after
       wgmma_wait<0>();
       fence_regs(acc);
@@ -943,10 +978,10 @@ EncodeTiled encoder() {
 }
 
 // A (batch, rows, heads, D) bf16 tensor as it lies, as a 4-D map
-// {D, heads, rows, batch}; boxes of (CW, 1, 128, 1).
+// {D, heads, rows, batch}; boxes of (CW, 1, box_rows, 1).
 template <int D>
 bool encode(EncodeTiled enc, CUtensorMap* map, const void* ptr, int batch,
-            int rows, int heads) {
+            int rows, int heads, int box_rows = kM) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(rows),
@@ -955,11 +990,13 @@ bool encode(EncodeTiled enc, CUtensorMap* map, const void* ptr, int batch,
       static_cast<cuuint64_t>(D) * 2, static_cast<cuuint64_t>(heads) * D * 2,
       static_cast<cuuint64_t>(rows) * heads * D * 2};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(Tile<D>::kCW), 1,
-                             static_cast<cuuint32_t>(kM), 1};
+                             static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             Tile<D>::kSwizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             Tile<D>::kCW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -1039,24 +1076,61 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 //   dV = P^T dO;  dP = dO V^T;  dS = P o (dP - delta);
 //   dQ = dS K / sqrt(D);  dK = dS^T Q / sqrt(D);
 // dK and dV sum over the query heads that share a KV head (GQA). Three
-// kernels, launched in this order by flash_attention_bwd:
-//   * flash_bwd_delta_kernel: one warp a (b, row, head), f32 sum;
-//   * dK/dV: one CTA per (64-key tile, KV head, batch); it loops over the
+// launches by flash_attention_bwd, the kernels chosen by dtype and D in
+// launch_bwd<D> (the C entry's only dispatch):
+//   * flash_bwd_delta_kernel: one warp a (b, row, head), f32 sum; it reads
+//     O and dO once (117 MB at the training shape);
+//   * dQ: one CTA per q tile, query head and batch; it loops over the key
+//     tiles up to the causal limit, as the forward does;
+//   * dK/dV: one CTA per key tile, KV head and batch; it loops over the
 //     group's query heads and, for each, over the q tiles that the causal
 //     mask lets see the key tile, holding dK and dV in f32 registers, and
-//     writes them once;
-//   * dQ: one CTA per (64-row q tile, query head, batch); it loops over the
-//     key tiles up to the causal limit, as the forward does.
-// No atomics: every output element is summed by one thread in a fixed
-// order, so a launch is bit-for-bit repeatable. Both recompute P, and dP,
-// so the pair runs 7 products where 5 would do (2.5x the forward's causal
-// FLOPs, the bound: 0.30 ms at the training shape (4, 2048, 28, 4, 128)
-// bf16 at 989 TFLOP/s); making them fast (wgmma, TMA, one pass) is later
-// work. bf16 (any D): mma.sync m16n8k16 on 4 warps of 16 rows, P and dS
-// rounded to bf16 for their products, f32 accumulators, tiles staged through
-// padded shared memory, row-major where a product reads along D and
-// transposed where it reads along the rows. f32: CUDA cores, 4 threads a
-// row, each holding a quarter of D, as the forward's f32 kernel.
+//     writes them once.
+// No atomics and no split across CTAs: every output element is summed by
+// one thread in a fixed order, so a launch is bit-for-bit repeatable (the
+// training step chains a digest of its gradients into the ledger, and its
+// restarts must repeat a run to the bit). The price: dQ and dK/dV each
+// recompute S and dP, 7 products where one pass with an ordered dQ
+// reduction would run 5.
+//
+// Bound: matrix products. At the training shape (4, 2048, 28, 4, 128) bf16
+// causal the 5 products of the gradient are 2.5x the forward's causal
+// FLOPs, 300.8 GFLOP, 0.304 ms at 989 TFLOP/s; the 7 this split runs take
+// 0.426 ms there. Only wgmma reaches that rate, and only if the tensor
+// cores never wait for a load:
+//   * bf16, D = 64, 96, 128 (every full-width model): the hopper kernels
+//     below the f32 ones, built from the forward's parts (TMA maps of the
+//     tensors as they lie, an mbarrier ring fed by a producer warpgroup,
+//     two consumer warpgroups under setmaxnreg, SS and RS wgmma with the
+//     transpose bit, a product's accumulator layout as the next one's A
+//     fragments):
+//     - flash_bwd_dkdv_wgmma_kernel: a CTA owns 128 keys (a consumer 64),
+//       K and V loaded once by TMA; the producer streams 64-row Q and dO
+//       tiles through a 3-stage ring, its second warp copying each tile's
+//       lse (log2 units, +inf past S, so those rows get P = 0) and delta
+//       beside them. A step runs keys by queries: S^T = K Q^T and dP^T =
+//       V dO^T (SS m64n64k16, both K-major), P^T and dS^T in registers,
+//       then dV += P^T dO and dK += dS^T Q (RS, Q and dO read as they lie
+//       under the transpose bit). 64 q rows a step keep a consumer at dK
+//       and dV (2 x D / 2 registers) plus S^T and dP^T (2 x 32). Key tile
+//       0, which the causal mask lets the most q tiles see, runs first.
+//     - flash_bwd_dq_wgmma_kernel: the forward's kernel with the online
+//       softmax taken out and a product added: a CTA owns 128 q rows (a
+//       consumer 64), Q and dO loaded once, 128-key K and V tiles through a
+//       2-stage ring (3 at D < 128); S = Q K^T and dP = dO V^T (SS
+//       m64n128k16), dS from the stored lse, dQ += dS K (RS). The heaviest
+//       q tiles run first.
+//     The causal mask runs only on tiles that cross the diagonal (dQ: or
+//     Skv); rows of dK and dV past Skv and of dQ past S are not stored.
+//   * bf16, D = 16, 32 (smoke configurations only): flash_bwd_dq_bf16_kernel
+//     and flash_bwd_dkdv_bf16_kernel, mma.sync m16n8k16 on 4 warps of 16
+//     rows, tiles staged through padded shared memory, row-major where a
+//     product reads along D and transposed where it reads along the rows,
+//     no copy/compute overlap.
+//   * f32: CUDA cores, 4 threads a row, each holding a quarter of D, as the
+//     forward's f32 kernel.
+// Every bf16 kernel rounds P and dS to bf16 for their products, and dQ,
+// dK, dV to bf16 at the end, and accumulates in f32.
 
 constexpr int kBwdM = 64;  // q rows of a dQ CTA; keys of a dK/dV CTA
 constexpr int kBwdN = 64;  // keys of a dQ step
@@ -1635,6 +1709,427 @@ cudaError_t opt_in(Kernel kernel, int bytes, bool (&done)[hopper::kMaxDevices]) 
   return cudaSuccess;
 }
 
+// ---------------------------------------------------------------------------
+// bf16 backward at D = 64, 96, 128: TMA rings, producer warps, wgmma
+// consumers (the backward's header says what and why).
+namespace hopper {
+
+constexpr int kBwdRows = 64;  // q rows of a dK/dV step
+// The backward's consumers need up to ~220 registers (dK and dV, or dQ,
+// beside S and dP); the producer's second warp copies lse and delta.
+constexpr int kBwdProducerRegs = 40, kBwdConsumerRegs = 232;
+
+// dK/dV's dynamic shared memory: K and V (128 rows) once, then a ring of Q
+// and dO tiles (64 rows each a stage), 1 KB of alignment slack.
+template <int D>
+struct DkvSmem {
+  using KV = Tile<D, kN>;
+  using QO = Tile<D, kBwdRows>;
+  static constexpr int kStages = 3;
+  static constexpr int kStage = 2 * QO::kBytes;
+  static constexpr int kBytes = 2 * KV::kBytes + kStages * kStage + 1024;
+  static_assert(kBytes + kStages * kBwdRows * 8 <= 227 * 1024,
+                "over a block's shared memory");
+};
+
+// dQ's: Q and dO (128 rows) once, then a ring of K and V tiles (128 keys).
+template <int D>
+struct DqSmem {
+  using T = Tile<D, kM>;
+  static constexpr int kStages = D == 128 ? 2 : 3;
+  static constexpr int kBytes = (2 + 2 * kStages) * T::kBytes + 1024;
+  static_assert(kBytes <= 227 * 1024, "over a block's shared memory");
+};
+
+// dK and dV of 128 keys of one KV head (a consumer warpgroup 64 keys: rows
+// of S^T and dP^T, the accumulator layout above flash_fwd_wgmma_kernel with
+// q in place of keys), summed over the group's query heads and their causal
+// q tiles in that order.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv,
+                                const __grid_constant__ CUtensorMap tdo,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ delta,
+                                __nv_bfloat16* __restrict__ dk,
+                                __nv_bfloat16* __restrict__ dv, int s,
+                                int skv, int h, int hkv, int n_k_tiles,
+                                float scale, int causal) {
+  using L = DkvSmem<D>;
+  using KV = typename L::KV;
+  using QO = typename L::QO;
+  constexpr int kS = L::kStages;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * kS];
+  // Each stage's lse (log2 units) and delta, by the tile's q row.
+  __shared__ float ls[kS][kBwdRows], dls[kS][kBwdRows];
+  const uint32_t sk = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sv = sk + KV::kBytes, sq = sv + KV::kBytes;
+  const uint32_t bkv = smem_u32(bars), bf = bkv + 8, be = bf + 8 * kS;
+
+  // Key tile 0 of every KV head and batch first.
+  const int per_tile = gridDim.x / n_k_tiles;
+  const int ik = static_cast<int>(blockIdx.x) / per_tile;
+  const int hb = static_cast<int>(blockIdx.x) % per_tile;
+  const int hk = hb % hkv, b = hb / hkv;
+  const int group = h / hkv;
+  const int k0 = ik * kN;
+  const int n_q = (s + kBwdRows - 1) / kBwdRows;
+  // Causal: the first q tile with a row at or past the tile's first key.
+  const int i_first = causal ? min(k0 / kBwdRows, n_q) : 0;
+  // Step n: query head hk * group + n / per_head, q tile i_first + n %
+  // per_head.
+  const int per_head = n_q - i_first, n_steps = group * per_head;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bkv, 1);
+#pragma unroll
+    for (int i = 0; i < kS; ++i) {
+      mbar_init(bf + 8 * i, 1 + 32);  // TMA's expect_tx + warp 1's lanes
+      mbar_init(be + 8 * i, kConsumers * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(kFull, static_cast<int>(threadIdx.x) / 128, 0);
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kBwdProducerRegs));
+    const int pw = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (threadIdx.x == 0 && n_steps > 0) {
+      // Warp 0, one thread: K and V once, then Q and dO a step.
+      prefetch_map(&tq);
+      prefetch_map(&tk);
+      prefetch_map(&tv);
+      prefetch_map(&tdo);
+      mbar_expect_tx(bkv, 2 * KV::kBytes);
+#pragma unroll
+      for (int c = 0; c < KV::kChunks; ++c) {
+        tma_load(sk + c * KV::kChunkBytes, &tk, bkv, c * KV::kCW, hk, k0, b);
+        tma_load(sv + c * KV::kChunkBytes, &tv, bkv, c * KV::kCW, hk, k0, b);
+      }
+      for (int n = 0; n < n_steps; ++n) {
+        const int st = n % kS;
+        const int hq = hk * group + n / per_head;
+        const int q0 = (i_first + n % per_head) * kBwdRows;
+        const uint32_t dst = sq + st * L::kStage;
+        mbar_wait(be + 8 * st, ((n / kS) & 1) ^ 1);
+        mbar_expect_tx(bf + 8 * st, L::kStage);
+#pragma unroll
+        for (int c = 0; c < QO::kChunks; ++c) {
+          tma_load(dst + c * QO::kChunkBytes, &tq, bf + 8 * st, c * QO::kCW,
+                   hq, q0, b);
+          tma_load(dst + QO::kBytes + c * QO::kChunkBytes, &tdo, bf + 8 * st,
+                   c * QO::kCW, hq, q0, b);
+        }
+      }
+    } else if (pw == 1) {
+      // Warp 1: each step's lse and delta into the same stage; rows past S
+      // get lse +inf (P = 0) and delta 0.
+      for (int n = 0; n < n_steps; ++n) {
+        const int st = n % kS;
+        const int hq = hk * group + n / per_head;
+        const int q0 = (i_first + n % per_head) * kBwdRows;
+        const size_t at = (static_cast<size_t>(b) * h + hq) * s;
+        mbar_wait(be + 8 * st, ((n / kS) & 1) ^ 1);
+#pragma unroll
+        for (int r = lane; r < kBwdRows; r += 32) {
+          const bool in = q0 + r < s;
+          ls[st][r] = in ? lse[at + q0 + r] * kLog2e : INFINITY;
+          dls[st][r] = in ? delta[at + q0 + r] : 0.f;
+        }
+        mbar_arrive(bf + 8 * st);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kBwdConsumerRegs));
+    const int w = wg - 1;
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int g = lane / 4, qd = lane % 4;
+    const int kw0 = k0 + 64 * w;  // this warpgroup's first key
+    const int kr0 = kw0 + 16 * warp + g, kr1 = kr0 + 8;
+    const uint32_t k_wg = sk + 64 * w * KV::kRowBytes;
+    const uint32_t v_wg = sv + 64 * w * KV::kRowBytes;
+    const float scale2 = scale * kLog2e;
+
+    float dka[D / 2], dva[D / 2], sct[kBwdRows / 2], dpt[kBwdRows / 2];
+    uint32_t pa[kBwdRows / 4], sa[kBwdRows / 4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kBwdRows / 2; ++i) sct[i] = dpt[i] = 0.f;
+
+    if (n_steps > 0) mbar_wait(bkv, 0);
+    for (int n = 0; n < n_steps; ++n) {
+      const int st = n % kS;
+      const int q0 = (i_first + n % per_head) * kBwdRows;
+      const uint32_t q_st = sq + st * L::kStage, do_st = q_st + QO::kBytes;
+      mbar_wait(bf + 8 * st, (n / kS) & 1);
+      fence_regs(sct);
+      fence_regs(dpt);
+      wgmma_fence();
+      mma_abt<D, kN, kBwdRows>(sct, k_wg, q_st);   // S^T = K Q^T
+      mma_abt<D, kN, kBwdRows>(dpt, v_wg, do_st);  // dP^T = V dO^T
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sct);
+      fence_regs(dpt);
+      // P^T and dS^T = P^T o (dP^T - delta); the causal mask only where
+      // the tile crosses the diagonal (a key past its q row).
+      const bool diag = causal && kw0 + 63 > q0;
+#pragma unroll
+      for (int i = 0; i < kBwdRows / 2; ++i) {
+        const int col = (i / 4) * 8 + 2 * qd + (i & 1);
+        const int key = (i & 2) ? kr1 : kr0;
+        float p = exp2_ftz(fmaf(sct[i], scale2, -ls[st][col]));
+        if (diag && key > q0 + col) p = 0.f;
+        sct[i] = p;
+        dpt[i] = p * (dpt[i] - dls[st][col]);
+      }
+      pack_frags(sct, pa);
+      pack_frags(dpt, sa);
+      wgmma_fence();
+      mma_ab<D, kBwdRows>(dva, pa, do_st);  // dV += P^T dO
+      mma_ab<D, kBwdRows>(dka, sa, q_st);   // dK += dS^T Q
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dva);
+      fence_regs(dka);
+      mbar_arrive(be + 8 * st);
+    }
+
+    const size_t kv_stride = static_cast<size_t>(hkv) * D;
+    const size_t off0 = (static_cast<size_t>(b) * skv + kr0) * kv_stride +
+                        static_cast<size_t>(hk) * D;
+    const size_t off1 = off0 + 8 * kv_stride;
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd) {
+      const int col = nd * 8 + 2 * qd;
+      if (kr0 < skv) {
+        *reinterpret_cast<uint32_t*>(dk + off0 + col) =
+            pack_bf16(dka[4 * nd] * scale, dka[4 * nd + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + off0 + col) =
+            pack_bf16(dva[4 * nd], dva[4 * nd + 1]);
+      }
+      if (kr1 < skv) {
+        *reinterpret_cast<uint32_t*>(dk + off1 + col) =
+            pack_bf16(dka[4 * nd + 2] * scale, dka[4 * nd + 3] * scale);
+        *reinterpret_cast<uint32_t*>(dv + off1 + col) =
+            pack_bf16(dva[4 * nd + 2], dva[4 * nd + 3]);
+      }
+    }
+  }
+}
+
+// dQ of 128 q rows of one query head (a consumer warpgroup 64 rows), summed
+// over the key tiles up to the causal limit in order.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dq, int s, int skv,
+                              int h, int hkv, int n_q_tiles, float scale,
+                              int causal) {
+  using L = DqSmem<D>;
+  using T = typename L::T;
+  constexpr int kS = L::kStages;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * kS];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sdo = sq + T::kBytes, skv_ring = sdo + T::kBytes;
+  const uint32_t bq = smem_u32(bars), bf = bq + 8, be = bf + 8 * kS;
+
+  // All heads and batches of the last (heaviest causal) q tile first.
+  const int per_tile = gridDim.x / n_q_tiles;
+  const int iq = n_q_tiles - 1 - static_cast<int>(blockIdx.x) / per_tile;
+  const int hb = static_cast<int>(blockIdx.x) % per_tile;
+  const int hq = hb % h, b = hb / h;
+  const int hk = hq / (h / hkv);
+  const int q0 = iq * kM;
+  int n_kv = (skv + kN - 1) / kN;
+  if (causal) n_kv = min(n_kv, (q0 + kM - 1) / kN + 1);  // to the diagonal
+
+  if (threadIdx.x == 0) {
+    mbar_init(bq, 1);
+#pragma unroll
+    for (int i = 0; i < kS; ++i) {
+      mbar_init(bf + 8 * i, 1);
+      mbar_init(be + 8 * i, kConsumers * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(kFull, static_cast<int>(threadIdx.x) / 128, 0);
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kBwdProducerRegs));
+    if (threadIdx.x == 0) {
+      // Q and dO once, then K and V a step.
+      prefetch_map(&tq);
+      prefetch_map(&tk);
+      prefetch_map(&tv);
+      prefetch_map(&tdo);
+      mbar_expect_tx(bq, 2 * T::kBytes);
+#pragma unroll
+      for (int c = 0; c < T::kChunks; ++c) {
+        tma_load(sq + c * T::kChunkBytes, &tq, bq, c * T::kCW, hq, q0, b);
+        tma_load(sdo + c * T::kChunkBytes, &tdo, bq, c * T::kCW, hq, q0, b);
+      }
+      for (int j = 0; j < n_kv; ++j) {
+        const int st = j % kS;
+        const uint32_t dst = skv_ring + st * 2 * T::kBytes;
+        mbar_wait(be + 8 * st, ((j / kS) & 1) ^ 1);
+        mbar_expect_tx(bf + 8 * st, 2 * T::kBytes);
+#pragma unroll
+        for (int c = 0; c < T::kChunks; ++c) {
+          tma_load(dst + c * T::kChunkBytes, &tk, bf + 8 * st, c * T::kCW,
+                   hk, j * kN, b);
+          tma_load(dst + T::kBytes + c * T::kChunkBytes, &tv, bf + 8 * st,
+                   c * T::kCW, hk, j * kN, b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kBwdConsumerRegs));
+    const int w = wg - 1;
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int g = lane / 4, qd = lane % 4;
+    const int row_first = q0 + 64 * w;
+    const int r0 = row_first + 16 * warp + g, r1 = r0 + 8;
+    const uint32_t q_wg = sq + 64 * w * T::kRowBytes;
+    const uint32_t do_wg = sdo + 64 * w * T::kRowBytes;
+    const float scale2 = scale * kLog2e;
+    // This thread's two rows' lse (log2 units) and delta; a row past S is
+    // never stored, so it reads none.
+    const float* lh = lse + (static_cast<size_t>(b) * h + hq) * s;
+    const float* dh = delta + (static_cast<size_t>(b) * h + hq) * s;
+    const float lse0 = r0 < s ? lh[r0] * kLog2e : 0.f;
+    const float lse1 = r1 < s ? lh[r1] * kLog2e : 0.f;
+    const float dl0 = r0 < s ? dh[r0] : 0.f, dl1 = r1 < s ? dh[r1] : 0.f;
+
+    float acc[D / 2], sc[kN / 2], dp[kN / 2];
+    uint32_t sa[kN / 4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) sc[i] = dp[i] = 0.f;
+
+    mbar_wait(bq, 0);
+    for (int j = 0; j < n_kv; ++j) {
+      const int st = j % kS, kv0 = j * kN;
+      const uint32_t k_st = skv_ring + st * 2 * T::kBytes;
+      const uint32_t v_st = k_st + T::kBytes;
+      mbar_wait(bf + 8 * st, (j / kS) & 1);
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
+      mma_abt<D, kM, kN>(sc, q_wg, k_st);   // S = Q K^T
+      mma_abt<D, kM, kN>(dp, do_wg, v_st);  // dP = dO V^T
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      // dS = P o (dP - delta); the mask only on a tile that crosses the
+      // diagonal or Skv (zero-filled keys past Skv score 0, not -inf).
+      const bool edge =
+          kv0 + kN > skv || (causal && kv0 + kN - 1 > row_first);
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) {
+        const int col = kv0 + (i / 4) * 8 + 2 * qd + (i & 1);
+        const int row = (i & 2) ? r1 : r0;
+        float p = exp2_ftz(fmaf(sc[i], scale2, (i & 2) ? -lse1 : -lse0));
+        if (edge && (col >= skv || (causal && col > row))) p = 0.f;
+        dp[i] = p * (dp[i] - ((i & 2) ? dl1 : dl0));
+      }
+      pack_frags(dp, sa);
+      wgmma_fence();
+      mma_ab<D, kN>(acc, sa, k_st);  // dQ += dS K
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(be + 8 * st);
+    }
+
+    const size_t q_stride = static_cast<size_t>(h) * D;
+    __nv_bfloat16* o0 = dq + (static_cast<size_t>(b) * s + r0) * q_stride +
+                        static_cast<size_t>(hq) * D;
+    __nv_bfloat16* o1 = o0 + 8 * q_stride;
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd) {
+      const int col = nd * 8 + 2 * qd;
+      if (r0 < s)
+        *reinterpret_cast<uint32_t*>(o0 + col) =
+            pack_bf16(acc[4 * nd] * scale, acc[4 * nd + 1] * scale);
+      if (r1 < s)
+        *reinterpret_cast<uint32_t*>(o1 + col) =
+            pack_bf16(acc[4 * nd + 2] * scale, acc[4 * nd + 3] * scale);
+    }
+  }
+}
+
+// The bf16 dQ and dK/dV launches at D = 64, 96, 128 (after the delta
+// pass). Q and dO are mapped twice: 128-row boxes for dQ, 64-row boxes for
+// dK/dV's steps.
+template <int D>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse,
+                       const float* delta, void* dq, void* dk, void* dv,
+                       int b, int s, int skv, int h, int hkv, bool causal,
+                       cudaStream_t stream) {
+  if (b == 0 || s == 0 || skv == 0) {  // no (row, key) pair: zero gradients
+    const size_t nq = static_cast<size_t>(b) * s * h * D * 2;
+    const size_t nkv = static_cast<size_t>(b) * skv * hkv * D * 2;
+    cudaError_t err = cudaMemsetAsync(dq, 0, nq, stream);
+    if (err == cudaSuccess) err = cudaMemsetAsync(dk, 0, nkv, stream);
+    if (err == cudaSuccess) err = cudaMemsetAsync(dv, 0, nkv, stream);
+    return err;
+  }
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return cudaErrorSymbolNotFound;
+  CUtensorMap mq, mdo, mq64, mdo64, mk, mv;
+  if (!encode<D>(enc, &mq, q, b, s, h) ||
+      !encode<D>(enc, &mdo, dout, b, s, h) ||
+      !encode<D>(enc, &mq64, q, b, s, h, kBwdRows) ||
+      !encode<D>(enc, &mdo64, dout, b, s, h, kBwdRows) ||
+      !encode<D>(enc, &mk, k, b, skv, hkv) ||
+      !encode<D>(enc, &mv, v, b, skv, hkv))
+    return cudaErrorInvalidValue;
+  static bool dq_opted[kMaxDevices] = {};
+  static bool dkv_opted[kMaxDevices] = {};
+  cudaError_t err =
+      opt_in(flash_bwd_dq_wgmma_kernel<D>, DqSmem<D>::kBytes, dq_opted);
+  if (err == cudaSuccess)
+    err = opt_in(flash_bwd_dkdv_wgmma_kernel<D>, DkvSmem<D>::kBytes,
+                 dkv_opted);
+  if (err != cudaSuccess) return err;
+  const float scale = static_cast<float>(1.0 / std::sqrt(double(D)));
+  const int n_q_tiles = (s + kM - 1) / kM, n_k_tiles = (skv + kN - 1) / kN;
+  flash_bwd_dq_wgmma_kernel<D>
+      <<<n_q_tiles * h * b, kThreads, DqSmem<D>::kBytes, stream>>>(
+          mq, mk, mv, mdo, lse, delta, static_cast<__nv_bfloat16*>(dq), s,
+          skv, h, hkv, n_q_tiles, scale, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_wgmma_kernel<D>
+      <<<n_k_tiles * hkv * b, kThreads, DkvSmem<D>::kBytes, stream>>>(
+          mq64, mk, mv, mdo64, lse, delta, static_cast<__nv_bfloat16*>(dk),
+          static_cast<__nv_bfloat16*>(dv), s, skv, h, hkv, n_k_tiles, scale,
+          causal);
+  return cudaGetLastError();
+}
+
+}  // namespace hopper
+
 template <int D>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, const float* lse,
@@ -1657,26 +2152,34 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
           delta, rows, s, h, D);
   }
   if (bf16) {
-    static bool dq_opted[hopper::kMaxDevices] = {};
-    static bool dkv_opted[hopper::kMaxDevices] = {};
-    cudaError_t err = opt_in(flash_bwd_dq_bf16_kernel<D>, BwdSmem<D>::kDq,
-                             dq_opted);
-    if (err == cudaSuccess)
-      err = opt_in(flash_bwd_dkdv_bf16_kernel<D>, BwdSmem<D>::kDkv,
-                   dkv_opted);
-    if (err != cudaSuccess) return err;
-    if (rows > 0)
-      flash_bwd_dq_bf16_kernel<D><<<grid_q, 128, BwdSmem<D>::kDq, stream>>>(
-          static_cast<const bf*>(q), static_cast<const bf*>(k),
-          static_cast<const bf*>(v), static_cast<const bf*>(dout), lse, delta,
-          static_cast<bf*>(dq), s, skv, h, hkv, scale, causal);
-    if (skv > 0 && b > 0)
-      flash_bwd_dkdv_bf16_kernel<D>
-          <<<grid_kv, 128, BwdSmem<D>::kDkv, stream>>>(
-              static_cast<const bf*>(q), static_cast<const bf*>(k),
-              static_cast<const bf*>(v), static_cast<const bf*>(dout), lse,
-              delta, static_cast<bf*>(dk), static_cast<bf*>(dv), s, skv, h,
-              hkv, scale, causal);
+    if constexpr (D >= 64) {
+      const cudaError_t err = cudaGetLastError();  // the delta pass's
+      if (err != cudaSuccess) return err;
+      return hopper::launch_bwd<D>(q, k, v, dout, lse, delta, dq, dk, dv, b,
+                                   s, skv, h, hkv, causal, stream);
+    } else {
+      static bool dq_opted[hopper::kMaxDevices] = {};
+      static bool dkv_opted[hopper::kMaxDevices] = {};
+      cudaError_t err = opt_in(flash_bwd_dq_bf16_kernel<D>, BwdSmem<D>::kDq,
+                               dq_opted);
+      if (err == cudaSuccess)
+        err = opt_in(flash_bwd_dkdv_bf16_kernel<D>, BwdSmem<D>::kDkv,
+                     dkv_opted);
+      if (err != cudaSuccess) return err;
+      if (rows > 0)
+        flash_bwd_dq_bf16_kernel<D>
+            <<<grid_q, 128, BwdSmem<D>::kDq, stream>>>(
+                static_cast<const bf*>(q), static_cast<const bf*>(k),
+                static_cast<const bf*>(v), static_cast<const bf*>(dout), lse,
+                delta, static_cast<bf*>(dq), s, skv, h, hkv, scale, causal);
+      if (skv > 0 && b > 0)
+        flash_bwd_dkdv_bf16_kernel<D>
+            <<<grid_kv, 128, BwdSmem<D>::kDkv, stream>>>(
+                static_cast<const bf*>(q), static_cast<const bf*>(k),
+                static_cast<const bf*>(v), static_cast<const bf*>(dout), lse,
+                delta, static_cast<bf*>(dk), static_cast<bf*>(dv), s, skv, h,
+                hkv, scale, causal);
+    }
   } else {
     if (rows > 0)
       flash_bwd_dq_f32_kernel<D><<<grid_q, 256, 0, stream>>>(

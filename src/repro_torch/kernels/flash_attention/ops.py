@@ -9,8 +9,10 @@ All three are named ``flash_fwd_*``; ``launches`` counts launches of each.
 
 Training differentiates through :class:`FlashAttention`: its forward is
 the same launch with each row's log-sum-exp written beside O, its backward
-one call of ``flash_attention_bwd`` (a delta pass, a dK/dV kernel and a dQ
-kernel, ``flash_bwd_*``), counted by ``launches_bwd``. ``flash_attention``
+one call of ``flash_attention_bwd`` (a delta pass, a dQ kernel and a dK/dV
+kernel, ``flash_bwd_*``: wgmma kernels fed by TMA rings for bf16 at D = 64,
+96, 128, mma.sync ones at D = 16, 32, CUDA-core ones for f32; no atomics,
+so a launch repeats bit for bit), counted by ``launches_bwd``. ``flash_attention``
 takes it only when grad is enabled and an input needs a gradient; under
 ``no_grad``/``inference_mode`` it runs as serving always has, with no LSE.
 """

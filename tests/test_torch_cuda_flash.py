@@ -99,3 +99,30 @@ def test_flash_attention_kernel_choice(cuda):
                     else "flash_fwd_wgmma_kernel" if d >= 64
                     else "flash_fwd_bf16_kernel")
             assert len(ran) == 1 and want in ran.pop(), (dtype, d, ran)
+
+
+@pytest.mark.gpu
+def test_flash_attention_bwd_kernel_choice(cuda):
+    """The backward's kernels that actually run for each dtype and head
+    dim, read from the profiler: the wgmma dQ and dK/dV kernels for bf16 at
+    every full-width head dim, the mma.sync ones for bf16 at D = 16, 32,
+    the CUDA-core ones for f32; the delta pass always."""
+    from torch.profiler import ProfilerActivity, profile
+    for dtype in (F32, BF16):
+        for d in fa_ops.HEAD_DIMS:
+            q, k, v, do = (torch.randn((1, 64, 2, d), device=cuda).to(dtype)
+                           for _ in range(4))
+            out, lse = fa_ops._forward(q, k, v, True, with_lse=True)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fa_ops.flash_attention_bwd(q, k, v, out, do, lse,
+                                           causal=True)
+                torch.cuda.synchronize()
+            ran = {ev.key for ev in prof.key_averages()
+                   if "flash_bwd" in ev.key}
+            kind = ("f32" if dtype == F32 else "wgmma" if d >= 64
+                    else "bf16")
+            want = [f"flash_bwd_dq_{kind}_kernel",
+                    f"flash_bwd_dkdv_{kind}_kernel", "flash_bwd_delta_kernel"]
+            assert len(ran) == 3, (dtype, d, ran)
+            assert all(any(w in r for r in ran) for w in want), (dtype, d,
+                                                                  ran)

@@ -56,6 +56,10 @@ def _inputs(cuda, b, s, skv, h, kv, d, dtype, seed):
     (2, 45, 170, 8, 2, 32, BF16, True),       # Skv > S
     (1, 300, 100, 28, 4, 128, BF16, True),    # Skv < S
     (1, 1, 1, 28, 4, 128, BF16, True),        # one row, one key
+    (1, 65, 65, 28, 4, 128, BF16, True),      # one row past a 64-row q tile
+    (1, 333, 333, 16, 2, 64, BF16, True),     # D = 64, GQA of 8
+    (1, 2048, 2048, 32, 32, 96, BF16, True),  # phi3-mini's MHA, D = 96
+    (1, 200, 72, 28, 4, 128, BF16, True),     # Skv < S, not a tile multiple
 ])
 def test_flash_attention_bwd_kernel(cuda, no_tf32, b, s, skv, h, kv, d,
                                     dtype, causal):
@@ -115,6 +119,23 @@ def test_function_launches_and_grads(cuda):
     with torch.no_grad():
         fa_ops.flash_attention(q, k, v, causal=True)
     assert (fa_ops.launches, fa_ops.launches_bwd) == (f0 + 3, b0 + 2)
+
+
+@pytest.mark.gpu
+def test_flash_attention_bwd_repeatable(cuda):
+    """Two backward launches at the training shape (4, 2048, 28, 4, 128)
+    bf16 causal give dQ, dK and dV equal bit for bit: every element is
+    summed by one thread in a fixed order, with no atomics."""
+    q, k, v, do = _inputs(cuda, 4, 2048, 2048, 28, 4, 128, BF16, 23)
+    out, lse = fa_ops._forward(q, k, v, True, with_lse=True)
+    first = fa_ops.flash_attention_bwd(q, k, v, out, do, lse, causal=True)
+    # Another launch in between leaves other values in the freed memory.
+    fa_ops.flash_attention_bwd(q, k, v, out, do * 2, lse, causal=True)
+    second = fa_ops.flash_attention_bwd(q, k, v, out, do, lse, causal=True)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+        assert bool(torch.isfinite(a.float()).all()), name
 
 
 @pytest.mark.gpu

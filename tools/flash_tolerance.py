@@ -34,10 +34,16 @@ limit everywhere and each fault exceeds it somewhere.
 forward O and LSE, against ``ref.flash_attention_bwd_ref`` on the inputs
 cast to f32 with the plain forward's O and LSE), with these faults:
 
-* ``dkdv_skips_diagonal_q_tile``: every bf16 dK/dV CTA starts one q tile
+* ``dkdv_skips_diagonal_q_tile``: every wgmma dK/dV CTA starts one q tile
   late under the causal mask, skipping the tile on its diagonal;
-* ``ds_without_delta``: both bf16 kernels take dS = P o dP, without the
-  ``- delta``.
+* ``ds_without_delta``: both wgmma kernels (dQ and dK/dV) take dS = P o dP,
+  without the ``- delta``;
+* ``last_k_from_wrong_stage``: the last dQ += dS K of each wgmma dQ CTA
+  that sees more than one key tile reads K from the ring's stage before,
+  which holds the previous tile, as a stage index off by one would.
+
+The faults sit in the kernels that bf16 at D = 64, 96 and 128 runs; the
+mma.sync kernels at D = 16 and 32 run sound in every build.
 """
 
 from __future__ import annotations
@@ -63,8 +69,8 @@ FAULTS = {
         "return kv0 + kN > skv ||\n"
         "             (causal && w == 0 && kv0 + kN - 1 > row_first);"),
     "last_v_from_wrong_stage": (
-        "mma_pv<D>(acc, pa, sv + sl * T::kBytes);",
-        "mma_pv<D>(acc, pa, sv + ((sl + 1) % kStages) * T::kBytes);"),
+        "mma_ab<D, kN>(acc, pa, sv + sl * T::kBytes);",
+        "mma_ab<D, kN>(acc, pa, sv + ((sl + 1) % kStages) * T::kBytes);"),
     "stale_v_tile_15": (
         "&tv, bv + 8 * st,\n                   c * T::kCW, hk, j * kN, b);",
         "&tv, bv + 8 * st,\n                   c * T::kCW, hk,"
@@ -85,13 +91,16 @@ OLD_TOL = 3e-2
 # Backward faults: each a list of (line, replacement) planted together.
 BWD_FAULTS = {
     "dkdv_skips_diagonal_q_tile": [(
-        "const int i_first = causal ? min(k0 / kBwdQ, n_q) : 0;",
-        "const int i_first = causal ? min(k0 / kBwdQ + 1, n_q) : 0;")],
+        "const int i_first = causal ? min(k0 / kBwdRows, n_q) : 0;",
+        "const int i_first = causal ? min(k0 / kBwdRows + 1, n_q) : 0;")],
     "ds_without_delta": [
-        ("sc[nt][i] = p * (dp[nt][i] - (i < 2 ? dl0 : dl1));",
-         "sc[nt][i] = p * dp[nt][i];"),
-        ("dpt[nt][e] = p * (dpt[nt][e] - dls[qi]);",
-         "dpt[nt][e] = p * dpt[nt][e];")],
+        ("dpt[i] = p * (dpt[i] - dls[st][col]);", "dpt[i] = p * dpt[i];"),
+        ("dp[i] = p * (dp[i] - ((i & 2) ? dl1 : dl0));",
+         "dp[i] = p * dp[i];")],
+    "last_k_from_wrong_stage": [(
+        "mma_ab<D, kN>(acc, sa, k_st);  // dQ += dS K",
+        "mma_ab<D, kN>(acc, sa, j == 0 || j + 1 < n_kv ? k_st : skv_ring +"
+        " (st + kS - 1) % kS * 2 * T::kBytes);")],
 }
 # (B, S, Skv, H, Hkv, D, causal): the training shape, the backward's bf16
 # card cases and the shapes chip_smoke.py checks.
@@ -100,7 +109,9 @@ BWD_CASES = (
     (1, 129, 129, 28, 4, 128, True), (2, 300, 300, 32, 32, 96, True),
     (2, 100, 100, 4, 2, 16, True), (1, 130, 130, 8, 8, 64, False),
     (2, 45, 170, 8, 2, 32, True), (1, 300, 100, 28, 4, 128, True),
-    (1, 300, 300, 28, 4, 128, False),
+    (1, 300, 300, 28, 4, 128, False), (1, 65, 65, 28, 4, 128, True),
+    (1, 333, 333, 16, 2, 64, True), (1, 2048, 2048, 32, 32, 96, True),
+    (1, 200, 72, 28, 4, 128, True),
 )
 
 
