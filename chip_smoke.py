@@ -71,18 +71,19 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
    before and read after; verify() all True, and the same round on the
    CPU identical (chain and validity bits, log head, journal head, state
    digest).
-9. Serving at full width: Qwen2-7B (28 layers, bf16, weights drawn on the
-   card from --seed), ServeEngine with 4 slots of 2,080 positions, 8
-   requests of 64-2,048 random tokens, 16 new tokens each; counters set to
-   0 before and read after. Every request done with 16 tokens and ledger
-   version 2, every logit finite, K5 launched 28 times a prefill; one
-   request re-run by its own prefill + decode_step must give the same first
-   token. Then one prefill and one decode step are profiled for the
-   device's busy time and K5's share of it.
-10. Serving, card against CPU: the same architecture cut to 2 layers, f32,
-   weights drawn once on the CPU and moved to the card, 2 requests (777
-   and 256 tokens, 4 new each): prefill logits within 1e-4, greedy tokens
-   and request-ledger words identical.
+9. Serving at full width (``serve_traffic``): Qwen2-7B (28 layers, bf16,
+   weights drawn on the card from --seed), ServeEngine with 4 slots of
+   2,080 positions, 8 requests of 64-2,048 random tokens, 16 new tokens
+   each; counters set to 0 before and read after. Every request done with
+   16 tokens and ledger version 2, every logit finite, K5 launched 28
+   times a prefill, the weight count; one request re-run by its own
+   prefill + decode_step must give the same first token. Then one prefill
+   and one decode step are profiled for the device's busy time and K5's
+   share of it (``serve_profile``).
+10. Serving, card against CPU (``serve_check``): the same architecture cut
+   to 2 layers, f32, weights drawn once on the CPU and moved to the card,
+   2 requests (777 and 256 tokens, 4 new each): prefill logits within
+   1e-4, greedy tokens and request-ledger words identical.
 11. Durability on the card: FASTFABRIC as in phase 4 with a snapshot every
    10 blocks and the snapshot, journal and block directories in a
    temporary directory (chain pruned a snapshot behind): rounds of 1,000,
@@ -205,12 +206,40 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
    Skv < S off the tiles, no causal mask), the forward's LSE against the
    plain one, and O with the LSE written equal bit for bit to O without
    it.
+17. MoE serving at full width (``moe_serving_phase``): Qwen1.5-MoE-A2.7B
+   (24 layers, d 2,048, 16 heads of 128, 60 routed experts top-4 of width
+   1,408 plus 4 shared; 14.3 B weights), bf16 with the router f32, random
+   weights from --seed, at the JAX serving launcher's capacity factor 2.0,
+   behind ServeEngine with phase 9's traffic and checks (8 prompts, 16 new
+   tokens each, 4 slots of 2,080): every request done, ledger versions 2,
+   logits finite, K5 exactly 8 x 24 times and K2 launched, the weight
+   count; prompt and output tokens/s, decode p50/min/max, peak memory.
+   Untimed after it: a replay of the same requests, which must give the
+   same tokens, counts the share of routed assignments dropped in prefill
+   and in decode; the 2,048-token prefill repeated bit for bit; the
+   device's busy share and top ops of one prefill and one decode step.
+   (b) The same width cut to 2 layers, f32 (TF32 off), phase 10's
+   ``serve_check``, CHECK_PROMPTS card against CPU: prefill logits
+   within LOGITS_TOL, greedy tokens and ledgers identical, each moe
+   layer's routes compared (a difference where the CPU's k-th and (k+1)-th
+   probabilities lie within ROUTE_TIE is an f32 tie, printed, and its
+   request is compared no further; any other fails).
+18. Mamba2-2.7B at full width (``ssm_phase``): 64 layers, d 2,560, 80 SSD
+   heads of 64, state 128 (2.8 B weights), bf16, random weights from
+   --seed: a prefill of 4 x 2,048 tokens, then 16 greedy decode steps;
+   logits finite, no kernel launched, the weight count, layer 0's chunked
+   scan against the sequential reference on the card (SSD_TOL); prompt
+   tokens/s, decode p50/min/max, peak memory, busy share and top ops of a
+   prefill and a decode step. (b) 2 layers, f32, prompts of 768 and 256
+   tokens + 4 greedy steps card against CPU: logits, tokens, conv tails
+   and SSM states.
 
 The lines before the last give each phase's seconds, the card's name and
 power limit (as nvidia-smi prints them), the engine, ladder, serving,
-durability, observability, pipeline, channel, sharding and training
-summaries (with the storage objects' sizes) and the kernels (K1-K5 and
-K5's backward); the last line is {"ok": true, "device": {...}}.
+durability, observability, pipeline, channel, sharding, training, MoE
+serving and SSM summaries (with the storage objects' sizes) and the
+kernels (K1-K5 and K5's backward); the last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -287,6 +316,23 @@ SERVE_PROMPTS = (2048, 1531, 1024, 777, 2000, 300, 1999, 64)
 SERVE_NEW = 16
 SERVE_SLOTS, SERVE_MAX_LEN = 4, 2080
 CHECK_PROMPTS, CHECK_NEW = (777, 256), 4  # card against CPU, 2 layers
+# Phase 17: Qwen1.5-MoE-A2.7B served at the JAX serving launcher's capacity
+# factor, with phase 9's traffic. Routing is a discrete choice: a route
+# that differs card/CPU where the CPU's k-th and (k+1)-th probabilities lie
+# closer than ROUTE_TIE (f32 logits of a 2,048-term product differ by
+# ~1e-7 of their size across the two sides) is an f32 tie.
+MOE_ARCH, MOE_CF = "qwen2-moe-a2.7b", 2.0
+ROUTE_TIE = 1e-6
+# Phase 18: Mamba2-2.7B, a prefill of 4 x 2,048 tokens and 16 greedy
+# decode steps; card against CPU at two prompts (three chunks of 256, one).
+# Layer 0's chunked scan against the sequential one: the chunk's cumsum of
+# log-decays (up to |dt A| x 256 ~ 1e4 for the fast heads) rounds in f32,
+# so the two orders part by ~1e-5 of the largest magnitude (y and final
+# state, measured at full width on the CPU); 1e-4 of it leaves a factor 5.
+SSM_ARCH = "mamba2-2.7b"
+SSM_BATCH, SSM_SEQ, SSM_NEW = 4, 2048, 16
+SSM_CHECK_PROMPTS = (768, 256)
+SSD_TOL = 1e-4
 # K5 against its plain version: (B, S, H, Hkv, D), dtype
 FLASH_CASES = (((1, 2048, 28, 4, 128), "bfloat16"),
                ((1, 777, 28, 4, 128), "bfloat16"),
@@ -297,7 +343,9 @@ FLASH_CASES = (((1, 2048, 28, 4, 128), "bfloat16"),
                # batch's tail), D = 96 under the 64-byte swizzle
                ((1, 129, 28, 4, 128), "bfloat16"),
                ((2, 200, 28, 4, 128), "bfloat16"),
-               ((2, 300, 32, 32, 96), "bfloat16"))
+               ((2, 300, 32, 32, 96), "bfloat16"),
+               # Qwen1.5-MoE's prefill: MHA of 16 heads at D = 128
+               ((1, 2048, 16, 16, 128), "bfloat16"))
 # K5 timed at these shapes (bf16, causal), in turns with SDPA: Qwen2-7B's
 # prefill of a full and a ragged prompt, phi3-mini's (D = 96, MHA)
 FLASH_TIMED = ((1, 2048, 28, 4, 128), (1, 777, 28, 4, 128),
@@ -1766,6 +1814,628 @@ def training_phase(dev, counts, zero_counts, path_launches, *,
     return out
 
 
+def profile_calls(calls: dict, tag: str) -> dict:
+    """Each call timed alone (host clock around a synced call), then once
+    under the profiler: the device's busy time, its share of the
+    unprofiled time, K5's part and the 6 largest device ops, logged under
+    ``[tag]``."""
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for what, fn in calls.items():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = _device_events(prof)
+        busy_s = sum(ev.self_device_time_total for ev in evs) / 1e6
+        n_ops = sum(ev.count for ev in evs)
+        k5_evs = [ev for ev in evs if "flash_fwd" in ev.key]
+        k5_s = sum(ev.self_device_time_total for ev in k5_evs) / 1e6
+        top = sorted(evs, key=lambda e: -e.self_device_time_total)[:6]
+        out[what] = {
+            "wall_s": wall, "device_busy_s": busy_s,
+            "busy_share": busy_s / wall, "device_ops": n_ops, "k5_s": k5_s,
+            "k5_launches": sum(ev.count for ev in k5_evs),
+            "top": [(ev.key[:90], ev.self_device_time_total / 1e3, ev.count)
+                    for ev in top]}
+        log(f"[{tag}] {what}: {wall:.4f} s alone; under the profiler device "
+            f"busy {busy_s:.4f} s over {n_ops} device ops "
+            f"({busy_s / wall * 100:.1f} % of the unprofiled time); K5 "
+            f"{k5_s * 1e3:.3f} ms over {out[what]['k5_launches']} launches "
+            f"({k5_s / busy_s * 100 if busy_s else 0:.1f} % of busy)")
+        for key, ms, n in out[what]["top"]:
+            log(f"[{tag}]   {ms:9.3f} ms {n:6d}x {key}")
+    return out
+
+
+def _weights_check(model, cfg, f32_leaves: set) -> int:
+    """The model's weight count: cfg.n_params() plus the embedding rows
+    that pad the vocabulary to a multiple of 256 (n_params counts
+    ``vocab`` rows, the tables hold ``vocab_padded``); at a bf16 config
+    only ``f32_leaves`` are f32. Returns the count."""
+    n = sum(p.numel() for p in model.parameters())
+    pad = (cfg.vocab_padded - cfg.vocab) * cfg.d_model * (
+        1 if cfg.tie_embeddings else 2)
+    if n != cfg.n_params() + pad:
+        raise AssertionError(f"{cfg.name}: {n} weights, config says "
+                             f"{cfg.n_params()} + {pad} padding")
+    f32 = {name.rsplit(".", 1)[-1] for name, p in model.named_parameters()
+           if p.dtype == torch.float32}
+    if cfg.dtype == "bfloat16" and f32 != f32_leaves:
+        raise AssertionError(f"{cfg.name}: f32 leaves {sorted(f32)}")
+    return n
+
+
+def _route_recorder(moe_mod, rows):
+    """A stand-in for ``moe.route`` that records, for each call, the kind of
+    call and its rows' (request id, position) (``rows[0]``, set by the
+    caller), the chosen experts and the margin between the k-th and
+    (k+1)-th probability, all on the host. Returns (stand-in, records)."""
+    orig = moe_mod.route
+    records = []
+
+    def route(router_w, x2d, top_k):
+        out = orig(router_w, x2d, top_k)
+        probs = torch.softmax(x2d.float() @ router_w.float(), dim=-1)
+        top = torch.sort(probs, dim=-1, descending=True).values
+        kind, where = rows[0]
+        records.append((kind, list(where), out[1].cpu(),
+                        (top[:, top_k - 1] - top[:, top_k]).cpu()))
+        return out
+
+    return route, records
+
+
+def _route_flips(cpu_routes, card_routes) -> tuple[dict, float, list]:
+    """Phase 17 (b)'s rule for routes, card against CPU, call by call: a
+    row whose experts differ is an f32 tie when the CPU's margin between
+    its k-th and (k+1)-th probability is below ROUTE_TIE, and its request
+    is compared no further from that position (in a decode step, where the
+    slots share capacity, every request of the step); any other
+    difference fails. Returns ({request id: first flipped position}, the
+    smallest margin seen, the ties)."""
+    flipped, ties, least = {}, [], float("inf")
+    for (kind, rows, c_e, c_m), (_, _, k_e, _) in zip(cpu_routes, card_routes,
+                                                      strict=True):
+        least = min(least, float(c_m.min()))
+        differs = (c_e != k_e).any(dim=-1).nonzero()[:, 0].tolist()
+        for i in differs:
+            rid, pos = rows[i]
+            if rid in flipped and pos >= flipped[rid]:
+                continue  # after its own flip
+            if float(c_m[i]) >= ROUTE_TIE:
+                raise AssertionError(
+                    f"moe route of request {rid} at position {pos} differs "
+                    f"card/CPU (experts {k_e[i].tolist()} / "
+                    f"{c_e[i].tolist()}) with a CPU margin of "
+                    f"{float(c_m[i])}, not a tie")
+            ties.append({"request": rid, "position": pos,
+                         "margin": float(c_m[i])})
+            for r, p in (rows if kind == "decode" else [rows[i]]):
+                if r is not None:
+                    flipped[r] = min(flipped.get(r, p), p)
+    return flipped, least, ties
+
+
+def serve_traffic(dev, cfg, counts, zero_counts, *, seed: int, tag: str,
+                  model_kw=None, f32_leaves=frozenset(),
+                  prompts=SERVE_PROMPTS, new: int = SERVE_NEW,
+                  slots: int = SERVE_SLOTS,
+                  max_len: int = SERVE_MAX_LEN) -> tuple:
+    """Phases 9 and 17 (a): ``cfg`` drawn on ``dev`` from ``seed``
+    (``model_kw`` go to LM) behind ServeEngine with ``slots`` slots of
+    ``max_len`` positions, ``prompts`` random prompts of ``new`` tokens
+    each; counters set to 0 before and read after. Admission (the
+    prefills) and decode are timed apart, logged under ``[tag]``. Asserts
+    every request done with ``new`` tokens, ledger versions 2, every logit
+    finite, K5 once a layer a prompt and K2 launched, and the weight count
+    (``_weights_check``). Returns (model, engine, requests, summary)."""
+    from repro_torch.models.lm import LM
+    from repro_torch.serving.engine import Request, ServeEngine
+    cuda = torch.device(dev).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t1 = time.perf_counter()
+    model = LM(cfg, device=dev, **(model_kw or {})).init(
+        torch.Generator(device=dev).manual_seed(seed))
+    sync()
+    init_s = time.perf_counter() - t1
+    n_weights = _weights_check(model, cfg, set(f32_leaves))
+    srng = np.random.default_rng(seed)
+    reqs = [Request(rid=i, prompt=srng.integers(0, cfg.vocab, n
+                                                ).astype(np.int32),
+                    max_new=new) for i, n in enumerate(prompts)]
+    eng = ServeEngine(model, slots=slots, max_len=max_len)
+    finite = []  # every prefill's and decode step's logits, checked after
+
+    def finite_logits(fn):
+        def call(*a):
+            logits, cache = fn(*a)
+            finite.append(torch.isfinite(logits).all())
+            return logits, cache
+        return call
+
+    plain = eng.prefill_fn, eng.decode_fn
+    eng.prefill_fn, eng.decode_fn = map(finite_logits, plain)
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t1 = time.perf_counter()
+    eng.submit(reqs)
+    prefill_s, decode_ms = 0.0, []
+    while True:  # ServeEngine.run, with admission and decode timed apart
+        sync()
+        ta = time.perf_counter()
+        eng.admit()
+        sync()
+        tb = time.perf_counter()
+        n_active = eng.decode()  # ends in a host copy of the tokens
+        prefill_s += tb - ta
+        if n_active:
+            decode_ms.append((time.perf_counter() - tb) * 1e3)
+        elif not eng.queue:
+            break
+    serve_s = time.perf_counter() - t1
+    got = counts()
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    eng.prefill_fn, eng.decode_fn = plain
+    if not all(r.done and len(r.out) == new for r in reqs):
+        raise AssertionError(f"{tag}: outputs {[len(r.out) for r in reqs]}")
+    versions = [eng.request_version(r.rid) for r in reqs]
+    if versions != [2] * len(reqs):
+        raise AssertionError(f"{tag}: ledger versions {versions}")
+    if not bool(torch.stack(finite).all()):
+        raise AssertionError(f"{tag}: non-finite logits")
+    if got["flash_attention"] != len(reqs) * cfg.n_layers or not \
+            got["lookup"]:
+        raise AssertionError(f"{tag}: launches {got}")
+    decode_sorted = sorted(decode_ms)
+    n_prompt = sum(len(r.prompt) for r in reqs)
+    out = {
+        "arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+        "weights": n_weights, "init_s": init_s,
+        "requests": len(reqs), "prompt_tokens": n_prompt,
+        "prefill_s": prefill_s, "prompt_tokens_per_s": n_prompt / prefill_s,
+        "decode_steps": len(decode_ms),
+        "decode_ms_p50": float(np.median(decode_ms)),
+        "decode_ms_min": decode_sorted[0], "decode_ms_max": decode_sorted[-1],
+        "output_tokens": eng.tokens_out,
+        "output_tokens_per_s": eng.tokens_out / (sum(decode_ms) / 1e3),
+        "wall_s": serve_s, "peak_mem_bytes": peak, "launches": got,
+    }
+    log(f"[{tag}] {cfg.name} {cfg.dtype}, {cfg.n_layers} layers "
+        f"({n_weights} weights, drawn in {init_s:.2f} s): {len(reqs)} "
+        f"requests, {n_prompt} prompt tokens prefilled in {prefill_s:.4f} s "
+        f"({out['prompt_tokens_per_s']:.1f} tokens/s); {len(decode_ms)} "
+        f"decode steps, p50 {out['decode_ms_p50']:.3f} ms (min "
+        f"{decode_sorted[0]:.3f}, max {decode_sorted[-1]:.3f}), "
+        f"{eng.tokens_out} tokens, {out['output_tokens_per_s']:.1f} "
+        f"tokens/s; wall {serve_s:.3f} s; peak memory {peak / 2**30:.3f} "
+        f"GiB; launches {got}; ledger versions all 2")
+    return model, eng, reqs, out
+
+
+def serve_profile(model, eng, prompt, tag: str) -> dict:
+    """Where a serving phase's time goes: a prefill of ``prompt`` (batch
+    1) and one decode step over ``eng``'s slots at their positions, by
+    ``profile_calls``."""
+    from repro_torch.models.lm import Batch
+    dev = model.device
+    p = torch.as_tensor(prompt.astype(np.int64), device=dev)[None]
+    step_args = (torch.zeros(eng.n_slots, dtype=torch.long, device=dev),
+                 torch.as_tensor(eng.pos.astype(np.int64), device=dev),
+                 torch.ones(eng.n_slots, dtype=torch.bool, device=dev))
+    return profile_calls({
+        f"prefill {p.shape[1]}": lambda: model.prefill(
+            Batch(tokens=p), model.init_cache(1, p.shape[1])),
+        "decode step": lambda: eng.decode_fn(eng.cache, *step_args),
+    }, tag)
+
+
+def serve_check(dev, ccfg, counts, zero_counts, *, seed: int, tag: str,
+                model_kw=None, check_prompts=CHECK_PROMPTS,
+                check_new: int = CHECK_NEW) -> dict:
+    """Phases 10 and 17 (b): ``ccfg`` (f32) drawn on the CPU from ``seed``
+    and served there, then moved to ``dev`` and served again, one request
+    a prompt of ``check_prompts`` (distinct lengths: a prefill finds its
+    request by its length) with ``check_new`` greedy tokens; counters set
+    to 0 before the card's run and read after. Prefill logits within
+    LOGITS_TOL, greedy tokens and request ledgers identical, K5 once a
+    layer a prompt. A MoE model's routes are compared call by call by
+    ``_route_flips`` (a dense model routes nothing); a request with an f32
+    tie is compared up to the tie. Logged under ``[tag]``; returns the
+    summary (the card's launches under ``launches``)."""
+    from repro_torch.core import u32
+    from repro_torch.models import moe
+    from repro_torch.models.lm import LM
+    from repro_torch.serving.engine import Request, ServeEngine
+    cmodel = LM(ccfg, device="cpu", **(model_kw or {})).init(
+        torch.Generator().manual_seed(seed))
+    crng = np.random.default_rng(seed + 1)
+    cspecs = [(i, crng.integers(0, ccfg.vocab, n).astype(np.int32))
+              for i, n in enumerate(check_prompts)]
+
+    def check_run():
+        e = ServeEngine(cmodel, slots=len(cspecs),
+                        max_len=max(check_prompts) + 2 * check_new)
+        rows = [None]
+        route, records = _route_recorder(moe, rows)
+        prefill_logits = {}
+
+        def prefill(batch, cache):
+            s = batch.tokens.shape[1]
+            rid = next(i for i, p in cspecs if len(p) == s)
+            rows[0] = ("prefill", [(rid, p) for p in range(s)])
+            logits, cache = cmodel.prefill(batch, cache)
+            prefill_logits[rid] = logits.cpu()
+            return logits, cache
+
+        def decode(cache, token, pos, active):
+            rows[0] = ("decode", [(r.rid if r is not None else None, int(p))
+                                  for r, p in zip(e.slot_req, pos.tolist())])
+            return e_decode(cache, token, pos, active)
+
+        e_decode = e.decode_fn
+        e.prefill_fn, e.decode_fn = prefill, decode
+        rs = [Request(rid=i, prompt=p, max_new=check_new) for i, p in cspecs]
+        orig, moe.route = moe.route, route
+        try:
+            e.run(rs)
+        finally:
+            moe.route = orig
+            # ``decode`` refers to ``e``: break the cycle, so that the
+            # model leaves the card when the caller drops it, not at the
+            # next garbage collection (a later phase's peak would hold it)
+            e.prefill_fn = e.decode_fn = None
+        return ({r.rid: r.out for r in rs}, prefill_logits,
+                [u32.to_numpy(t) for t in e.state], records)
+
+    t1 = time.perf_counter()
+    cpu_res = check_run()
+    cpu_s = time.perf_counter() - t1
+    cmodel.to(dev)
+    zero_counts()
+    t1 = time.perf_counter()
+    card_res = check_run()
+    card_s = time.perf_counter() - t1
+    got = counts()
+    flipped, least, ties = _route_flips(cpu_res[3], card_res[3])
+    lerr = 0.0
+    for rid, prompt in cspecs:
+        if rid in flipped:  # a tie in its prefill or decode
+            first = flipped[rid] - len(prompt) + 1
+        else:
+            first = check_new
+        if first > 0:
+            lerr = max(lerr, float((card_res[1][rid] - cpu_res[1][rid])
+                                   .abs().max()))
+            if not torch.allclose(card_res[1][rid], cpu_res[1][rid],
+                                  atol=LOGITS_TOL, rtol=LOGITS_TOL):
+                raise AssertionError(f"{tag}: request {rid}'s prefill "
+                                     f"logits differ between card and CPU")
+        if card_res[0][rid][:max(first, 0)] != cpu_res[0][rid][:max(first,
+                                                                     0)]:
+            raise AssertionError(f"{tag}: request {rid}'s tokens differ "
+                                 f"between card and CPU")
+    if not all(np.array_equal(a, c) for a, c in zip(card_res[2],
+                                                    cpu_res[2])):
+        raise AssertionError(f"{tag}: request ledgers differ between card "
+                             f"and CPU")
+    if got["flash_attention"] != len(cspecs) * ccfg.n_layers:
+        raise AssertionError(f"{tag}: launches {got}")
+    out = {"logits_max_abs_err": lerr, "tokens": card_res[0],
+           "card_s": card_s, "cpu_s": cpu_s, "launches": got}
+    routes = ""
+    if card_res[3]:
+        out.update(route_calls=len(card_res[3]), least_margin=least,
+                   ties=ties)
+        routes = (f"; routes of {len(card_res[3])} moe calls compared, "
+                  f"{len(ties)} f32 ties {ties}, smallest CPU margin between "
+                  f"the k-th and (k+1)-th probability {least:.3e} (tie "
+                  f"below {ROUTE_TIE})")
+    log(f"[{tag}] {ccfg.name} cut to {ccfg.n_layers} layers, {ccfg.dtype}: "
+        f"prefill logits max_abs_err {lerr} (tolerance {LOGITS_TOL}); tokens "
+        f"card {card_res[0]} CPU {cpu_res[0]}{routes}; ledgers identical; "
+        f"card {card_s:.2f} s, CPU {cpu_s:.2f} s; launches {got}")
+    del cmodel
+    return out
+
+
+def moe_serving_phase(dev, counts, zero_counts, path_launches, *,
+                      seed: int = 0, cfg=None, check_cfg=None,
+                      prompts=SERVE_PROMPTS, new: int = SERVE_NEW,
+                      slots: int = SERVE_SLOTS, max_len: int = SERVE_MAX_LEN,
+                      check_prompts=CHECK_PROMPTS,
+                      check_new: int = CHECK_NEW) -> dict:
+    """Phase 17: MoE serving. (a) ``cfg`` (Qwen1.5-MoE-A2.7B at all 24
+    layers, bf16, by default) at capacity factor MOE_CF through
+    ``serve_traffic``; then, untimed, a replay of the same requests that
+    must give the same tokens and counts the share of routed assignments
+    dropped in prefill and in decode; the longest prompt's prefill twice,
+    bit for bit (the first records each layer's busiest expert); the
+    device's busy share and top ops of one prefill and one decode step.
+    (b) ``check_cfg`` (the same cut to 2 layers, f32) through
+    ``serve_check``. A rehearsal on the CPU passes smaller configs."""
+    from repro_torch.configs import base as cfg_base
+    from repro_torch.models import moe
+    from repro_torch.models.lm import Batch
+    from repro_torch.serving.engine import Request, ServeEngine
+    cuda = torch.device(dev).type == "cuda"
+    cfg = cfg or cfg_base.get(MOE_ARCH)
+    model_kw = {"moe_capacity_factor": MOE_CF}
+    model, eng, reqs, out = serve_traffic(
+        dev, cfg, counts, zero_counts, seed=seed, tag="moe-serve",
+        model_kw=model_kw, f32_leaves={"router"}, prompts=prompts, new=new,
+        slots=slots, max_len=max_len)
+    out["capacity_factor"] = MOE_CF
+    path_launches["moe_serving"] = out["launches"]
+    # The drop shares, from an untimed replay (the timed run called
+    # moe_mlp plain): every moe_mlp call of a prefill or a decode step
+    # adds its routed and dropped assignments to that kind's stats.
+    stats, kind, moe_mlp = {"prefill": {}, "decode": {}}, [None], moe.moe_mlp
+    replay = ServeEngine(model, slots=slots, max_len=max_len)
+
+    def tagged(fn, what):
+        def call(*a):
+            kind[0] = what
+            return fn(*a)
+        return call
+
+    replay.prefill_fn = tagged(replay.prefill_fn, "prefill")
+    replay.decode_fn = tagged(replay.decode_fn, "decode")
+    again = [Request(rid=r.rid, prompt=r.prompt, max_new=new) for r in reqs]
+    moe.moe_mlp = lambda *a, **kw: moe_mlp(*a, stats=stats[kind[0]], **kw)
+    try:
+        replay.run(again)
+    finally:
+        moe.moe_mlp = moe_mlp
+    if [r.out for r in again] != [r.out for r in reqs]:
+        raise AssertionError("moe serving: the untimed replay's tokens "
+                             "differ from the timed run's")
+    del replay
+    drops = {kind: {"assignments": st["assignments"],
+                    "dropped": int(st["dropped"]),
+                    "share": int(st["dropped"]) / st["assignments"]}
+             for kind, st in stats.items()}
+    # The longest prompt's prefill twice: bit for bit. The first records
+    # each layer's busiest expert (its share of the layer's assignments).
+    longest = max(reqs, key=lambda r: len(r.prompt))
+    plong = torch.as_tensor(longest.prompt.astype(np.int64),
+                            device=dev)[None]
+    loads, route = [], moe.route
+
+    def load_route(router_w, x2d, top_k):
+        out = route(router_w, x2d, top_k)
+        ids = out[1].reshape(-1)
+        loads.append(torch.zeros(router_w.shape[1], device=ids.device
+                                 ).scatter_add_(0, ids, torch.ones_like(
+                                     ids, dtype=torch.float32)).max()
+                     / ids.numel())
+        return out
+
+    moe.route = load_route
+    try:
+        runs = [model.prefill(Batch(tokens=plong),
+                              model.init_cache(1, plong.shape[1]))]
+    finally:
+        moe.route = route
+    runs.append(model.prefill(Batch(tokens=plong),
+                              model.init_cache(1, plong.shape[1])))
+    busiest = torch.stack(loads).cpu()
+    drops["busiest_expert_share"] = {
+        "min": float(busiest.min()), "median": float(busiest.median()),
+        "max": float(busiest.max()),
+        "capacity_share": moe.capacity(MOE_CF, plong.shape[1], cfg.top_k,
+                                       cfg.n_experts)
+        / (plong.shape[1] * cfg.top_k)}
+    repeat_identical = (torch.equal(runs[0][0], runs[1][0])
+                        and torch.equal(runs[0][1].k, runs[1][1].k)
+                        and torch.equal(runs[0][1].v, runs[1][1].v))
+    del runs
+    if not repeat_identical:
+        raise AssertionError("moe serving: a repeated prefill differs")
+    out.update(drops=drops, repeat_prefill_identical=repeat_identical)
+    log(f"[moe-serve] cf {MOE_CF}; an untimed replay gave the same tokens "
+        f"and dropped {drops['prefill']['share'] * 100:.3f} % of the "
+        f"prefill's {drops['prefill']['assignments']} routed assignments "
+        f"and {drops['decode']['share'] * 100:.3f} % of the decode's "
+        f"{drops['decode']['assignments']}; the {plong.shape[1]}-token "
+        f"prefill repeated bit for bit, its layers' busiest expert taking "
+        f"{busiest.min() * 100:.2f}-{busiest.max() * 100:.2f} % (median "
+        f"{busiest.median() * 100:.2f} %) of their assignments, capacity "
+        f"{drops['busiest_expert_share']['capacity_share'] * 100:.2f} %")
+    if cuda:
+        out["profile"] = serve_profile(model, eng, longest.prompt,
+                                       "moe-serve-profile")
+    del eng, model
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (b) card against CPU: 2 layers, f32.
+    ccfg = check_cfg or dataclasses.replace(cfg, n_layers=2,
+                                            dtype="float32")
+    out["vs_cpu"] = serve_check(dev, ccfg, counts, zero_counts, seed=seed,
+                                tag="moe-serve-check", model_kw=model_kw,
+                                check_prompts=check_prompts,
+                                check_new=check_new)
+    path_launches["moe_serving_vs_cpu"] = out["vs_cpu"]["launches"]
+    return out
+
+
+def ssm_phase(dev, counts, zero_counts, path_launches, *, seed: int = 0,
+              cfg=None, check_cfg=None, batch: int = SSM_BATCH,
+              seq: int = SSM_SEQ, new: int = SSM_NEW,
+              check_prompts=SSM_CHECK_PROMPTS,
+              check_new: int = CHECK_NEW) -> dict:
+    """Phase 18: the SSM family. (a) ``cfg`` (Mamba2-2.7B at all 64 layers,
+    bf16, by default): ``LM.prefill`` of ``batch`` x ``seq`` tokens, then
+    ``new`` greedy ``decode_step``s; logits finite, no kernel launched, the
+    weight count; layer 0's SSD inputs (recorded in the prefill) through
+    the chunked scan against ``ssd_sequential_reference`` on the card, y
+    and the final state within SSD_TOL of their largest magnitude; the
+    busy share and top ops of one prefill and one decode step. (b)
+    ``check_cfg`` (the same cut to 2 layers, f32) on the card against the
+    CPU at ``check_prompts`` (batch 1 each): logits within LOGITS_TOL at
+    the prefill and ``check_new`` greedy steps, tokens identical, conv
+    tails and SSM states within LOGITS_TOL. A rehearsal on the CPU passes
+    smaller configs."""
+    from repro_torch.configs import base as cfg_base
+    from repro_torch.models import ssm
+    from repro_torch.models.lm import LM, Batch
+    cuda = torch.device(dev).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg = cfg or cfg_base.get(SSM_ARCH)
+    t1 = time.perf_counter()
+    model = LM(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(seed))
+    sync()
+    init_s = time.perf_counter() - t1
+    n_weights = _weights_check(model, cfg, {"dt_bias", "A_log", "D"})
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (batch, seq))).to(dev)
+    recorded = []
+    chunked = ssm.ssd_chunked
+
+    def first_inputs(*a, **kw):
+        if not recorded:
+            recorded.extend(t.clone() for t in a)
+        return chunked(*a, **kw)
+
+    cache = model.init_cache(batch, seq + new)
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    ssm.ssd_chunked = first_inputs
+    try:
+        t1 = time.perf_counter()
+        logits, cache = model.prefill(Batch(tokens=toks), cache)
+        sync()
+        prefill_s = time.perf_counter() - t1
+    finally:
+        ssm.ssd_chunked = chunked
+    finite = [torch.isfinite(logits).all()]
+    decode_ms = []
+    tok = torch.argmax(logits, dim=-1)
+    for i in range(new):
+        t1 = time.perf_counter()
+        logits, cache = model.decode_step(cache, tok, seq + i)
+        tok = torch.argmax(logits, dim=-1)
+        sync()
+        decode_ms.append((time.perf_counter() - t1) * 1e3)
+        finite.append(torch.isfinite(logits).all())
+    got = counts()
+    path_launches["ssm"] = got
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    if any(got.values()):
+        raise AssertionError(f"ssm: kernels launched {got}")
+    if not bool(torch.stack(finite).all()):
+        raise AssertionError("ssm: non-finite logits")
+    y_c, st_c = ssm.ssd_chunked(*recorded, chunk=model.ssd_chunk)
+    y_s, st_s = ssm.ssd_sequential_reference(*recorded)
+    ssd_err = {
+        "y": float((y_c - y_s).abs().max() / y_s.abs().max()),
+        "state": float((st_c - st_s).abs().max() / st_s.abs().max())}
+    del recorded, y_c, y_s, st_c, st_s
+    if max(ssd_err.values()) > SSD_TOL:
+        raise AssertionError(f"ssm: chunked scan against the sequential "
+                             f"reference {ssd_err}")
+    decode_sorted = sorted(decode_ms)
+    out = {
+        "arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+        "weights": n_weights, "init_s": init_s, "batch": batch, "seq": seq,
+        "prefill_s": prefill_s, "prompt_tokens_per_s": batch * seq / prefill_s,
+        "decode_steps": new, "decode_ms_p50": float(np.median(decode_ms)),
+        "decode_ms_min": decode_sorted[0], "decode_ms_max": decode_sorted[-1],
+        "output_tokens_per_s": batch * new / (sum(decode_ms) / 1e3),
+        "peak_mem_bytes": peak, "launches": got,
+        "ssd_vs_sequential": ssd_err,
+    }
+    log(f"[ssm] {cfg.name} {cfg.dtype}, {cfg.n_layers} layers ({n_weights} "
+        f"weights, drawn in {init_s:.2f} s): prefill of {batch} x {seq} "
+        f"tokens in {prefill_s:.4f} s ({out['prompt_tokens_per_s']:.1f} "
+        f"tokens/s); {new} decode steps of {batch}, p50 "
+        f"{out['decode_ms_p50']:.3f} ms (min {decode_sorted[0]:.3f}, max "
+        f"{decode_sorted[-1]:.3f}), {out['output_tokens_per_s']:.1f} "
+        f"tokens/s; peak memory {peak / 2**30:.3f} GiB; launches {got}; "
+        f"layer 0's chunked scan against the sequential one: y "
+        f"{ssd_err['y']:.3e}, final state {ssd_err['state']:.3e} of their "
+        f"largest magnitude (limit {SSD_TOL})")
+    if cuda:
+        pcache = model.init_cache(batch, seq + new)
+        out["profile"] = profile_calls({
+            f"prefill {batch}x{seq}": lambda: model.prefill(
+                Batch(tokens=toks), pcache),
+            "decode step": lambda: model.decode_step(cache, tok, seq + new - 1),
+        }, "ssm-profile")
+        del pcache
+    del model, cache, logits
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (b) card against CPU: 2 layers, f32, one prompt at a time.
+    ccfg = check_cfg or dataclasses.replace(cfg, n_layers=2,
+                                            dtype="float32")
+    cmodel = LM(ccfg, device="cpu").init(torch.Generator().manual_seed(seed))
+    crng = np.random.default_rng(seed + 1)
+    prompts = [torch.from_numpy(crng.integers(0, ccfg.vocab, (1, n)))
+               for n in check_prompts]
+
+    def check_run(d):
+        res = []
+        for p in prompts:
+            c = cmodel.init_cache(1, 1)
+            logits, c = cmodel.prefill(Batch(tokens=p.to(d)), c)
+            run = [logits.cpu()]
+            for i in range(check_new):
+                logits, c = cmodel.decode_step(
+                    c, torch.argmax(logits, dim=-1), p.shape[1] + i)
+                run.append(logits.cpu())
+            res.append((run, c.conv.cpu(), c.ssm_state.cpu()))
+        return res
+
+    t1 = time.perf_counter()
+    cpu_res = check_run("cpu")
+    cpu_s = time.perf_counter() - t1
+    cmodel.to(dev)
+    zero_counts()
+    t1 = time.perf_counter()
+    card_res = check_run(dev)
+    card_s = time.perf_counter() - t1
+    got = counts()
+    path_launches["ssm_vs_cpu"] = got
+    errs = {"logits": 0.0, "conv": 0.0, "ssm_state": 0.0}
+    tol = dict(atol=LOGITS_TOL, rtol=LOGITS_TOL)
+    for n, (k_run, k_conv, k_st), (c_run, c_conv, c_st) in zip(
+            check_prompts, card_res, cpu_res):
+        for what, k, c in ([("logits", a, b) for a, b in zip(k_run, c_run)]
+                           + [("conv", k_conv, c_conv),
+                              ("ssm_state", k_st, c_st)]):
+            errs[what] = max(errs[what], float((k - c).abs().max()))
+            if not torch.allclose(k, c, **tol):
+                raise AssertionError(f"ssm: {what} of the {n}-token prompt "
+                                     f"differ between card and CPU")
+        if [int(a.argmax()) for a in k_run] != [int(a.argmax())
+                                                 for a in c_run]:
+            raise AssertionError(f"ssm: greedy tokens of the {n}-token "
+                                 f"prompt differ between card and CPU")
+    if any(got.values()):
+        raise AssertionError(f"ssm check: kernels launched {got}")
+    out["vs_cpu"] = {"max_abs_err": errs, "card_s": card_s, "cpu_s": cpu_s,
+                     "prompts": list(check_prompts), "launches": got}
+    log(f"[ssm-check] {cfg.name} cut to {ccfg.n_layers} layers, f32, prompts "
+        f"of {list(check_prompts)} tokens + {check_new} greedy steps: max_abs_err "
+        f"{errs} (tolerance {LOGITS_TOL}); tokens identical; card "
+        f"{card_s:.2f} s, CPU {cpu_s:.2f} s; launches {got}")
+    del cmodel
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0,
@@ -1791,8 +2461,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.mvcc_validate import ops as mv_ops
     from repro_torch.kernels.mvcc_validate import ref as mv_ref
     from repro_torch.kernels.sig_mac import ops as mac_ops, ref as mac_ref
-    from repro_torch.models.lm import LM, Batch
-    from repro_torch.serving.engine import Request, ServeEngine
+    from repro_torch.models.lm import Batch
     from repro_torch.obs import Obs, Registry
     from repro_torch.storage import journal, recovery, snapshot
 
@@ -2801,64 +3470,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     scfg = cfg_base.get(SERVE_ARCH)
-    t1 = time.perf_counter()
-    model = LM(scfg, device=dev).init(
-        torch.Generator(device=dev).manual_seed(args.seed))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t1
-    n_weights = sum(p.numel() for p in model.parameters())
-    if n_weights != scfg.n_params():
-        raise AssertionError(f"{n_weights} weights, config says "
-                             f"{scfg.n_params()}")
-    srng = np.random.default_rng(args.seed)
-    reqs = [Request(rid=i, prompt=srng.integers(0, scfg.vocab, n
-                                                ).astype(np.int32),
-                    max_new=SERVE_NEW) for i, n in enumerate(SERVE_PROMPTS)]
-    eng = ServeEngine(model, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN)
-    finite = []  # every prefill's and decode step's logits, checked after
-
-    def finite_logits(fn):
-        def call(*a):
-            logits, cache = fn(*a)
-            finite.append(torch.isfinite(logits).all())
-            return logits, cache
-        return call
-
-    eng.prefill_fn = finite_logits(eng.prefill_fn)
-    eng.decode_fn = finite_logits(eng.decode_fn)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    zero_counts()
-    t1 = time.perf_counter()
-    eng.submit(reqs)
-    prefill_s, decode_ms = 0.0, []
-    while True:  # ServeEngine.run, with admission and decode timed apart
-        torch.cuda.synchronize()
-        ta = time.perf_counter()
-        eng.admit()
-        torch.cuda.synchronize()
-        tb = time.perf_counter()
-        n_active = eng.decode()  # ends in a host copy of the tokens
-        prefill_s += tb - ta
-        if n_active:
-            decode_ms.append((time.perf_counter() - tb) * 1e3)
-        elif not eng.queue:
-            break
-    serve_s = time.perf_counter() - t1
-    got = counts()
-    path_launches["serving"] = got
-    peak = torch.cuda.max_memory_allocated()
-    if not all(r.done and len(r.out) == SERVE_NEW for r in reqs):
-        raise AssertionError(f"serving: outputs "
-                             f"{[len(r.out) for r in reqs]}")
-    versions = [eng.request_version(r.rid) for r in reqs]
-    if versions != [2] * len(reqs):
-        raise AssertionError(f"serving: ledger versions {versions}")
-    if not bool(torch.stack(finite).all()):
-        raise AssertionError("serving: non-finite logits")
-    if got["flash_attention"] != len(reqs) * scfg.n_layers or not \
-            got["lookup"]:
-        raise AssertionError(f"serving: launches {got}")
+    model, eng, reqs, serving = serve_traffic(
+        dev, scfg, counts, zero_counts, seed=args.seed, tag="serve")
+    path_launches["serving"] = serving["launches"]
     # One request again, by its own prefill + decode_step (batch 1).
     r = reqs[3]
     prompt = torch.as_tensor(r.prompt.astype(np.int64), device=dev)[None]
@@ -2873,133 +3487,24 @@ def main(argv=None) -> int:
     if alone[0] != r.out[0]:
         raise AssertionError(f"serving: request {r.rid}'s first token "
                              f"{r.out[0]}, alone {alone[0]}")
-    agree = sum(a == b for a, b in zip(alone, r.out))
-    decode_sorted = sorted(decode_ms)
-    serving = {
-        "arch": SERVE_ARCH, "dtype": scfg.dtype, "n_layers": scfg.n_layers,
-        "weights": n_weights, "init_s": init_s,
-        "requests": len(reqs), "prompt_tokens": sum(SERVE_PROMPTS),
-        "prefill_s": prefill_s,
-        "prompt_tokens_per_s": sum(SERVE_PROMPTS) / prefill_s,
-        "decode_steps": len(decode_ms),
-        "decode_ms_p50": float(np.median(decode_ms)),
-        "decode_ms_min": decode_sorted[0], "decode_ms_max": decode_sorted[-1],
-        "output_tokens": eng.tokens_out,
-        "output_tokens_per_s": eng.tokens_out / (sum(decode_ms) / 1e3),
-        "wall_s": serve_s, "peak_mem_bytes": peak, "launches": got,
-        "alone_agree": agree,
-    }
-    log(f"[serve] {SERVE_ARCH} bf16 at full width ({n_weights} weights, "
-        f"drawn in {init_s:.2f} s): {len(reqs)} requests, "
-        f"{sum(SERVE_PROMPTS)} prompt tokens prefilled in {prefill_s:.4f} s "
-        f"({serving['prompt_tokens_per_s']:.1f} tokens/s); {len(decode_ms)} "
-        f"decode steps, p50 {serving['decode_ms_p50']:.3f} ms (min "
-        f"{decode_sorted[0]:.3f}, max {decode_sorted[-1]:.3f}), "
-        f"{eng.tokens_out} tokens, {serving['output_tokens_per_s']:.1f} "
-        f"tokens/s; wall {serve_s:.3f} s; peak memory {peak / 2**30:.3f} "
-        f"GiB; launches {got}; ledger versions all 2; request {r.rid} alone "
-        f"agrees on {agree} of {SERVE_NEW} tokens")
+    serving["alone_agree"] = agree = sum(a == b for a, b in zip(alone,
+                                                                r.out))
+    log(f"[serve] request {r.rid} alone agrees on {agree} of {SERVE_NEW} "
+        f"tokens")
     # Where the time goes: one prefill (the 2,048-token prompt) and one
-    # decode step over the 4 slots, each timed alone, then under the
-    # profiler for the device's busy time and its largest ops.
-    from torch.profiler import ProfilerActivity, profile
-    p2048 = torch.as_tensor(reqs[0].prompt.astype(np.int64), device=dev)[None]
-    step_args = (torch.zeros(SERVE_SLOTS, dtype=torch.long, device=dev),
-                 torch.as_tensor(eng.pos.astype(np.int64), device=dev),
-                 torch.ones(SERVE_SLOTS, dtype=torch.bool, device=dev))
-    calls = {
-        "prefill 2048": lambda: model.prefill(
-            Batch(tokens=p2048), model.init_cache(1, p2048.shape[1])),
-        "decode step": lambda: eng.decode_fn(eng.cache, *step_args),
-    }
-    serving["profile"] = {}
-    for what, fn in calls.items():
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t1
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        evs = _device_events(prof)
-        busy_s = sum(ev.self_device_time_total for ev in evs) / 1e6
-        n_ops = sum(ev.count for ev in evs)
-        k5_evs = [ev for ev in evs if "flash_fwd" in ev.key]
-        k5_s = sum(ev.self_device_time_total for ev in k5_evs) / 1e6
-        k5_n = sum(ev.count for ev in k5_evs)
-        serving["profile"][what] = {"wall_s": wall, "device_busy_s": busy_s,
-                                    "device_ops": n_ops, "k5_s": k5_s,
-                                    "k5_launches": k5_n}
-        log(f"[serve-profile] {what}: {wall:.4f} s alone; under the "
-            f"profiler device busy {busy_s:.4f} s over {n_ops} device ops "
-            f"({busy_s / wall * 100:.1f} % of the unprofiled time); K5 "
-            f"{k5_s * 1e3:.3f} ms over {k5_n} launches "
-            f"({k5_s / busy_s * 100 if busy_s else 0:.1f} % of busy)")
-        for ev in sorted(evs, key=lambda e: -e.self_device_time_total)[:6]:
-            log(f"[serve-profile]   {ev.self_device_time_total / 1e3:9.3f} ms "
-                f"{ev.count:6d}x {ev.key[:90]}")
-    del eng, model, cache, logits, finite, p2048, step_args, calls
+    # decode step over the 4 slots.
+    serving["profile"] = serve_profile(model, eng, reqs[0].prompt,
+                                       "serve-profile")
+    del eng, model, cache, logits
     torch.cuda.empty_cache()
     phase_done("9 serving at full width", t0)
 
     # -- 10. serving, card against CPU: 2 layers, full width, f32 -----------
     t0 = time.perf_counter()
-    ccfg = dataclasses.replace(scfg, n_layers=2, dtype="float32")
-    model = LM(ccfg, device="cpu").init(
-        torch.Generator().manual_seed(args.seed))
-    crng = np.random.default_rng(args.seed + 1)
-    cspecs = [(i, crng.integers(0, ccfg.vocab, n).astype(np.int32))
-              for i, n in enumerate(CHECK_PROMPTS)]
-
-    def serve_check():
-        e = ServeEngine(model, slots=len(cspecs),
-                        max_len=max(CHECK_PROMPTS) + 2 * CHECK_NEW)
-        prefill_logits = []
-
-        def keep(*a):
-            logits, cache = model.prefill(*a)
-            prefill_logits.append(logits.cpu())
-            return logits, cache
-
-        e.prefill_fn = keep
-        rs = [Request(rid=i, prompt=p, max_new=CHECK_NEW) for i, p in cspecs]
-        e.run(rs)
-        return ([r.out for r in rs], torch.cat(prefill_logits),
-                [u32.to_numpy(t) for t in e.state])
-
-    t1 = time.perf_counter()
-    cpu_res = serve_check()
-    cpu_s = time.perf_counter() - t1
-    model.to(dev)
-    zero_counts()
-    t1 = time.perf_counter()
-    card_res = serve_check()
-    card_s = time.perf_counter() - t1
-    got = counts()
-    path_launches["serving_vs_cpu"] = got
-    lerr = float((card_res[1] - cpu_res[1]).abs().max())
-    log(f"[serve-check] {SERVE_ARCH} cut to 2 layers, f32: prefill logits "
-        f"max_abs_err {lerr} (tolerance {LOGITS_TOL}); tokens card "
-        f"{card_res[0]} CPU {cpu_res[0]}; card {card_s:.2f} s, CPU "
-        f"{cpu_s:.2f} s; launches {got}")
-    if not torch.allclose(card_res[1], cpu_res[1], atol=LOGITS_TOL,
-                          rtol=LOGITS_TOL):
-        raise AssertionError("serving: prefill logits differ between card "
-                             "and CPU")
-    if card_res[0] != cpu_res[0]:
-        raise AssertionError("serving: greedy tokens differ between card "
-                             "and CPU")
-    if not all(np.array_equal(a, c) for a, c in zip(card_res[2],
-                                                    cpu_res[2])):
-        raise AssertionError("serving: request ledgers differ between card "
-                             "and CPU")
-    if got["flash_attention"] != len(cspecs) * ccfg.n_layers:
-        raise AssertionError(f"serving check: launches {got}")
-    serving["vs_cpu"] = {"logits_max_abs_err": lerr, "tokens": card_res[0],
-                         "card_s": card_s, "cpu_s": cpu_s, "launches": got}
-    del model
+    serving["vs_cpu"] = serve_check(
+        dev, dataclasses.replace(scfg, n_layers=2, dtype="float32"), counts,
+        zero_counts, seed=args.seed, tag="serve-check")
+    path_launches["serving_vs_cpu"] = serving["vs_cpu"]["launches"]
     torch.cuda.empty_cache()
     phase_done("10 serving, card against CPU", t0)
 
@@ -3553,6 +4058,22 @@ def main(argv=None) -> int:
     errs["flash_attention_bwd"] = training["flash_bwd"]["max_abs_err"]
     phase_done("16 training", t0)
 
+    # -- 17. MoE serving at full width --------------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    moe_serving = moe_serving_phase(dev, counts, zero_counts, path_launches,
+                                    seed=args.seed)
+    moe_serving["card"] = card
+    phase_done("17 moe serving", t0)
+
+    # -- 18. Mamba2 at full width -------------------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    ssm_run = ssm_phase(dev, counts, zero_counts, path_launches,
+                        seed=args.seed)
+    ssm_run["card"] = card
+    phase_done("18 ssm", t0)
+
     kernels = [{
         "name": t["name"], "route": "cuda", "source": t["source"],
         "replaces": t["replaces"],
@@ -3575,6 +4096,8 @@ def main(argv=None) -> int:
     log(json.dumps({"channels": channels}, default=str))
     log(json.dumps({"sharding": sharding}, default=str))
     log(json.dumps({"training": training}, default=str))
+    log(json.dumps({"moe_serving": moe_serving}, default=str))
+    log(json.dumps({"ssm": ssm_run}, default=str))
     log(json.dumps({"phase_s": phase_s,
                     "total_s": time.perf_counter() - t_start}))
     log(card)

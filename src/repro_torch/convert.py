@@ -20,7 +20,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import committer, engine, ledger, u32
 from repro_torch.core import world_state as ws
-from repro_torch.models.lm import LM
+from repro_torch.models.lm import F32_LEAVES, LM
 
 
 class EngineState(NamedTuple):
@@ -113,15 +113,20 @@ def export_engine(eng: engine.FabricEngine) -> EngineState:
 
 def lm_params(np_params: dict, cfg: ModelConfig, device, **lm_kwargs) -> LM:
     """The JAX ``LM.init`` pytree as numpy (``layers`` stacked on a leading
-    layer axis) -> a port :class:`LM` on ``device`` with those weights, in
-    ``cfg.torch_dtype``. ``lm_kwargs`` go to :class:`LM`."""
-    def tensor(a):
-        return torch.from_numpy(np.asarray(a, np.float32).copy()).to(
-            device=device, dtype=cfg.torch_dtype)
+    layer axis) -> a port :class:`LM` on ``device`` with those weights. A
+    leaf's dtype comes from its role, not from the array given: the leaves
+    of ``lm.F32_LEAVES`` (the MoE router, the SSM's ``dt_bias``, ``A_log``
+    and ``D``) are f32, every other leaf ``cfg.torch_dtype``. So an f32
+    numpy tree (``export_train_state`` writes one) loads as the model the
+    config describes. ``lm_kwargs`` go to :class:`LM`."""
+    def tensor(name, a):
+        dt = torch.float32 if name in F32_LEAVES else cfg.torch_dtype
+        return torch.from_numpy(np.array(a, np.float32)).to(device=device,
+                                                            dtype=dt)
 
     def tree(d, index=None):
         return {k: tree(v, index) if isinstance(v, dict)
-                else tensor(v if index is None else v[index])
+                else tensor(k, v if index is None else v[index])
                 for k, v in d.items()}
 
     top = {k: v for k, v in np_params.items() if k != "layers"}

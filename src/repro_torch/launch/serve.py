@@ -4,9 +4,11 @@ repro.launch.serve), on the card unless ``--device`` names another:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
         --requests 12 --slots 4 --max-new 16 --device cpu
 
-Runs the architecture's smoke config with weights drawn from a seeded
-generator; prints per-request outputs plus engine stats (steps, tokens,
-the request-ledger versions that prove exactly-once slot commits).
+Runs the architecture's smoke config (dense or moe; a moe model with
+capacity factor 2.0, as the JAX launcher builds it) with weights drawn from
+a seeded generator; prints per-request outputs plus engine stats (steps,
+tokens, the request-ledger versions that prove exactly-once slot
+commits). Other families exit with the JAX launcher's message.
 """
 
 from __future__ import annotations
@@ -37,7 +39,10 @@ def run(argv=None) -> dict:
 
     dev = resolve_device(args.device)
     cfg = cfg_base.get_smoke(args.arch)
-    model = LM(cfg, device=dev).init(
+    if cfg.family not in ("dense", "moe"):
+        raise SystemExit("serving engine drives dense/moe archs "
+                         f"(got {cfg.family}); ssm serving uses decode_step")
+    model = LM(cfg, moe_capacity_factor=2.0, device=dev).init(
         torch.Generator(device=dev).manual_seed(0))
     eng = ServeEngine(model, slots=args.slots, max_len=args.max_len)
 

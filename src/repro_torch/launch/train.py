@@ -39,8 +39,16 @@ from repro_torch.training import optimizer, train_step as ts_lib
 def build(arch: str, *, smoke: bool, seq: int, batch: int,
           microbatches: int, lr: float, total_steps: int, device=None):
     """(cfg, model without weights, TrainConfig, DataConfig), as the JAX
-    driver builds them; the model on ``device`` (the card by default)."""
+    launcher builds them; the model on ``device`` (the card by default).
+    Dense configs only: the moe and ssm families serve but do not train
+    yet."""
     cfg = cfg_base.get_smoke(arch) if smoke else cfg_base.get(arch)
+    if cfg.family in ("moe", "ssm"):
+        raise NotImplementedError(
+            f"training the {cfg.family} family ({cfg.name}) is not ported: "
+            f"its backward (the MoE dispatch, the SSD scan) and the aux loss "
+            f"in the train step come with the MoE/SSM training slice "
+            f"(ROADMAP.md)")
     model = LM(cfg, vocab_chunk=min(seq, 128), device=device)
     tcfg = ts_lib.TrainConfig(
         opt=optimizer.AdamWConfig(lr=lr, warmup_steps=max(total_steps // 20,

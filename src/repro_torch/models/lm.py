@@ -1,4 +1,5 @@
-"""The dense language model (port of repro.models.lm, ``family="dense"``).
+"""The language model (port of repro.models.lm) for the dense, moe and ssm
+families.
 
 ``LM`` is an ``nn.Module`` whose parameters mirror the JAX ``LM.init``
 pytree, one entry of ``layers`` per layer (the JAX package stacks them for
@@ -14,8 +15,10 @@ pytree, one entry of ``layers`` per layer (the JAX package stacks them for
   decode_step(cache, token, pos)            -> (logits, cache)
 
 Caches are written IN PLACE (the JAX package returns updated copies): a
-full-width cache is hundreds of MB. The other families (moe, ssm, hybrid,
-encdec) raise ``NotImplementedError``. The JAX package's mesh-sharding
+full-width cache is hundreds of MB. A dense or moe layer is attention plus
+an MLP (``models.moe.moe_mlp`` for moe, whose aux loss ``loss`` adds); an
+ssm layer is a Mamba2 block (``models.ssm``). The hybrid and encdec
+families raise ``NotImplementedError``. The JAX package's mesh-sharding
 knobs (``mesh_axes``, ``shard_*``, ``remat``) have no counterpart here.
 
 Weights are registered without a gradient, as serving wants them; the
@@ -35,7 +38,7 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers
+from repro_torch.models import layers, moe, ssm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,10 +55,17 @@ class Batch:
 
 @dataclasses.dataclass
 class DecodeCache:
-    """Self-attention K/V cache, each (L, B, S_max, Hkv, Dh)."""
+    """Decode-time state; the fields a family does not use are None.
 
-    k: torch.Tensor
-    v: torch.Tensor
+    k/v:            (L, B, S_max, Hkv, Dh) self-attention cache (dense, moe)
+    conv/ssm_state: (L, B, K-1, d_inner+2N) in the model dtype / (L, B, H,
+                    P, N) f32, the Mamba2 recurrent state (ssm)
+    """
+
+    k: torch.Tensor | None = None
+    v: torch.Tensor | None = None
+    conv: torch.Tensor | None = None
+    ssm_state: torch.Tensor | None = None
 
 
 class ParamTree(nn.Module):
@@ -157,25 +167,38 @@ def jax_leaves(tree: dict) -> list[list[torch.Tensor]]:
     return out
 
 
+FAMILIES = ("dense", "moe", "ssm")
+# The leaves kept f32 at any ``cfg.dtype`` (by name); every other leaf is
+# in ``cfg.torch_dtype``.
+F32_LEAVES = moe.F32_LEAVES | ssm.F32_LEAVES
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported: the moe, "
-            f"ssm, hybrid and encdec families come with the model-families "
-            f"slice (ROADMAP.md)")
+            f"family {cfg.family!r} ({cfg.name}) is not ported: the hybrid "
+            f"and encdec families come with a later model-families slice "
+            f"(ROADMAP.md)")
 
 
 class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, *, attn_impl: str = "auto",
                  q_chunk: int = 2048, kv_chunk: int = 2048,
-                 vocab_chunk: int = 512, device=None):
+                 ssd_chunk: int = 256, vocab_chunk: int = 512,
+                 moe_capacity_factor: float = 1.25,
+                 moe_dispatch: str = "sort", moe_groups: int = 1,
+                 device=None):
         super().__init__()
         _check_family(cfg)
         self.cfg = cfg
         self.attn_impl = attn_impl
         self.q_chunk = q_chunk
         self.kv_chunk = kv_chunk
+        self.ssd_chunk = ssd_chunk
         self.vocab_chunk = vocab_chunk
+        self.moe_cf = moe_capacity_factor
+        self.moe_dispatch = moe_dispatch
+        self.moe_groups = moe_groups
         self._device = resolve_device(device)
         self.params: ParamTree | None = None
 
@@ -198,12 +221,19 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             tree["lm_head"] = layers.init_embedding(
                 cfg.vocab_padded, cfg.d_model, dt, dev, g)
-        tree["layers"] = [{
-            "attn": layers.init_attention(cfg, dev, g),
-            "mlp": layers.init_mlp(cfg.d_model, cfg.d_ff, dt, dev, g),
-            "norm1": layers.init_rmsnorm(cfg.d_model, dt, dev),
-            "norm2": layers.init_rmsnorm(cfg.d_model, dt, dev),
-        } for _ in range(cfg.n_layers)]
+
+        def layer():
+            if cfg.family == "ssm":
+                return {"mamba": ssm.init_mamba(cfg, dev, g),
+                        "norm": layers.init_rmsnorm(cfg.d_model, dt, dev)}
+            mlp = ({"moe": moe.init_moe(cfg, dev, g)} if cfg.family == "moe"
+                   else {"mlp": layers.init_mlp(cfg.d_model, cfg.d_ff, dt,
+                                                dev, g)})
+            return {"attn": layers.init_attention(cfg, dev, g), **mlp,
+                    "norm1": layers.init_rmsnorm(cfg.d_model, dt, dev),
+                    "norm2": layers.init_rmsnorm(cfg.d_model, dt, dev)}
+
+        tree["layers"] = [layer() for _ in range(cfg.n_layers)]
         tree["final_norm"] = layers.init_rmsnorm(cfg.d_model, dt, dev)
         return self.load_params(tree)
 
@@ -231,26 +261,57 @@ class LM(nn.Module):
             impl = "chunked" if seq > 2 * self.q_chunk else "naive"
         return dict(impl=impl, q_chunk=self.q_chunk, kv_chunk=self.kv_chunk)
 
+    def _moe_kwargs(self) -> dict:
+        return dict(capacity_factor=self.moe_cf, dispatch=self.moe_dispatch,
+                    groups=self.moe_groups)
+
+    def _mlp(self, lp, x: torch.Tensor):
+        """A dense or moe layer's MLP over x -> (y, aux or None)."""
+        if "moe" in lp:
+            return moe.moe_mlp(lp["moe"], self.cfg, x, **self._moe_kwargs())
+        return layers.mlp(lp["mlp"], x), None
+
     def _blocks(self, x: torch.Tensor, positions: torch.Tensor, *,
                 cache: DecodeCache | None = None, cache_len: int = 0):
-        """Every layer over x. Self-attention when ``cache`` is None
-        (yields each layer's K/V), else cached decode at ``cache_len``."""
+        """Every layer over x -> (x, states, aux summed over the layers).
+        Without ``cache``: self-attention over x, ``states`` each layer's
+        K/V (dense, moe) or (conv tail, final SSM state) (ssm). With it:
+        cached decode at ``cache_len``, the cache updated in place."""
         cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        states = []
+        if cfg.family == "ssm":
+            for i, lp in enumerate(self.params["layers"]):
+                kw = ({} if cache is None else
+                      dict(conv_state=cache.conv[i],
+                           ssm_state=cache.ssm_state[i]))
+                y, conv, st = ssm.mamba_forward(
+                    lp["mamba"], cfg,
+                    layers.rmsnorm(lp["norm"], x, cfg.norm_eps),
+                    chunk=self.ssd_chunk, return_state=True, **kw)
+                if cache is not None:
+                    cache.conv[i] = conv.to(cache.conv.dtype)
+                    cache.ssm_state[i] = st
+                states.append((conv, st))
+                x = x + y
+            return x, states, aux
         s = x.shape[1]
         kw = (self._attn_kwargs(s) if cache is None else
               dict(kv_cache=None, cache_len=cache_len))
-        kvs = []
         for i, lp in enumerate(self.params["layers"]):
             if cache is not None:
                 kw["kv_cache"] = (cache.k[i], cache.v[i])
             h, kv = layers.attention(
                 lp["attn"], cfg, layers.rmsnorm(lp["norm1"], x, cfg.norm_eps),
                 positions=positions, causal=True, **kw)
-            kvs.append(kv)
+            states.append(kv)
             x = x + h
-            x = x + layers.mlp(lp["mlp"], layers.rmsnorm(lp["norm2"], x,
-                                                         cfg.norm_eps))
-        return x, kvs
+            y, a = self._mlp(lp, layers.rmsnorm(lp["norm2"], x,
+                                                cfg.norm_eps))
+            x = x + y
+            if a is not None:
+                aux = aux + a
+        return x, states, aux
 
     def _last_logits(self, x: torch.Tensor) -> torch.Tensor:
         """(B, S, D) hidden states -> last position's logits (B, V) f32."""
@@ -261,25 +322,32 @@ class LM(nn.Module):
 
     # -------------------------------------------------------------- forward
 
-    def forward(self, batch: Batch) -> torch.Tensor:
-        """Hidden states after final norm, (B, S, D)."""
+    def _forward(self, batch: Batch):
+        """(hidden states after final norm (B, S, D), the MoE aux loss
+        averaged over the layers: 0 for the other families)."""
         x = self._embed_inputs(batch)
         positions = torch.arange(x.shape[1], device=x.device)
-        x, _ = self._blocks(x, positions)
-        return layers.rmsnorm(self.params["final_norm"], x, self.cfg.norm_eps)
+        x, _, aux = self._blocks(x, positions)
+        return (layers.rmsnorm(self.params["final_norm"], x,
+                               self.cfg.norm_eps), aux / self.cfg.n_layers)
+
+    def forward(self, batch: Batch) -> torch.Tensor:
+        """Hidden states after final norm, (B, S, D)."""
+        return self._forward(batch)[0]
 
     # ------------------------------------------------------------------ loss
 
     def loss(self, batch: Batch):
-        """Chunked-vocab causal LM loss: (scalar CE f32, {"ce", "tokens"}).
-        Labels -1 are masked out; padded vocab rows are masked out of the
+        """Chunked-vocab causal LM loss: (scalar loss f32, {"ce", "tokens"}
+        and, for moe, "aux"). The loss is the CE, plus 0.01 x the aux loss
+        for moe. Labels -1 are masked out; padded vocab rows are masked out of the
         log-sum-exp. The hidden states meet the vocab table ``vocab_chunk``
         positions at a time, so no (B, S, V) logits live at once in the
         forward (autograd keeps each chunk's for the backward, as the JAX
         scan's gradient does). The table is cast to f32 once for all
         chunks."""
         cfg = self.cfg
-        h = self.forward(batch)  # (B, S, D)
+        h, aux = self._forward(batch)  # (B, S, D)
         if batch.prefix_embeds is not None:
             h = h[:, batch.prefix_embeds.shape[1]:]  # loss on text only
         labels = batch.labels
@@ -305,7 +373,11 @@ class LM(nn.Module):
             tot = tot + torch.where(mask, lse - ll, 0.0).sum()
             cnt = cnt + mask.sum(dtype=torch.int32)
         ce = tot / torch.clamp(cnt, min=1)
-        return ce, {"ce": ce, "tokens": cnt}
+        metrics = {"ce": ce, "tokens": cnt}
+        if cfg.family == "moe":
+            metrics["aux"] = aux
+            return ce + 0.01 * aux, metrics
+        return ce, metrics
 
     def logits(self, batch: Batch) -> torch.Tensor:
         """Full logits (B, S, V) f32 -- small models / tests only."""
@@ -316,22 +388,38 @@ class LM(nn.Module):
     # ----------------------------------------------------------------- cache
 
     def init_cache(self, batch_size: int, seq_len: int) -> DecodeCache:
+        """Zeros: K/V of ``seq_len`` positions (dense, moe), or the conv
+        tails and SSM states (ssm, whatever ``seq_len``)."""
         cfg = self.cfg
-        shape = (cfg.n_layers, batch_size, seq_len, cfg.n_kv, cfg.head_dim)
-        z = lambda: torch.zeros(shape, dtype=cfg.torch_dtype,
-                                device=self.device)
-        return DecodeCache(k=z(), v=z())
+        z = lambda shape, dt=cfg.torch_dtype: torch.zeros(
+            shape, dtype=dt, device=self.device)
+        l = cfg.n_layers
+        if cfg.family == "ssm":
+            return DecodeCache(
+                conv=z((l, batch_size, cfg.d_conv - 1,
+                        cfg.d_inner + 2 * cfg.ssm_state)),
+                ssm_state=z((l, batch_size, cfg.ssm_heads, cfg.ssm_head_dim,
+                             cfg.ssm_state), torch.float32))
+        shape = (l, batch_size, seq_len, cfg.n_kv, cfg.head_dim)
+        return DecodeCache(k=z(shape), v=z(shape))
 
     # ------------------------------------------------------ prefill / decode
 
     def prefill(self, batch: Batch, cache: DecodeCache):
-        """Process the prompt and fill ``cache`` (positions past the prompt
-        are zeroed, as the JAX package pads); returns (last-token logits
-        (B, V) f32, cache), the cache positioned at the prompt length."""
+        """Process the prompt and fill ``cache`` (K/V positions past the
+        prompt are zeroed, as the JAX package pads; the SSM state and conv
+        tails, cast to the cache's dtype, replace the old ones); returns
+        (last-token logits (B, V) f32, cache), the cache positioned at the
+        prompt length."""
         x = self._embed_inputs(batch)
         s = x.shape[1]
-        x, kvs = self._blocks(x, torch.arange(s, device=x.device))
-        for i, (key, val) in enumerate(kvs):
+        x, states, _ = self._blocks(x, torch.arange(s, device=x.device))
+        if self.cfg.family == "ssm":
+            for i, (conv, st) in enumerate(states):
+                cache.conv[i] = conv.to(cache.conv.dtype)
+                cache.ssm_state[i] = st
+            return self._last_logits(x), cache
+        for i, (key, val) in enumerate(states):
             for c, new in ((cache.k, key), (cache.v, val)):
                 c[i, :, :s] = new.to(c.dtype)
                 c[i, :, s:] = 0
@@ -343,5 +431,5 @@ class LM(nn.Module):
         pos = int(pos)
         x = layers.embed(self.params["embed"], token)[:, None, :]
         positions = torch.tensor([pos], device=x.device)
-        x, _ = self._blocks(x, positions, cache=cache, cache_len=pos)
+        x, _, _ = self._blocks(x, positions, cache=cache, cache_len=pos)
         return self._last_logits(x), cache

@@ -1,5 +1,5 @@
 """Serving engine: continuous batching on FastFabric principles (port of
-repro.serving.engine, dense family).
+repro.serving.engine, dense and moe families).
 
 Paper mapping:
   * O-I  metadata-plane scheduling -- admission orders fixed-width request
@@ -15,8 +15,12 @@ Paper mapping:
     card); its KV cache slot is reused only after its request retires.
 
 Decode attention (one new query per slot against the masked cache) stays
-plain torch, with the JAX engine's masking and f32 softmax. The cache and
-the ledger are updated in place.
+plain torch, with the JAX engine's masking and f32 softmax. A moe layer's
+MLP in the decode step is ``moe_mlp`` with the model's capacity factor
+only (sort dispatch, one group, whatever the model's ``moe_dispatch`` and
+``moe_groups``), over every slot, inactive ones included, as the reference
+routes them: an inactive slot takes expert capacity. The cache and the
+ledger are updated in place.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import torch
 
 from repro_torch.core import hashing, orderer, u32
 from repro_torch.core import world_state as ws
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 from repro_torch.models.lm import LM, Batch, DecodeCache
 from repro_torch.obs import health as health_mod
 from repro_torch.obs.metrics import Registry
@@ -110,8 +114,13 @@ def decode_step_slots(model: LM, cache: DecodeCache, token: torch.Tensor,
         att = torch.einsum("bhgqk,bkhd->bqhgd", probs, cv.float())
         att = att.reshape(bsz, 1, cfg.n_heads * hd).to(x.dtype)
         x = x + att @ at["wo"].to(x.dtype)
-        x = x + layers.mlp(lp["mlp"], layers.rmsnorm(lp["norm2"], x,
-                                                     cfg.norm_eps))
+        mlp_in = layers.rmsnorm(lp["norm2"], x, cfg.norm_eps)
+        if "moe" in lp:
+            y, _ = moe.moe_mlp(lp["moe"], cfg, mlp_in,
+                               capacity_factor=model.moe_cf)
+        else:
+            y = layers.mlp(lp["mlp"], mlp_in)
+        x = x + y
     x = layers.rmsnorm(p["final_norm"], x, cfg.norm_eps)
     table = p["embed"] if cfg.tie_embeddings else p["lm_head"]
     logits = layers.unembed(table, x, transpose=True)[:, 0][:, : cfg.vocab]

@@ -61,6 +61,7 @@ def no_tf32(monkeypatch):
     (1, 300, 300, 28, 4, 128, BF16, False),   # no causal mask
     (2, 45, 170, 8, 2, 96, BF16, False),      # Skv > S, second key tile
     (1, 300, 100, 28, 4, 128, BF16, True),    # Skv < S
+    (1, 2048, 2048, 16, 16, 128, BF16, True),  # Qwen1.5-MoE prefill, MHA
 ])
 def test_flash_attention_kernel(cuda, no_tf32, b, s, skv, h, kv, d, dtype,
                                 causal):
