@@ -26,14 +26,19 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
    outputs are integers and must be bit-equal; flash attention (K5) within
    atol = rtol = 2e-5 in f32 (TF32 off), and in bf16 within atol 5e-3 +
    rtol 1e-2 of the plain version on the inputs cast to f32
-   (kernels/flash_attention/ref.py), at the serving shapes and at the
-   edges of its wgmma kernel's tiles.
+   (kernels/flash_attention/ref.py), at the serving shapes, at the
+   edges of its wgmma kernel's tiles and at the hybrid and encdec
+   families' D = 64 shapes: causal MHA of 32 heads, an encoder without
+   the causal mask, cross-attention at Skv = S / 4, and Skv below one key
+   tile and far above S.
 3. Time each kernel with CUDA events over many launches after a warm-up,
    beside its plain version, its bound (the larger of bytes over 3.35 TB/s
    and operations over 67 T/s, or 989 TFLOP/s for K5's bf16 products),
    from the profiler its device time and, for K5, SDPA's time; then K5 and
-   SDPA in turns at a 2,048- and a 777-token Qwen2-7B prefill and a
-   2,048-token phi3-mini one (D = 96) (TFLOP/s, share of the bound, ratio);
+   SDPA in turns at a 2,048- and a 777-token Qwen2-7B prefill, a
+   2,048-token phi3-mini one (D = 96), zamba2's shared block and
+   seamless's encoder and cross-attention (D = 64, the last two without
+   the causal mask) (TFLOP/s, share of the bound, ratio);
    K1 at step 1, 16 and 100 on the verify block, the serial admission of a
    ladder round and the launch floor (1 x 1 x 1), device time a step; K2
    at 200 and 8,192 queries; K3 at 200, 2,048 and 4,096 writes and on a
@@ -226,20 +231,46 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
    request is compared no further; any other fails).
 18. Mamba2-2.7B at full width (``ssm_phase``): 64 layers, d 2,560, 80 SSD
    heads of 64, state 128 (2.8 B weights), bf16, random weights from
-   --seed: a prefill of 4 x 2,048 tokens, then 16 greedy decode steps;
-   logits finite, no kernel launched, the weight count, layer 0's chunked
+   --seed: an untimed warm-up prefill, a timed prefill of 4 x 2,048
+   tokens, then 16 greedy decode steps (``_family_full_width``, as phases
+   19-20); logits finite, no kernel launched, the weight count, layer 0's
+   chunked
    scan against the sequential reference on the card (SSD_TOL); prompt
    tokens/s, decode p50/min/max, peak memory, busy share and top ops of a
    prefill and a decode step. (b) 2 layers, f32, prompts of 768 and 256
    tokens + 4 greedy steps card against CPU: logits, tokens, conv tails
    and SSM states.
+19. Zamba2-1.2B at full width (``hybrid_phase``): 38 Mamba2 layers, d
+   2,048, 64 SSD heads of 64, state 64, and ONE shared attention + MLP
+   block (32 heads of 64, d_ff 8,192) before each group of 6 layers, 7
+   sites (1.17 B weights), bf16, random weights from --seed: a prefill of
+   4 x 2,048 tokens into a cache of 2,064 positions, then 16 greedy decode
+   steps; logits finite, K5 exactly 7 times (once a site) and no other
+   kernel, the weight count; prompt tokens/s, decode p50/min/max, peak
+   memory, busy share and top ops of a prefill and a decode step. (b) 8
+   layers (2 sites, the last group of 2), f32, prompts of 768 and 256
+   tokens + 4 greedy steps card against CPU: logits, tokens, the sites'
+   K/V, conv tails and SSM states.
+20. SeamlessM4T-medium at full width (``encdec_phase``): 12 encoder and 12
+   decoder layers, d 1,024, 16 heads of 64, d_ff 4,096, vocab 256,206
+   (0.98 B weights), bf16, random weights from --seed; the audio frontend
+   is the reference's stub, standard-normal frames (4 x 512, a quarter of
+   the text length): a prefill of 4 x 2,048 decoder tokens, then 16 greedy
+   decode steps; logits finite, K5 exactly 36 times (12 encoder layers
+   without the causal mask, 12 causal self-attentions, 12
+   cross-attentions at Skv = 512 without the mask) and no other kernel,
+   the weight count; the same figures as phase 19. (b) 2 + 2 layers, f32,
+   decoder prompts of 768 and 256 tokens over 192 and 64 frames (off K5's
+   128-key tile) + 4 greedy steps card against CPU: logits, tokens, the
+   self-attention K/V and the cross K/V (within ENCDEC_CACHE_TOL of each
+   field's largest magnitude).
 
 The lines before the last give each phase's seconds, the card's name and
 power limit (as nvidia-smi prints them), the engine, ladder, serving,
 durability, observability, pipeline, channel, sharding, training, MoE
-serving and SSM summaries (with the storage objects' sizes) and the
-kernels (K1-K5 and K5's backward); the last line is {"ok": true,
-"device": {...}}.
+serving, SSM, hybrid and encdec summaries (with the storage objects'
+sizes) and the kernels (K1-K5 and K5's backward); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -333,23 +364,58 @@ SSM_ARCH = "mamba2-2.7b"
 SSM_BATCH, SSM_SEQ, SSM_NEW = 4, 2048, 16
 SSM_CHECK_PROMPTS = (768, 256)
 SSD_TOL = 1e-4
-# K5 against its plain version: (B, S, H, Hkv, D), dtype
-FLASH_CASES = (((1, 2048, 28, 4, 128), "bfloat16"),
-               ((1, 777, 28, 4, 128), "bfloat16"),
-               ((2, 300, 32, 32, 96), "float32"),
-               ((2, 64, 4, 1, 16), "float32"),
+# Phases 19-20: Zamba2-1.2B (hybrid) and SeamlessM4T-medium (encdec) at full
+# width, a prefill of 4 x 2,048 tokens (seamless over 4 x 512 frames, the
+# reference's seq // 4 stub) and 16 greedy steps; card against CPU at two
+# prompts, zamba2 cut to 8 layers (2 sites, the last group of 2), seamless
+# to 2 + 2 with 192 and 64 frames (off K5's 128-key tile). Zamba2's caches
+# within LOGITS_TOL, as phase 18 (b)'s. Seamless's k/v and cross_k/v within
+# ENCDEC_CACHE_TOL of each field's largest magnitude, as the SSD check
+# scales its own: the second decoder layer's K, a 1,024-term product of the
+# first layer's output, parts card/CPU by 1.3e-5 on entries near 0 from
+# summation order alone (measured on the card), while a kernel fault moves
+# entries by a share of their own size.
+HYBRID_ARCH, ENCDEC_ARCH = "zamba2-1.2b", "seamless-m4t-medium"
+FAMILY_BATCH, FAMILY_SEQ, FAMILY_NEW = 4, 2048, 16
+HYBRID_CHECK_LAYERS = 8
+ENCDEC_CHECK_LAYERS = 2
+FAMILY_CHECK_PROMPTS = (768, 256)
+ENCDEC_CHECK_FRAMES = (192, 64)
+ENCDEC_CACHE_TOL = 1e-5
+# K5 against its plain version: (B, S, Skv, H, Hkv, D), dtype, causal
+FLASH_CASES = (((1, 2048, 2048, 28, 4, 128), "bfloat16", True),
+               ((1, 777, 777, 28, 4, 128), "bfloat16", True),
+               ((2, 300, 300, 32, 32, 96), "float32", True),
+               ((2, 64, 64, 4, 1, 16), "float32", True),
                # the wgmma kernel's tile edges: one row past a 128-row
                # tile, two batches with ragged S (TMA zero-fills each
                # batch's tail), D = 96 under the 64-byte swizzle
-               ((1, 129, 28, 4, 128), "bfloat16"),
-               ((2, 200, 28, 4, 128), "bfloat16"),
-               ((2, 300, 32, 32, 96), "bfloat16"),
+               ((1, 129, 129, 28, 4, 128), "bfloat16", True),
+               ((2, 200, 200, 28, 4, 128), "bfloat16", True),
+               ((2, 300, 300, 32, 32, 96), "bfloat16", True),
                # Qwen1.5-MoE's prefill: MHA of 16 heads at D = 128
-               ((1, 2048, 16, 16, 128), "bfloat16"))
-# K5 timed at these shapes (bf16, causal), in turns with SDPA: Qwen2-7B's
-# prefill of a full and a ragged prompt, phi3-mini's (D = 96, MHA)
-FLASH_TIMED = ((1, 2048, 28, 4, 128), (1, 777, 28, 4, 128),
-               (1, 2048, 32, 32, 96))
+               ((1, 2048, 2048, 16, 16, 128), "bfloat16", True),
+               # D = 64: zamba2's shared block; seamless's decoder
+               # self-attention, encoder (no mask) and cross-attention
+               # (Skv = S / 4, no mask); Skv below one 128-key tile, and
+               # far above S
+               ((4, 2048, 2048, 32, 32, 64), "bfloat16", True),
+               ((4, 2048, 2048, 16, 16, 64), "bfloat16", True),
+               ((4, 512, 512, 16, 16, 64), "bfloat16", False),
+               ((4, 2048, 512, 16, 16, 64), "bfloat16", False),
+               ((1, 300, 77, 16, 16, 64), "bfloat16", False),
+               ((2, 16, 512, 16, 16, 64), "bfloat16", False))
+# K5 timed at these (B, S, Skv, H, Hkv, D), causal (bf16), in turns with
+# SDPA: Qwen2-7B's prefill of a full and a ragged prompt, phi3-mini's (D =
+# 96, MHA), zamba2's shared block, seamless's decoder self-attention,
+# encoder and cross-attention
+FLASH_TIMED = ((1, 2048, 2048, 28, 4, 128, True),
+               (1, 777, 777, 28, 4, 128, True),
+               (1, 2048, 2048, 32, 32, 96, True),
+               (4, 2048, 2048, 32, 32, 64, True),
+               (4, 2048, 2048, 16, 16, 64, True),
+               (4, 512, 512, 16, 16, 64, False),
+               (4, 2048, 512, 16, 16, 64, False))
 # Prefill logits, card (K5, cuBLAS) against CPU (plain, MKL), f32 with
 # TF32 off: both sides sum the same f32 products in other orders, ~1e-6
 # relative through two layers and a 3,584-term head product on logits of
@@ -403,6 +469,18 @@ def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = ALU_OPS_PER_S
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_fwd_work(b, s, skv, h, hkv, d, causal) -> tuple[int, int]:
+    """K5's forward at q (b, s, h, d), k/v (b, skv, hkv, d), bf16: (bytes,
+    operations). Q, K, V read and O written once; 4 operations (QK^T and
+    PV multiply-adds) for each (query, key) pair the mask keeps, of each
+    head and dim: s(s+1)/2 pairs causal at skv = s, s x skv without the
+    mask."""
+    if causal and skv != s:
+        raise ValueError("causal work is counted at skv = s only")
+    pairs = s * (s + 1) // 2 if causal else s * skv
+    return 2 * b * d * (2 * s * h + 2 * skv * hkv), 4 * b * pairs * h * d
 
 
 def event_ms(fn, iters: int, warmup: int = 10) -> float:
@@ -2273,52 +2351,102 @@ def ssm_phase(dev, counts, zero_counts, path_launches, *, seed: int = 0,
               check_prompts=SSM_CHECK_PROMPTS,
               check_new: int = CHECK_NEW) -> dict:
     """Phase 18: the SSM family. (a) ``cfg`` (Mamba2-2.7B at all 64 layers,
-    bf16, by default): ``LM.prefill`` of ``batch`` x ``seq`` tokens, then
-    ``new`` greedy ``decode_step``s; logits finite, no kernel launched, the
-    weight count; layer 0's SSD inputs (recorded in the prefill) through
-    the chunked scan against ``ssd_sequential_reference`` on the card, y
-    and the final state within SSD_TOL of their largest magnitude; the
-    busy share and top ops of one prefill and one decode step. (b)
-    ``check_cfg`` (the same cut to 2 layers, f32) on the card against the
-    CPU at ``check_prompts`` (batch 1 each): logits within LOGITS_TOL at
-    the prefill and ``check_new`` greedy steps, tokens identical, conv
-    tails and SSM states within LOGITS_TOL. A rehearsal on the CPU passes
-    smaller configs."""
+    bf16, by default) through ``_family_full_width``, no kernel launched;
+    layer 0's SSD inputs (recorded in the warm-up prefill) through the
+    chunked scan against ``ssd_sequential_reference`` on the card, y and
+    the final state within SSD_TOL of their largest magnitude. (b)
+    ``check_cfg`` (the same cut to 2 layers, f32) card against CPU through
+    ``_family_check``, conv tails and SSM states within LOGITS_TOL. A
+    rehearsal on the CPU passes smaller configs."""
     from repro_torch.configs import base as cfg_base
     from repro_torch.models import ssm
-    from repro_torch.models.lm import LM, Batch
-    cuda = torch.device(dev).type == "cuda"
-    sync = torch.cuda.synchronize if cuda else (lambda: None)
     cfg = cfg or cfg_base.get(SSM_ARCH)
-    t1 = time.perf_counter()
-    model = LM(cfg, device=dev).init(
-        torch.Generator(device=dev).manual_seed(seed))
-    sync()
-    init_s = time.perf_counter() - t1
-    n_weights = _weights_check(model, cfg, {"dt_bias", "A_log", "D"})
-    toks = torch.from_numpy(np.random.default_rng(seed).integers(
-        0, cfg.vocab, (batch, seq))).to(dev)
-    recorded = []
+    recorded, chunk = [], {}
     chunked = ssm.ssd_chunked
 
     def first_inputs(*a, **kw):
         if not recorded:
             recorded.extend(t.clone() for t in a)
+            chunk["chunk"] = kw["chunk"]
         return chunked(*a, **kw)
 
-    cache = model.init_cache(batch, seq + new)
+    ssm.ssd_chunked = first_inputs
+    try:
+        out = _family_full_width(
+            dev, cfg, counts, zero_counts, path_launches, key="ssm",
+            tag="ssm", seed=seed, batch=batch, seq=seq, new=new,
+            k5_per_prefill=0, f32_leaves=set(ssm.F32_LEAVES))
+    finally:
+        ssm.ssd_chunked = chunked
+    y_c, st_c = ssm.ssd_chunked(*recorded, **chunk)
+    y_s, st_s = ssm.ssd_sequential_reference(*recorded)
+    ssd_err = {
+        "y": float((y_c - y_s).abs().max() / y_s.abs().max()),
+        "state": float((st_c - st_s).abs().max() / st_s.abs().max())}
+    del recorded, y_c, y_s, st_c, st_s
+    out["ssd_vs_sequential"] = ssd_err
+    log(f"[ssm] layer 0's chunked scan against the sequential one: y "
+        f"{ssd_err['y']:.3e}, final state {ssd_err['state']:.3e} of their "
+        f"largest magnitude (limit {SSD_TOL})")
+    if max(ssd_err.values()) > SSD_TOL:
+        raise AssertionError(f"ssm: chunked scan against the sequential "
+                             f"reference {ssd_err}")
+    ccfg = check_cfg or dataclasses.replace(cfg, n_layers=2,
+                                            dtype="float32")
+    out["vs_cpu"] = _family_check(
+        dev, ccfg, counts, zero_counts, path_launches, key="ssm_vs_cpu",
+        tag="ssm-check", seed=seed, prompts=check_prompts,
+        frames=(0,) * len(check_prompts), new=check_new,
+        cache_tol=LOGITS_TOL)
+    return out
+
+
+def _family_full_width(dev, cfg, counts, zero_counts, path_launches, *,
+                       key: str, tag: str, seed: int, batch: int, seq: int,
+                       new: int, k5_per_prefill: int, f32_leaves: set,
+                       enc_len: int = 0) -> dict:
+    """Phases 18-20 (a): ``cfg`` drawn from ``seed`` on ``dev``; one
+    ``LM.prefill`` of ``batch`` x ``seq`` tokens (over ``enc_len``
+    standard-normal encoder frames, for encdec) into a cache of ``seq`` +
+    ``new`` positions, then ``new`` greedy ``decode_step``s; an untimed
+    prefill of the same inputs first warms the library's kernel choices
+    for these shapes (the prefill rewrites the whole cache). Asserts the
+    weight count, finite logits and K5 launched exactly ``k5_per_prefill``
+    times in the prefill, no other kernel and nothing in decode (counts set
+    to 0 before the prefill and read after it and after the last step,
+    stored as ``path_launches[key]``); logs prompt tokens/s, decode
+    p50/min/max and peak memory under ``[tag]``, then profiles a prefill
+    and a decode step (``[tag-profile]``). The device memory that earlier
+    phases still hold when it starts is logged beside the peak."""
+    import gc
+    from repro_torch.models.lm import LM, Batch
+    cuda = torch.device(dev).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    gc.collect()
+    held = torch.cuda.memory_allocated() if cuda else 0
+    t1 = time.perf_counter()
+    model = LM(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(seed))
+    sync()
+    init_s = time.perf_counter() - t1
+    n_weights = _weights_check(model, cfg, f32_leaves)
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, seq))).to(dev)
+    enc = (torch.from_numpy(rng.standard_normal(
+        (batch, enc_len, cfg.d_model), dtype=np.float32)).to(dev)
+        if enc_len else None)
+    inputs = Batch(tokens=toks, enc_embeds=enc)
+    cache = model.init_cache(batch, seq + new, enc_len=enc_len)
+    model.prefill(inputs, cache)  # warm-up, uncounted
     sync()
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    ssm.ssd_chunked = first_inputs
-    try:
-        t1 = time.perf_counter()
-        logits, cache = model.prefill(Batch(tokens=toks), cache)
-        sync()
-        prefill_s = time.perf_counter() - t1
-    finally:
-        ssm.ssd_chunked = chunked
+    t1 = time.perf_counter()
+    logits, cache = model.prefill(inputs, cache)
+    sync()
+    prefill_s = time.perf_counter() - t1
+    at_prefill = counts()
     finite = [torch.isfinite(logits).all()]
     decode_ms = []
     tok = torch.argmax(logits, dim=-1)
@@ -2330,73 +2458,87 @@ def ssm_phase(dev, counts, zero_counts, path_launches, *, seed: int = 0,
         decode_ms.append((time.perf_counter() - t1) * 1e3)
         finite.append(torch.isfinite(logits).all())
     got = counts()
-    path_launches["ssm"] = got
+    path_launches[key] = got
     peak = torch.cuda.max_memory_allocated() if cuda else 0
-    if any(got.values()):
-        raise AssertionError(f"ssm: kernels launched {got}")
+    want = {k: 0 for k in got}
+    want["flash_attention"] = k5_per_prefill
+    if at_prefill != want or got != want:
+        raise AssertionError(f"{key}: launches {at_prefill} after the "
+                             f"prefill, {got} after decode; expected {want}")
     if not bool(torch.stack(finite).all()):
-        raise AssertionError("ssm: non-finite logits")
-    y_c, st_c = ssm.ssd_chunked(*recorded, chunk=model.ssd_chunk)
-    y_s, st_s = ssm.ssd_sequential_reference(*recorded)
-    ssd_err = {
-        "y": float((y_c - y_s).abs().max() / y_s.abs().max()),
-        "state": float((st_c - st_s).abs().max() / st_s.abs().max())}
-    del recorded, y_c, y_s, st_c, st_s
-    if max(ssd_err.values()) > SSD_TOL:
-        raise AssertionError(f"ssm: chunked scan against the sequential "
-                             f"reference {ssd_err}")
+        raise AssertionError(f"{key}: non-finite logits")
     decode_sorted = sorted(decode_ms)
     out = {
         "arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
-        "weights": n_weights, "init_s": init_s, "batch": batch, "seq": seq,
+        "enc_layers": cfg.enc_layers, "weights": n_weights, "init_s": init_s,
+        "batch": batch, "seq": seq, "enc_len": enc_len,
         "prefill_s": prefill_s, "prompt_tokens_per_s": batch * seq / prefill_s,
         "decode_steps": new, "decode_ms_p50": float(np.median(decode_ms)),
         "decode_ms_min": decode_sorted[0], "decode_ms_max": decode_sorted[-1],
         "output_tokens_per_s": batch * new / (sum(decode_ms) / 1e3),
-        "peak_mem_bytes": peak, "launches": got,
-        "ssd_vs_sequential": ssd_err,
+        "peak_mem_bytes": peak, "held_at_start_bytes": held,
+        "launches": got,
     }
-    log(f"[ssm] {cfg.name} {cfg.dtype}, {cfg.n_layers} layers ({n_weights} "
-        f"weights, drawn in {init_s:.2f} s): prefill of {batch} x {seq} "
-        f"tokens in {prefill_s:.4f} s ({out['prompt_tokens_per_s']:.1f} "
-        f"tokens/s); {new} decode steps of {batch}, p50 "
-        f"{out['decode_ms_p50']:.3f} ms (min {decode_sorted[0]:.3f}, max "
-        f"{decode_sorted[-1]:.3f}), {out['output_tokens_per_s']:.1f} "
-        f"tokens/s; peak memory {peak / 2**30:.3f} GiB; launches {got}; "
-        f"layer 0's chunked scan against the sequential one: y "
-        f"{ssd_err['y']:.3e}, final state {ssd_err['state']:.3e} of their "
-        f"largest magnitude (limit {SSD_TOL})")
+    frames = f" over {batch} x {enc_len} frames" if enc_len else ""
+    log(f"[{tag}] {cfg.name} {cfg.dtype}, {cfg.n_layers} layers"
+        f"{f' + {cfg.enc_layers} encoder layers' if cfg.enc_layers else ''} "
+        f"({n_weights} weights, drawn in {init_s:.2f} s): prefill of {batch} "
+        f"x {seq} tokens{frames} in {prefill_s:.4f} s "
+        f"({out['prompt_tokens_per_s']:.1f} tokens/s); {new} decode steps of "
+        f"{batch}, p50 {out['decode_ms_p50']:.3f} ms (min "
+        f"{decode_sorted[0]:.3f}, max {decode_sorted[-1]:.3f}), "
+        f"{out['output_tokens_per_s']:.1f} tokens/s; peak memory "
+        f"{peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB held by earlier "
+        f"phases at the start); launches {got}")
     if cuda:
-        pcache = model.init_cache(batch, seq + new)
+        pcache = model.init_cache(batch, seq + new, enc_len=enc_len)
         out["profile"] = profile_calls({
-            f"prefill {batch}x{seq}": lambda: model.prefill(
-                Batch(tokens=toks), pcache),
+            f"prefill {batch}x{seq}": lambda: model.prefill(inputs, pcache),
             "decode step": lambda: model.decode_step(cache, tok, seq + new - 1),
-        }, "ssm-profile")
+        }, f"{tag}-profile")
         del pcache
     del model, cache, logits
     if cuda:
         torch.cuda.empty_cache()
+    return out
 
-    # (b) card against CPU: 2 layers, f32, one prompt at a time.
-    ccfg = check_cfg or dataclasses.replace(cfg, n_layers=2,
-                                            dtype="float32")
+
+def _family_check(dev, ccfg, counts, zero_counts, path_launches, *, key: str,
+                  tag: str, seed: int, prompts, frames, new: int,
+                  cache_tol: float, cache_scaled: bool = False) -> dict:
+    """Phases 18-20 (b): ``ccfg`` drawn on the CPU from ``seed``, run on
+    the CPU and then on ``dev``, one prompt at a time (batch 1; for encdec
+    over ``frames`` standard-normal frames a prompt): the prefill and
+    ``new`` greedy steps. Logits within LOGITS_TOL, greedy tokens
+    identical, every cache field within ``cache_tol`` (with
+    ``cache_scaled``, ``cache_tol`` of that field's largest magnitude on
+    the CPU as the absolute part); on the card K5 once a site (hybrid),
+    three times a layer (encdec) or never (ssm) a prompt. Logs under
+    ``[tag]``."""
+    from repro_torch.models.lm import LM, Batch
     cmodel = LM(ccfg, device="cpu").init(torch.Generator().manual_seed(seed))
     crng = np.random.default_rng(seed + 1)
-    prompts = [torch.from_numpy(crng.integers(0, ccfg.vocab, (1, n)))
-               for n in check_prompts]
+    inputs = [(torch.from_numpy(crng.integers(0, ccfg.vocab, (1, n))),
+               torch.from_numpy(crng.standard_normal(
+                   (1, f, ccfg.d_model), dtype=np.float32)) if f else None)
+              for n, f in zip(prompts, frames)]
+    fields = ("hyb_k", "hyb_v", "conv", "ssm_state", "k", "v", "cross_k",
+              "cross_v")
 
     def check_run(d):
         res = []
-        for p in prompts:
-            c = cmodel.init_cache(1, 1)
-            logits, c = cmodel.prefill(Batch(tokens=p.to(d)), c)
+        for toks, enc in inputs:
+            c = cmodel.init_cache(1, toks.shape[1] + new)
+            logits, c = cmodel.prefill(
+                Batch(tokens=toks.to(d),
+                      enc_embeds=None if enc is None else enc.to(d)), c)
             run = [logits.cpu()]
-            for i in range(check_new):
+            for i in range(new):
                 logits, c = cmodel.decode_step(
-                    c, torch.argmax(logits, dim=-1), p.shape[1] + i)
+                    c, torch.argmax(logits, dim=-1), toks.shape[1] + i)
                 run.append(logits.cpu())
-            res.append((run, c.conv.cpu(), c.ssm_state.cpu()))
+            res.append((run, {f: getattr(c, f).cpu() for f in fields
+                              if getattr(c, f) is not None}))
         return res
 
     t1 = time.perf_counter()
@@ -2408,31 +2550,115 @@ def ssm_phase(dev, counts, zero_counts, path_launches, *, seed: int = 0,
     card_res = check_run(dev)
     card_s = time.perf_counter() - t1
     got = counts()
-    path_launches["ssm_vs_cpu"] = got
-    errs = {"logits": 0.0, "conv": 0.0, "ssm_state": 0.0}
-    tol = dict(atol=LOGITS_TOL, rtol=LOGITS_TOL)
-    for n, (k_run, k_conv, k_st), (c_run, c_conv, c_st) in zip(
-            check_prompts, card_res, cpu_res):
-        for what, k, c in ([("logits", a, b) for a, b in zip(k_run, c_run)]
-                           + [("conv", k_conv, c_conv),
-                              ("ssm_state", k_st, c_st)]):
-            errs[what] = max(errs[what], float((k - c).abs().max()))
-            if not torch.allclose(k, c, **tol):
-                raise AssertionError(f"ssm: {what} of the {n}-token prompt "
-                                     f"differ between card and CPU")
+    path_launches[key] = got
+    per_prompt = (len(cmodel._hybrid_groups()) if ccfg.family == "hybrid"
+                  else 3 * ccfg.n_layers if ccfg.family == "encdec" else 0)
+    if torch.device(dev).type == "cuda":
+        want = {k: 0 for k in got}
+        want["flash_attention"] = per_prompt * len(prompts)
+        if got != want:
+            raise AssertionError(f"{key}: launches {got}, expected {want}")
+    errs, scale, bad = {"logits": 0.0}, {}, []
+    for n, (k_run, k_cache), (c_run, c_cache) in zip(prompts, card_res,
+                                                     cpu_res):
+        pairs = ([("logits", a, b, LOGITS_TOL, 1.0)
+                  for a, b in zip(k_run, c_run)]
+                 + [(f, k_cache[f], c_cache[f], cache_tol,
+                     float(c_cache[f].abs().max()) if cache_scaled else 1.0)
+                    for f in c_cache])
+        for what, k, c, tol, s in pairs:
+            if k.shape != c.shape:
+                raise AssertionError(f"{key}: {what} of the {n}-token prompt "
+                                     f"has shape {k.shape} on the card, "
+                                     f"{c.shape} on the CPU")
+            errs[what] = max(errs.get(what, 0.0), float((k - c).abs().max()))
+            if what != "logits":
+                scale[what] = min(scale.get(what, s), s)
+            if not torch.allclose(k, c, atol=tol * s, rtol=tol):
+                bad.append(f"{what} of the {n}-token prompt")
         if [int(a.argmax()) for a in k_run] != [int(a.argmax())
                                                  for a in c_run]:
-            raise AssertionError(f"ssm: greedy tokens of the {n}-token "
-                                 f"prompt differ between card and CPU")
-    if any(got.values()):
-        raise AssertionError(f"ssm check: kernels launched {got}")
-    out["vs_cpu"] = {"max_abs_err": errs, "card_s": card_s, "cpu_s": cpu_s,
-                     "prompts": list(check_prompts), "launches": got}
-    log(f"[ssm-check] {cfg.name} cut to {ccfg.n_layers} layers, f32, prompts "
-        f"of {list(check_prompts)} tokens + {check_new} greedy steps: max_abs_err "
-        f"{errs} (tolerance {LOGITS_TOL}); tokens identical; card "
-        f"{card_s:.2f} s, CPU {cpu_s:.2f} s; launches {got}")
+            bad.append(f"greedy tokens of the {n}-token prompt")
+    if bad:
+        raise AssertionError(f"{key}: {bad} differ between card and CPU "
+                             f"(max_abs_err {errs})")
+    out = {"max_abs_err": errs, "card_s": card_s, "cpu_s": cpu_s,
+           "cache_tol": cache_tol, "cache_scaled": cache_scaled,
+           **({"cache_scale": scale} if cache_scaled else {}),
+           "prompts": list(prompts), "frames": list(frames),
+           "n_layers": ccfg.n_layers, "enc_layers": ccfg.enc_layers,
+           "launches": got}
+    log(f"[{tag}] {ccfg.name} cut to {ccfg.n_layers}"
+        f"{f' + {ccfg.enc_layers}' if ccfg.enc_layers else ''} layers, f32, "
+        f"prompts of {list(prompts)} tokens"
+        f"{f' over {list(frames)} frames' if any(frames) else ''} + {new} "
+        f"greedy steps: max_abs_err {errs} (logits tolerance {LOGITS_TOL}, "
+        f"caches {cache_tol}"
+        f"{f' of their largest magnitude {scale}' if cache_scaled else ''}); "
+        f"tokens identical; card {card_s:.2f} s, CPU "
+        f"{cpu_s:.2f} s; launches {got}")
     del cmodel
+    return out
+
+
+def hybrid_phase(dev, counts, zero_counts, path_launches, *, seed: int = 0,
+                 cfg=None, check_cfg=None, batch: int = FAMILY_BATCH,
+                 seq: int = FAMILY_SEQ, new: int = FAMILY_NEW,
+                 check_prompts=FAMILY_CHECK_PROMPTS,
+                 check_new: int = CHECK_NEW) -> dict:
+    """Phase 19: the hybrid family. (a) ``cfg`` (Zamba2-1.2B at all 38
+    layers, bf16, by default) through ``_family_full_width``: K5 once a
+    site a prefill (7). (b) ``check_cfg`` (the same cut to 8 layers, 2
+    sites, f32) card against CPU through ``_family_check``, the sites' K/V,
+    conv tails and SSM states within LOGITS_TOL (phase 18 (b)'s limits).
+    A rehearsal on the CPU passes smaller configs."""
+    from repro_torch.configs import base as cfg_base
+    from repro_torch.models.lm import LM
+    cfg = cfg or cfg_base.get(HYBRID_ARCH)
+    sites = len(LM(cfg, device="cpu")._hybrid_groups())
+    out = _family_full_width(
+        dev, cfg, counts, zero_counts, path_launches, key="hybrid",
+        tag="hybrid", seed=seed, batch=batch, seq=seq, new=new,
+        k5_per_prefill=sites, f32_leaves={"dt_bias", "A_log", "D"})
+    out["sites"] = sites
+    ccfg = check_cfg or dataclasses.replace(
+        cfg, n_layers=HYBRID_CHECK_LAYERS, dtype="float32")
+    out["vs_cpu"] = _family_check(
+        dev, ccfg, counts, zero_counts, path_launches, key="hybrid_vs_cpu",
+        tag="hybrid-check", seed=seed, prompts=check_prompts,
+        frames=(0,) * len(check_prompts), new=check_new,
+        cache_tol=LOGITS_TOL)
+    return out
+
+
+def encdec_phase(dev, counts, zero_counts, path_launches, *, seed: int = 0,
+                 cfg=None, check_cfg=None, batch: int = FAMILY_BATCH,
+                 seq: int = FAMILY_SEQ, new: int = FAMILY_NEW,
+                 check_prompts=FAMILY_CHECK_PROMPTS,
+                 check_frames=ENCDEC_CHECK_FRAMES,
+                 check_new: int = CHECK_NEW) -> dict:
+    """Phase 20: the encoder-decoder family. (a) ``cfg``
+    (SeamlessM4T-medium at 12 + 12 layers, bf16, by default) over seq // 4
+    frames through ``_family_full_width``: K5 three times a layer a prefill
+    (36). (b) ``check_cfg`` (the same cut to 2 + 2 layers, f32) card
+    against CPU through ``_family_check``, k/v and cross_k/v within
+    ENCDEC_CACHE_TOL of each field's largest magnitude. A rehearsal on the
+    CPU passes smaller configs."""
+    from repro_torch.configs import base as cfg_base
+    cfg = cfg or cfg_base.get(ENCDEC_ARCH)
+    out = _family_full_width(
+        dev, cfg, counts, zero_counts, path_launches, key="encdec",
+        tag="encdec", seed=seed, batch=batch, seq=seq, new=new,
+        k5_per_prefill=3 * cfg.n_layers, f32_leaves=set(),
+        enc_len=seq // 4)
+    ccfg = check_cfg or dataclasses.replace(
+        cfg, n_layers=ENCDEC_CHECK_LAYERS, enc_layers=ENCDEC_CHECK_LAYERS,
+        dtype="float32")
+    out["vs_cpu"] = _family_check(
+        dev, ccfg, counts, zero_counts, path_launches, key="encdec_vs_cpu",
+        tag="encdec-check", seed=seed, prompts=check_prompts,
+        frames=check_frames, new=check_new, cache_tol=ENCDEC_CACHE_TOL,
+        cache_scaled=True)
     return out
 
 
@@ -2840,35 +3066,38 @@ def main(argv=None) -> int:
                      torch.from_numpy(want).to(dev), route)
 
     # K5: the serving shapes (a 2,048-token Qwen2-7B prompt, a ragged one),
-    # MHA at D = 96 and MQA in f32; SDPA's distance from the plain version
-    # for information.
+    # MHA at D = 96 and MQA in f32, the hybrid and encdec families' D = 64
+    # shapes, causal or not, Skv = S or not; SDPA's distance from the plain
+    # version for information.
     def qkv(shape, dtype, seed):
-        b_, s_, h_, kv_, d_ = shape
+        b_, s_, skv_, h_, kv_, d_ = shape
         g_ = torch.Generator(device=dev).manual_seed(seed)
-        return [torch.randn((b_, s_, n, d_), generator=g_, device=dev
+        return [torch.randn((b_, n_s, n, d_), generator=g_, device=dev
                             ).to(getattr(torch, dtype))
-                for n in (h_, kv_, kv_)]
+                for n_s, n in ((s_, h_), (skv_, kv_), (skv_, kv_))]
 
-    def sdpa(q_, k_, v_):
+    def sdpa(q_, k_, v_, causal):
         return F.scaled_dot_product_attention(
             q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2),
-            is_causal=True, enable_gqa=True).transpose(1, 2)
+            is_causal=causal, enable_gqa=True).transpose(1, 2)
 
-    for i, (shape, dtype) in enumerate(FLASH_CASES):
+    for i, (shape, dtype, causal) in enumerate(FLASH_CASES):
         q_, k_, v_ = qkv(shape, dtype, i)
-        got = fa_ops.flash_attention(q_, k_, v_, causal=True).float()
+        got = fa_ops.flash_attention(q_, k_, v_, causal=causal).float()
         want = fa_ref.flash_attention_ref(q_.float(), k_.float(), v_.float(),
-                                          causal=True)
+                                          causal=causal)
         atol, rtol = ((fa_ref.F32_TOL, fa_ref.F32_TOL) if dtype == "float32"
                       else (fa_ref.BF16_ATOL, fa_ref.BF16_RTOL))
         e = float((got - want).abs().max())
-        e_lib = float((sdpa(q_, k_, v_).float() - want).abs().max())
+        e_lib = float((sdpa(q_, k_, v_, causal).float() - want).abs().max())
         errs["flash_attention"] = max(errs["flash_attention"], e)
-        log(f"[check] flash_attention {shape} {dtype}: max_abs_err {e} "
-            f"(atol {atol}, rtol {rtol}); SDPA's max_abs_err {e_lib}")
+        mask = "causal" if causal else "no mask"
+        log(f"[check] flash_attention (B, S, Skv, H, Hkv, D) = {shape} "
+            f"{dtype} {mask}: max_abs_err {e} (atol {atol}, rtol {rtol}); "
+            f"SDPA's max_abs_err {e_lib}")
         if not torch.allclose(got, want, atol=atol, rtol=rtol):
             raise AssertionError(f"flash_attention disagrees with its plain "
-                                 f"version at {shape} {dtype}")
+                                 f"version at {shape} {dtype} {mask}")
         del q_, k_, v_, got, want
     torch.cuda.synchronize()
     phase_done("2 kernels vs plain", t0)
@@ -2979,7 +3208,7 @@ def main(argv=None) -> int:
     # K5 at one Qwen2-7B layer's prefill of a 2,048-token prompt: Q, K, V
     # read and O written once; 4 operations (QK^T and PV multiply-adds) for
     # each of the S(S+1)/2 causal (query, key) pairs of each head and dim.
-    (fb, fs, fh, fkv, fd), _ = FLASH_CASES[0]
+    (fb, fs, _, fh, fkv, fd), _, _ = FLASH_CASES[0]
     fq, fk, fv = qkv(FLASH_CASES[0][0], "bfloat16", 100)
     fq_t, fk_t, fv_t = (x.transpose(1, 2).contiguous() for x in (fq, fk, fv))
     timing["flash_attention"] = dict(
@@ -2994,7 +3223,7 @@ def main(argv=None) -> int:
         bound=bound_ms(2 * fb * fs * (2 * fh + 2 * fkv) * fd,
                        4 * fb * fs * (fs + 1) // 2 * fh * fd,
                        TC_BF16_OPS_PER_S),
-        shape=f"(B, S, H, Hkv, D) = {FLASH_CASES[0][0]} bf16, causal")
+        shape=f"(B, S, H, Hkv, D) = {(fb, fs, fh, fkv, fd)} bf16, causal")
     for key, t in timing.items():
         t["ms"] = event_ms(t["fn"], 500)
         t["plain_ms"] = (event_ms(t["plain"], 5, warmup=1) if key == "commit"
@@ -3012,37 +3241,38 @@ def main(argv=None) -> int:
     del fq, fk, fv, fq_t, fk_t, fv_t
     # K5 and SDPA in turns (K5, SDPA, K5, SDPA) at each timed shape.
     fa_t["turns"] = []
-    for shape in FLASH_TIMED:
-        tb, ts, th, tkv, td = shape
+    for *shape, causal in FLASH_TIMED:
         tq, tk, tv = qkv(shape, "bfloat16", 200)
         tq_t, tk_t, tv_t = (x.transpose(1, 2).contiguous()
                             for x in (tq, tk, tv))
-        flop = 4 * tb * ts * (ts + 1) // 2 * th * td
-        t_bound = bound_ms(2 * tb * ts * (2 * th + 2 * tkv) * td, flop,
-                           TC_BF16_OPS_PER_S)[0]
+        n_bytes, flop = flash_fwd_work(*shape, causal)
+        t_bound, t_by = bound_ms(n_bytes, flop, TC_BF16_OPS_PER_S)
         k5, lib = [], []
         for _ in range(2):
             k5.append(event_ms(
-                lambda: fa_ops.flash_attention(tq, tk, tv, causal=True), 500))
+                lambda: fa_ops.flash_attention(tq, tk, tv, causal=causal),
+                500))
             lib.append(event_ms(lambda: F.scaled_dot_product_attention(
-                tq_t, tk_t, tv_t, is_causal=True, enable_gqa=True), 500))
+                tq_t, tk_t, tv_t, is_causal=causal, enable_gqa=True), 500))
         k5_ms, lib_ms = sum(k5) / 2, sum(lib) / 2
         k5_dev = device_total_ms(
-            lambda: fa_ops.flash_attention(tq, tk, tv, causal=True))
+            lambda: fa_ops.flash_attention(tq, tk, tv, causal=causal))
         lib_dev = device_total_ms(lambda: F.scaled_dot_product_attention(
-            tq_t, tk_t, tv_t, is_causal=True, enable_gqa=True))
+            tq_t, tk_t, tv_t, is_causal=causal, enable_gqa=True))
         fa_t["turns"].append({
-            "shape": shape, "ms": k5, "sdpa_ms": lib, "bound_ms": t_bound,
-            "device_ms": k5_dev, "sdpa_device_ms": lib_dev,
-            "tflops": flop / k5_dev / 1e9,
+            "shape": shape, "causal": causal, "ms": k5, "sdpa_ms": lib,
+            "bound_ms": t_bound, "bound_by": t_by, "device_ms": k5_dev,
+            "sdpa_device_ms": lib_dev, "tflops": flop / k5_dev / 1e9,
             "sdpa_tflops": flop / lib_dev / 1e9})
-        log(f"[time] flash_attention {shape} bf16 causal, in turns with "
+        mask = "causal" if causal else "no mask"
+        log(f"[time] flash_attention (B, S, Skv, H, Hkv, D) = {tuple(shape)} "
+            f"bf16 {mask}, in turns with "
             f"SDPA: K5 {k5} ms, SDPA {lib} ms (events, K5 / SDPA "
             f"{k5_ms / lib_ms:.3f}); device K5 {k5_dev:.5f} ms "
             f"({flop / k5_dev / 1e9:.1f} TFLOP/s, {t_bound / k5_dev * 100:.2f} "
-            f"% of its {t_bound:.7f} ms bound), SDPA {lib_dev:.5f} ms "
-            f"({flop / lib_dev / 1e9:.1f} TFLOP/s); K5 / SDPA "
-            f"{k5_dev / lib_dev:.3f}")
+            f"% of its {t_bound:.7f} ms bound, by {t_by}), SDPA "
+            f"{lib_dev:.5f} ms ({flop / lib_dev / 1e9:.1f} TFLOP/s); K5 / "
+            f"SDPA {k5_dev / lib_dev:.3f}")
         del tq, tk, tv, tq_t, tk_t, tv_t
     timing["flash_attention_bwd"] = flash_bwd_timing(dev)
     # K1's ordered schedule: the verify block at step 1 (the serial check),
@@ -4074,6 +4304,22 @@ def main(argv=None) -> int:
     ssm_run["card"] = card
     phase_done("18 ssm", t0)
 
+    # -- 19. Zamba2 (hybrid) at full width -----------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    hybrid = hybrid_phase(dev, counts, zero_counts, path_launches,
+                          seed=args.seed)
+    hybrid["card"] = card
+    phase_done("19 hybrid", t0)
+
+    # -- 20. SeamlessM4T (encoder-decoder) at full width ---------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    encdec = encdec_phase(dev, counts, zero_counts, path_launches,
+                          seed=args.seed)
+    encdec["card"] = card
+    phase_done("20 encdec", t0)
+
     kernels = [{
         "name": t["name"], "route": "cuda", "source": t["source"],
         "replaces": t["replaces"],
@@ -4098,6 +4344,8 @@ def main(argv=None) -> int:
     log(json.dumps({"training": training}, default=str))
     log(json.dumps({"moe_serving": moe_serving}, default=str))
     log(json.dumps({"ssm": ssm_run}, default=str))
+    log(json.dumps({"hybrid": hybrid}, default=str))
+    log(json.dumps({"encdec": encdec}, default=str))
     log(json.dumps({"phase_s": phase_s,
                     "total_s": time.perf_counter() - t_start}))
     log(card)

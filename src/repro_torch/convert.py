@@ -113,7 +113,10 @@ def export_engine(eng: engine.FabricEngine) -> EngineState:
 
 def lm_params(np_params: dict, cfg: ModelConfig, device, **lm_kwargs) -> LM:
     """The JAX ``LM.init`` pytree as numpy (``layers`` stacked on a leading
-    layer axis) -> a port :class:`LM` on ``device`` with those weights. A
+    layer axis, and encdec's ``enc_layers`` on an encoder-layer axis) -> a
+    port :class:`LM` on ``device`` with those weights, each stack split
+    into a list of per-layer dicts (hybrid's ``shared_attn`` is one
+    unstacked dict and stays one). A
     leaf's dtype comes from its role, not from the array given: the leaves
     of ``lm.F32_LEAVES`` (the MoE router, the SSM's ``dt_bias``, ``A_log``
     and ``D``) are f32, every other leaf ``cfg.torch_dtype``. So an f32
@@ -129,10 +132,12 @@ def lm_params(np_params: dict, cfg: ModelConfig, device, **lm_kwargs) -> LM:
                 else tensor(k, v if index is None else v[index])
                 for k, v in d.items()}
 
-    top = {k: v for k, v in np_params.items() if k != "layers"}
-    per_layer = [tree(np_params["layers"], i) for i in range(cfg.n_layers)]
+    stacks = {"layers": cfg.n_layers, "enc_layers": cfg.enc_layers}
+    top = {k: v for k, v in np_params.items() if k not in stacks}
+    per_layer = {k: [tree(np_params[k], i) for i in range(n)]
+                 for k, n in stacks.items() if k in np_params}
     return LM(cfg, device=device, **lm_kwargs).load_params(
-        {**tree(top), "layers": per_layer})
+        {**tree(top), **per_layer})
 
 
 def _np_leaves(tree: dict) -> list:

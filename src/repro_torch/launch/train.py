@@ -40,15 +40,16 @@ def build(arch: str, *, smoke: bool, seq: int, batch: int,
           microbatches: int, lr: float, total_steps: int, device=None):
     """(cfg, model without weights, TrainConfig, DataConfig), as the JAX
     launcher builds them; the model on ``device`` (the card by default).
-    Dense configs only: the moe and ssm families serve but do not train
-    yet."""
+    Dense configs only: the moe, ssm, hybrid and encdec families serve but
+    do not train yet."""
     cfg = cfg_base.get_smoke(arch) if smoke else cfg_base.get(arch)
-    if cfg.family in ("moe", "ssm"):
+    if cfg.family in ("moe", "ssm", "hybrid", "encdec"):
         raise NotImplementedError(
             f"training the {cfg.family} family ({cfg.name}) is not ported: "
-            f"its backward (the MoE dispatch, the SSD scan) and the aux loss "
-            f"in the train step come with the MoE/SSM training slice "
-            f"(ROADMAP.md)")
+            f"its backward (the MoE dispatch, the SSD scan, the shared "
+            f"block, the encoder and cross-attention), the aux loss in the "
+            f"train step and the encoder's inputs in the data pipeline come "
+            f"with the training slice for these families (ROADMAP.md)")
     model = LM(cfg, vocab_chunk=min(seq, 128), device=device)
     tcfg = ts_lib.TrainConfig(
         opt=optimizer.AdamWConfig(lr=lr, warmup_steps=max(total_steps // 20,

@@ -11,12 +11,13 @@ Attention has the JAX package's implementations of one function:
   * ``attn_chunked`` -- online softmax over KV chunks, each Q chunk visiting
     only the chunks its causal mask reaches;
   * ``attn_grouped`` -- GQA without expanding K/V, for cached decode.
-Self-attention over a CUDA tensor runs the flash-attention kernel
-(``kernels/flash_attention``, K5); over a CPU tensor it takes the kernel's
-plain version (``attn_naive``) or, under ``impl="chunked"`` for sequences
-longer than ``q_chunk``, ``attn_chunked``, as the JAX package chooses.
-Cached decode (one new query against a masked cache) is not K5's function
-and stays plain torch.
+Self- and cross-attention over a CUDA tensor run the flash-attention
+kernel (``kernels/flash_attention``, K5; cross-attention without the causal
+mask, at Skv = the memory's length); over a CPU tensor they take the
+kernel's plain version (``attn_naive``) or, under ``impl="chunked"`` for
+sequences longer than ``q_chunk``, ``attn_chunked``, as the JAX package
+chooses. Cached decode (one new query against a masked cache) is not K5's
+function and stays plain torch.
 """
 
 from __future__ import annotations
@@ -265,29 +266,34 @@ def attention(p, cfg: ModelConfig, x: torch.Tensor, *,
         length; x is the new token(s). The new K/V rows are written into
         the cache IN PLACE at cache_len (the JAX package returns updated
         copies); returns (out, (k, v)), the same cache tensors.
-    Cross-attention (``memory``) belongs to the encoder-decoder family.
+      * cross-attention: ``memory`` (B, Sm, Dm) provides K/V (biases and
+        qk_norm as for self-attention; no rope, no causal mask). Cached
+        decode with ``memory`` does not occur in the reference and raises.
     """
-    if memory is not None:
+    if memory is not None and kv_cache is not None:
         raise NotImplementedError(
-            "cross-attention (memory=...) is not ported: it comes with the "
-            "encoder-decoder family (ROADMAP.md, the model-families slice)")
+            "cached decode with memory=: the encoder-decoder's decode step "
+            "projects the cached cross K/V itself (models/lm.py)")
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
 
-    def proj(w, bias, nh):
-        y = x @ w.to(x.dtype)
+    def proj(w, bias, src, nh):
+        y = src @ w.to(src.dtype)
         if bias is not None:
             y = y + bias.to(y.dtype)
-        return y.reshape(b, s, nh, hd)
+        return y.reshape(src.shape[0], src.shape[1], nh, hd)
 
-    q = proj(p["wq"], p.get("bq"), h)
-    key = proj(p["wk"], p.get("bk"), kv)
-    val = proj(p["wv"], p.get("bv"), kv)
+    kv_src = memory if memory is not None else x
+    q = proj(p["wq"], p.get("bq"), x, h)
+    key = proj(p["wk"], p.get("bk"), kv_src, kv)
+    val = proj(p["wv"], p.get("bv"), kv_src, kv)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         key = rmsnorm(p["k_norm"], key, cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    key = apply_rope(key, positions, cfg.rope_theta)
+    if memory is None:  # rope only for self-attention
+        q = apply_rope(q, positions, cfg.rope_theta)
+        key = apply_rope(key, positions, cfg.rope_theta)
+    causal = causal and memory is None
 
     if kv_cache is not None:
         ck, cv = kv_cache

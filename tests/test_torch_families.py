@@ -241,7 +241,10 @@ def test_serve_launcher_moe_runs_and_ssm_exits(capsys):
 
 
 def test_train_launcher_refuses_moe_and_ssm():
-    for arch in ("qwen2-moe-a2.7b", "moonshot-v1-16b-a3b", "mamba2-2.7b"):
+    """The training launcher refuses every family but dense by name: moe,
+    ssm, hybrid (zamba2) and encdec (seamless) do not train yet."""
+    for arch in ("qwen2-moe-a2.7b", "moonshot-v1-16b-a3b", "mamba2-2.7b",
+                 "zamba2-1.2b", "seamless-m4t-medium"):
         with pytest.raises(NotImplementedError, match="training"):
             ttrain.build(arch, smoke=True, seq=16, batch=2, microbatches=1,
                          lr=1e-3, total_steps=10, device="cpu")

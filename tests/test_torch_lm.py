@@ -7,6 +7,8 @@ and greedy ``decode_step``s, for the qwen2-7b (QKV bias) and qwen3-4b
 64-128-wide products summed in another order stay ~1e-6 apart; greedy
 tokens identical."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +19,7 @@ from repro.configs import base as jcfg
 from repro.models.lm import LM as JLM, Batch as JBatch
 from repro_torch import convert
 from repro_torch.configs import base as tcfg
-from repro_torch.models import layers as tl
+from repro_torch.models import layers as tl, lm as tlm
 from repro_torch.models.lm import LM, Batch
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -148,20 +150,26 @@ def test_init_counts_and_distributions(arch):
 
 
 def test_other_families_cross_attention_and_no_card_raise(monkeypatch):
-    """The hybrid and encdec families still raise; moe and ssm construct
-    (``test_torch_families.py`` holds them against JAX)."""
-    for arch in ("zamba2-1.2b", "seamless-m4t-medium"):
-        with pytest.raises(NotImplementedError, match="family"):
-            LM(tcfg.get_smoke(arch), device="cpu")
-    for arch in ("qwen2-moe-a2.7b", "moonshot-v1-16b-a3b", "mamba2-2.7b"):
-        assert LM(tcfg.get_smoke(arch), device="cpu").cfg.family in (
-            "moe", "ssm")
+    """An unknown family raises; all five families construct (the
+    ``test_torch_families.py`` and ``test_torch_hybrid_encdec.py`` files
+    hold them against JAX); cached decode with ``memory=`` (which the
+    reference never runs) raises; ``LM(cfg)`` without a card raises."""
+    with pytest.raises(ValueError, match="unknown family"):
+        LM(dataclasses.replace(tcfg.get_smoke("qwen2-7b"), family="rnn"),
+           device="cpu")
+    families = {LM(tcfg.get_smoke(arch), device="cpu").cfg.family
+                for arch in ("qwen2-7b", "qwen2-moe-a2.7b", "mamba2-2.7b",
+                             "zamba2-1.2b", "seamless-m4t-medium")}
+    assert families == set(tlm.FAMILIES) == {"dense", "moe", "ssm",
+                                             "hybrid", "encdec"}
     cfg = tcfg.get_smoke("qwen2-7b")
     model = LM(cfg, device="cpu").init(torch.Generator().manual_seed(1))
     x = torch.zeros((1, 2, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        tl.attention(model.params["layers"][0]["attn"], cfg, x,
-                     positions=torch.arange(2), memory=x)
+    cache = torch.zeros((1, 4, cfg.n_kv, cfg.head_dim))
+    with pytest.raises(NotImplementedError, match="memory"):
+        tl.attention(model.params["layers"][0]["attn"], cfg, x[:, :1],
+                     positions=torch.arange(1), memory=x,
+                     kv_cache=(cache, cache.clone()), cache_len=2)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LM(cfg)  # the card by default
