@@ -47,9 +47,11 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
    1,235 txs, where the wrapper chooses between them. K5's backward at the
    training shape (4, 2048, 28, 4, 128) bf16 causal: CUDA events and the
    profiler's device time a call (its three kernels, and each apart),
-   beside its bound (5 products, 2.5x the forward's causal operations, at
-   989 TFLOP/s), its plain version and SDPA's backward (fwd+bwd - fwd, in
-   turns); the same at phi3-mini's (1, 2048, 32, 32, 96).
+   beside its bound (5 products, 2.5x the forward's operations, at 989
+   TFLOP/s), its plain version and SDPA's backward (fwd+bwd - fwd, in
+   turns); the same at phi3-mini's (1, 2048, 32, 32, 96) and at phase
+   21's D = 64 shapes: zamba2's shared block and seamless's decoder
+   self-attention (causal), its encoder and cross-attention (no mask).
 4. Run the FASTFABRIC engine on the card at PAPER_DIMS (2.9 KB
    transactions), blocks of 100, a 2^20-bucket x 8-slot world state, and
    proposals from 2^22 accounts: one warm-up round, then a timed round of
@@ -192,13 +194,15 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
    params, gradients and f32 moments take ~24 GB, all 28 layers ~91 GB),
    random weights from --seed, batches of 4 x 2,048 tokens from the port's
    pipeline, TrainConfig and AdamWConfig from launch/train.build: a
-   warm-up step, 6 timed steps (host clock + sync) and a profiled one;
-   every loss finite, every microbatch endorsed, none skipped; counters set
-   to 0 before the timed steps and read after, K5's forward and backward
-   each exactly 4 a step; a second run of 2 steps from the same seed equal
-   bit for bit (params, moments, ledger head) to the first run after 2;
-   tokens/s, median step ms, peak device memory, the profiled step's busy
-   share and K5's backward's part of it. (b) The same width at 1 layer, f32 (TF32 off), batch 1 x 256:
+   warm-up step, 6 timed steps (host clock + sync) and a profiled one
+   (``_train_full_width``, as phase 21's); every loss finite, every
+   microbatch endorsed, none skipped; counters set to 0 before the timed
+   steps and read after, K5's forward and backward each exactly 4 a step;
+   a second run of 2 steps from the same seed equal bit for bit (params,
+   moments, ledger head) to the first run after 2; tokens/s, median step
+   ms, peak device memory, each step's device allocations, allocator
+   retries and garbage-collector pauses, the profiled step's busy share
+   and K5's part of it. (b) The same width at 1 layer, f32 (TF32 off), batch 1 x 256:
    one step's loss, gradient norm and every gradient, card against CPU
    (GRAD_TOL of each leaf's largest magnitude). (c) The qwen2-7b smoke
    config in f32 and in bf16 (K5's CUDA-core and mma.sync instances): 6
@@ -208,9 +212,13 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
    on the inputs cast to f32 at FLASH_BWD_CASES (the training shape, 777
    tokens, MHA at D = 96 in f32 and bf16 and at 2,048 tokens, MQA at D =
    16 in f32, one row past a 128- and a 64-row tile, D = 64 in GQA of 8,
-   Skv < S off the tiles, no causal mask), the forward's LSE against the
-   plain one, and O with the LSE written equal bit for bit to O without
-   it.
+   Skv < S off the tiles, no causal mask; and phase 21's D = 64 shapes:
+   seamless's encoder and cross-attention without the mask at Skv = S and
+   S / 4, its decoder self-attention and zamba2's shared block, Skv below
+   one key tile without the mask in bf16 and in f32; Qwen1.5-MoE's 16 MHA
+   heads at D = 128 and 4 x 2,048 tokens), the forward's LSE
+   against the plain one, and O with the LSE written equal bit for bit to
+   O without it.
 17. MoE serving at full width (``moe_serving_phase``): Qwen1.5-MoE-A2.7B
    (24 layers, d 2,048, 16 heads of 128, 60 routed experts top-4 of width
    1,408 plus 4 shared; 14.3 B weights), bf16 with the router f32, random
@@ -221,7 +229,7 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
    count; prompt and output tokens/s, decode p50/min/max, peak memory.
    Untimed after it: a replay of the same requests, which must give the
    same tokens, counts the share of routed assignments dropped in prefill
-   and in decode; the 2,048-token prefill repeated bit for bit; the
+   and in decode, in all and by layer; the 2,048-token prefill repeated bit for bit; the
    device's busy share and top ops of one prefill and one decode step.
    (b) The same width cut to 2 layers, f32 (TF32 off), phase 10's
    ``serve_check``, CHECK_PROMPTS card against CPU: prefill logits
@@ -264,12 +272,42 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
    128-key tile) + 4 greedy steps card against CPU: logits, tokens, the
    self-attention K/V and the cross K/V (within ENCDEC_CACHE_TOL of each
    field's largest magnitude).
+21. Training the moe, ssm, hybrid and encdec families
+   (``family_training_phase``), under torch's deterministic algorithms
+   (strict, as launch/train.py runs them). For each of
+   Qwen1.5-MoE-A2.7B, Mamba2-2.7B, Zamba2-1.2B and SeamlessM4T-medium:
+   (a) full width, bf16, built by launch/train.build (MoE at capacity
+   factor 2.0), batches of 4 x 2,048 tokens from the port's pipeline
+   (seamless over 4 x 512 frames), depth cut only as far as 80 GB forces
+   (FAMILY_TRAIN: MoE 4 of 24 layers, Mamba2 and Zamba2 as listed there,
+   Zamba2 with at least 2 shared-block sites, Seamless all 12 + 12), as
+   phase 16 (a) runs: MoE's routed and dropped assignments counted by
+   layer in an untimed forward of the first batch; a warm-up step,
+   FAMILY_TRAIN_STEPS timed steps and a profiled one, each step's device
+   allocations, allocator retries and garbage-collector pauses counted;
+   a second run of 2 steps from the same seed bit for bit the first
+   run's; every step's skipped flag equal to
+   "the loss or some gradient non-finite", a skipped step leaving params
+   and moments unchanged (their words' sums, and bit for bit against a
+   host copy when every step skipped, as the reference's SSD overflow
+   makes every Mamba2 and Zamba2 step at these widths); MoE and Seamless:
+   every loss finite, every microbatch endorsed; counters set to 0 before
+   the timed steps and read after, K5's forward and backward each once an
+   attention layer or site a step (MoE 4, Zamba2 its sites, Seamless 2 a
+   decoder layer + 1 an encoder layer, Mamba2 0); tokens/s, median step
+   ms, peak memory, busy share. (b) Card against CPU, f32, TF32 off, batch
+   1: the published width cut to 1 layer (Zamba2 to one group: a site and
+   6 Mamba2 layers; Seamless 1 + 1) at FAMILY_CHECK_SEQ, the same
+   non-finite leaves and the finite ones within GRAD_TOL; the smoke config
+   at FAMILY_SMOKE_SEQ, every leaf finite and within GRAD_TOL. (c) The
+   smoke config in bf16: 6 steps straight against 3 + a Checkpointer save
+   + restore into a fresh state + 3, bit for bit.
 
 The lines before the last give each phase's seconds, the card's name and
 power limit (as nvidia-smi prints them), the engine, ladder, serving,
 durability, observability, pipeline, channel, sharding, training, MoE
-serving, SSM, hybrid and encdec summaries (with the storage objects'
-sizes) and the kernels (K1-K5 and K5's backward); the last line is
+serving, SSM, hybrid, encdec and family-training summaries (with the
+storage objects' sizes) and the kernels (K1-K5 and K5's backward); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -393,8 +431,10 @@ FLASH_CASES = (((1, 2048, 2048, 28, 4, 128), "bfloat16", True),
                ((1, 129, 129, 28, 4, 128), "bfloat16", True),
                ((2, 200, 200, 28, 4, 128), "bfloat16", True),
                ((2, 300, 300, 32, 32, 96), "bfloat16", True),
-               # Qwen1.5-MoE's prefill: MHA of 16 heads at D = 128
+               # Qwen1.5-MoE's prefill and its training shape: MHA of 16
+               # heads at D = 128
                ((1, 2048, 2048, 16, 16, 128), "bfloat16", True),
+               ((4, 2048, 2048, 16, 16, 128), "bfloat16", True),
                # D = 64: zamba2's shared block; seamless's decoder
                # self-attention, encoder (no mask) and cross-attention
                # (Skv = S / 4, no mask); Skv below one 128-key tile, and
@@ -454,10 +494,57 @@ FLASH_BWD_CASES = (((4, 2048, 2048, 28, 4, 128), "bfloat16", True),
                    ((1, 65, 65, 28, 4, 128), "bfloat16", True),
                    ((1, 333, 333, 16, 2, 64), "bfloat16", True),
                    ((1, 2048, 2048, 32, 32, 96), "bfloat16", True),
-                   ((1, 200, 72, 28, 4, 128), "bfloat16", True))
-# Phase 3 times K5's backward, bf16 causal, in turns with SDPA's at these
-# (B, S, H, Hkv, D): the training shape and phi3-mini's MHA at D = 96.
-FLASH_BWD_TIMED = ((4, 2048, 28, 4, 128), (1, 2048, 32, 32, 96))
+                   ((1, 200, 72, 28, 4, 128), "bfloat16", True),
+                   # D = 64, the families' training shapes (phase 21):
+                   # seamless's encoder and cross-attention (no mask,
+                   # Skv = S / 4) and decoder self-attention, zamba2's
+                   # shared block; Skv below one 128-key tile, no mask, in
+                   # bf16 and f32
+                   ((4, 512, 512, 16, 16, 64), "bfloat16", False),
+                   ((4, 2048, 512, 16, 16, 64), "bfloat16", False),
+                   ((4, 2048, 2048, 16, 16, 64), "bfloat16", True),
+                   ((4, 2048, 2048, 32, 32, 64), "bfloat16", True),
+                   ((1, 200, 72, 16, 16, 64), "bfloat16", False),
+                   ((2, 300, 77, 16, 16, 64), "float32", False),
+                   # Qwen1.5-MoE's training shape: 16 MHA heads at D = 128
+                   # (a GQA group of 1 in the wgmma kernels)
+                   ((4, 2048, 2048, 16, 16, 128), "bfloat16", True))
+# Phase 3 times K5's backward, bf16, in turns with SDPA's at these (B, S,
+# Skv, H, Hkv, D, causal): the training shape, phi3-mini's MHA at D = 96,
+# and the shapes of phase 21 (Qwen1.5-MoE's MHA at D = 128; at D = 64
+# zamba2's shared block, seamless's decoder self-attention, encoder and
+# cross-attention).
+FLASH_BWD_TIMED = ((4, 2048, 2048, 28, 4, 128, True),
+                   (1, 2048, 2048, 32, 32, 96, True),
+                   (4, 2048, 2048, 16, 16, 128, True),
+                   (4, 2048, 2048, 32, 32, 64, True),
+                   (4, 2048, 2048, 16, 16, 64, True),
+                   (4, 512, 512, 16, 16, 64, False),
+                   (4, 2048, 512, 16, 16, 64, False))
+
+# Phase 21: training the moe, ssm, hybrid and encdec families. (a) Each at
+# full width, bf16, through launch/train.build and the port's pipeline, 4 x
+# 2,048 tokens a step (seamless over 4 x 512 frames, enc_frac 4), depth cut
+# only as far as the card's 80 GB forces: params, gradients and f32 AdamW
+# moments take 12 B a parameter, and a Mamba2 layer keeps the SSD's f32
+# (b, c, l, m, h) tensors for its backward: measured 4.58 GiB a Mamba2-2.7B
+# layer (peak 15.04 GiB at 2 layers, 33.34 at 6) and 3.67 GiB a Zamba2
+# layer (25.90 at 6, 47.94 at 12), on one H100 80GB HBM3 at 700 W. So
+# Qwen1.5-MoE at 4 layers (2.9 B parameters, 45.4 GiB peak; all 24 would
+# need ~172 GB for the state alone), Mamba2 at 14 of 64 layers (~70 GiB;
+# 16 ran out of memory), Zamba2 at 18 of 38 (3 shared-block sites, ~70
+# GiB), Seamless at all 12 + 12 (28.0 GiB); a warm-up step, then
+# FAMILY_TRAIN_STEPS timed steps and a profiled one. (b) Card against CPU,
+# f32, TF32 off, batch 1: the published width cut to 1 layer (Zamba2 to 1
+# group: 1 site and 6 Mamba2 layers; Seamless to 1 + 1) at
+# FAMILY_CHECK_SEQ, and the smoke config at FAMILY_SMOKE_SEQ, within
+# GRAD_TOL. (c) The smoke config in bf16, 6 steps straight against 3 +
+# save + restore + 3.
+FAMILY_TRAIN = (("qwen2-moe-a2.7b", 4, 0), ("mamba2-2.7b", 14, 0),
+                ("zamba2-1.2b", 18, 0), ("seamless-m4t-medium", 12, 12))
+FAMILY_TRAIN_STEPS = 3
+FAMILY_CHECK_SEQ = 256
+FAMILY_SMOKE_SEQ = 64
 
 
 def log(*a):
@@ -481,6 +568,16 @@ def flash_fwd_work(b, s, skv, h, hkv, d, causal) -> tuple[int, int]:
         raise ValueError("causal work is counted at skv = s only")
     pairs = s * (s + 1) // 2 if causal else s * skv
     return 2 * b * d * (2 * s * h + 2 * skv * hkv), 4 * b * pairs * h * d
+
+
+def flash_bwd_work(b, s, skv, h, hkv, d, causal) -> tuple[int, int]:
+    """K5's backward at q (b, s, h, d), k/v (b, skv, hkv, d), bf16: (bytes,
+    operations). Five products, 2.5x the forward's operations; Q, O, dO, K,
+    V and the LSE read and dQ, dK, dV written once."""
+    flop = flash_fwd_work(b, s, skv, h, hkv, d, causal)[1] * 5 // 2
+    q_bytes, kv_bytes = 2 * b * s * h * d, 2 * b * skv * hkv * d
+    # reads Q, O, dO, K, V and the f32 LSE; writes dQ, dK, dV
+    return 4 * q_bytes + 4 * kv_bytes + 4 * b * h * s, flop
 
 
 def event_ms(fn, iters: int, warmup: int = 10) -> float:
@@ -1461,28 +1558,27 @@ def flash_bwd_timing(dev) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
-    # K5's backward beside its bound (5 products: 2.5x the forward's causal
-    # operations; Q, K, V, O, dO and the LSE read and dQ, dK, dV written
-    # once) and SDPA's backward (fwd+bwd - fwd), in turns: K5, SDPA fwd+bwd,
-    # SDPA fwd, twice; the device time split over the three kernels.
+    # K5's backward beside its bound (``flash_bwd_work``) and SDPA's
+    # backward (fwd+bwd - fwd), in turns: K5, SDPA fwd+bwd, SDPA fwd,
+    # twice; the device time split over the three kernels.
     mean = lambda xs: sum(xs) / len(xs)
     t, turns = None, []
-    for i, (bb, bs, bh, bkv, bd) in enumerate(FLASH_BWD_TIMED):
+    for i, (bb, bs, bskv, bh, bkv, bd, causal) in enumerate(
+            FLASH_BWD_TIMED):
         g_ = torch.Generator(device=dev).manual_seed(400 + i)
-        bq, bk_, bv, bdo = (torch.randn((bb, bs, n, bd), generator=g_,
+        bq, bk_, bv, bdo = (torch.randn((bb, n_s, n, bd), generator=g_,
                                         device=dev).bfloat16()
-                            for n in (bh, bkv, bkv, bh))
-        bo, blse = fa_ops._forward(bq, bk_, bv, True, with_lse=True)
+                            for n_s, n in ((bs, bh), (bskv, bkv),
+                                           (bskv, bkv), (bs, bh)))
+        bo, blse = fa_ops._forward(bq, bk_, bv, causal, with_lse=True)
         k5_bwd = lambda: fa_ops.flash_attention_bwd(
-            bq, bk_, bv, bo, bdo, blse, causal=True)
-        bflop = 2.5 * 4 * bb * bs * (bs + 1) // 2 * bh * bd
-        bbytes = (2 * 2 * (3 * bb * bs * bh * bd + 2 * bb * bs * bkv * bd)
-                  - 2 * bb * bs * bh * bd + 4 * bb * bh * bs)
+            bq, bk_, bv, bo, bdo, blse, causal=causal)
+        bbytes, bflop = flash_bwd_work(bb, bs, bskv, bh, bkv, bd, causal)
         bq_t, bk_t, bv_t = (x.transpose(1, 2).contiguous().requires_grad_()
                             for x in (bq, bk_, bv))
         bdo_t = bdo.transpose(1, 2).contiguous()
         sdpa_f = lambda: F.scaled_dot_product_attention(
-            bq_t, bk_t, bv_t, is_causal=True, enable_gqa=True)
+            bq_t, bk_t, bv_t, is_causal=causal, enable_gqa=True)
         sdpa_fb = lambda: torch.autograd.grad(sdpa_f(), (bq_t, bk_t, bv_t),
                                               bdo_t)
         ev = {"k5": [], "sdpa_fwd_bwd": [], "sdpa_fwd": []}
@@ -1496,14 +1592,18 @@ def flash_bwd_timing(dev) -> dict:
         lib_dev = device_total_ms(sdpa_fb) - device_total_ms(sdpa_f)
         lib_ms = mean(ev["sdpa_fwd_bwd"]) - mean(ev["sdpa_fwd"])
         bound = bound_ms(bbytes, bflop, TC_BF16_OPS_PER_S)
-        shape = (bb, bs, bh, bkv, bd)
-        turn = {"shape": shape, "events_ms": ev, "device_ms": bdev,
+        plain = event_ms(lambda: fa_ref.flash_attention_bwd_ref(
+            bq, bk_, bv, bo, bdo, blse, causal), 3, warmup=1)
+        shape = (bb, bs, bskv, bh, bkv, bd)
+        turn = {"shape": shape, "causal": causal, "events_ms": ev,
+                "device_ms": bdev, "plain_ms": plain,
                 "device_split_ms": split, "bound_ms": bound[0],
                 "sdpa_bwd_ms": lib_ms, "sdpa_bwd_device_ms": lib_dev,
                 "tflops": bflop / bdev / 1e9, "flop": bflop}
         turns.append(turn)
-        log(f"[time] flash_attention_bwd ((B, S, H, Hkv, D) = {shape} bf16, "
-            f"causal): {mean(ev['k5']):.5f} ms a call (events, turns "
+        log(f"[time] flash_attention_bwd ((B, S, Skv, H, Hkv, D) = {shape} "
+            f"bf16, causal={causal}): {mean(ev['k5']):.5f} ms a call "
+            f"(events, turns "
             f"{ev['k5']}), device {bdev:.5f} ms ({bflop / bdev / 1e9:.1f} "
             f"TFLOP/s, {bound[0] / bdev * 100:.2f} % of its {bound[0]:.7f} "
             f"ms bound, {bound[1]}: {bflop / 1e9:.1f} GFLOP; dQ "
@@ -1513,7 +1613,7 @@ def flash_bwd_timing(dev) -> dict:
             f"- fwd) {lib_ms:.5f} ms (turns {ev['sdpa_fwd_bwd']} - "
             f"{ev['sdpa_fwd']}), device {lib_dev:.5f} ms; K5 / SDPA "
             f"{mean(ev['k5']) / lib_ms:.3f} (events), {bdev / lib_dev:.3f} "
-            f"(device)")
+            f"(device); plain {plain:.3f} ms")
         if i == 0:
             t = dict(
                 name="flash_attention_bwd", kernel="flash_bwd",
@@ -1521,13 +1621,9 @@ def flash_bwd_timing(dev) -> dict:
                 replaces="none (no Pallas entry: the JAX package "
                          "differentiates attn_naive, "
                          "src/repro/models/layers.py:172)",
-                ms=mean(ev["k5"]),
-                plain_ms=event_ms(lambda: fa_ref.flash_attention_bwd_ref(
-                    bq, bk_, bv, bo, bdo, blse, True), 3, warmup=1),
-                library_ms=lib_ms, device_ms=bdev, bound=bound,
-                shape=f"(B, S, H, Hkv, D) = {shape} bf16, causal")
-            log(f"[time] flash_attention_bwd {t['shape']}: plain "
-                f"{t['plain_ms']:.3f} ms")
+                ms=mean(ev["k5"]), plain_ms=plain, library_ms=lib_ms,
+                device_ms=bdev, bound=bound,
+                shape=f"(B, S, Skv, H, Hkv, D) = {shape} bf16, causal")
         del bq, bk_, bv, bdo, bo, blse, bq_t, bk_t, bv_t, bdo_t, k5_bwd
         del sdpa_f, sdpa_fb
         torch.cuda.empty_cache()
@@ -1608,133 +1704,329 @@ def flash_bwd_checks(dev, cases=FLASH_BWD_CASES) -> dict:
     return out
 
 
-def _train_full_width(dev, cfg, tcfg, batches, counts, zero_counts,
-                      path_launches, *, seed, seq, batch, steps) -> dict:
-    """Phase 16 (a): a warm-up step, ``steps`` timed steps and a profiled
-    one; then a second run of 2 steps from the same seed, bit for bit."""
+def _words_sum(tensors, chunk: int = 1 << 26) -> torch.Tensor:
+    """The sum of every tensor's raw 16- or 32-bit words as int64 (in
+    slices of ``chunk`` words), one entry a tensor, on their device: a step
+    that changes any element changes its entry (barring an exact
+    cancellation)."""
+    out = []
+    for t in tensors:
+        t = t.detach()
+        words = t.view(torch.int16 if t.element_size() == 2
+                       else torch.int32).reshape(-1)
+        out.append(torch.stack([
+            words[i:i + chunk].sum(dtype=torch.int64)
+            for i in range(0, words.numel(), chunk)]).sum())
+    return torch.stack(out)
+
+
+def _jax_order_flags(params, flags) -> list:
+    """Per-tensor flags (in ``tree_leaves`` order) gathered per JAX leaf
+    (all of its layers' flags true), in the JAX flatten order."""
+    from repro_torch.models.lm import jax_leaves, tree_leaves
+    pos = {id(t): i for i, t in enumerate(tree_leaves(params))}
+    flags = flags.cpu().tolist()
+    return [all(flags[pos[id(t)]] for t in group)
+            for group in jax_leaves(params)]
+
+
+def _drop_recorder(real, sink):
+    """``moe_mlp`` that records each call's routed and dropped assignments
+    (a dict of its own) into the list ``sink()`` returns."""
+    def call(*a, **kw):
+        st = {}
+        out = real(*a, **kw, stats=st)
+        sink().append(st)
+        return out
+    return call
+
+
+def _drop_shares(calls: list, n_layers: int) -> dict:
+    """Routed and dropped assignments over ``moe_mlp`` calls recorded in
+    layer order (call i at layer i % ``n_layers``): the totals, the share
+    dropped and each layer's share."""
+    a = [c["assignments"] for c in calls]
+    d = [int(c["dropped"]) for c in calls]
+    return {"assignments": sum(a), "dropped": sum(d),
+            "share": sum(d) / sum(a) if a else None,
+            "per_layer": [sum(d[i::n_layers]) / sum(a[i::n_layers])
+                          for i in range(min(n_layers, len(a)))]}
+
+
+def _alloc_counts(cuda: bool) -> tuple:
+    """The caching allocator's device allocations (cudaMalloc) and its
+    retries after freeing its cache, so far."""
+    if not cuda:
+        return 0, 0
+    st = torch.cuda.memory_stats()
+    return st.get("num_device_alloc", 0), st.get("num_alloc_retries", 0)
+
+
+def _train_full_width(dev, arch, layers, enc_layers, counts, zero_counts,
+                      path_launches, *, key, tag, seed, seq, batch, steps,
+                      smoke=False) -> dict:
+    """Phases 16 (a) and 21 (a): ``arch`` at full width (the smoke config
+    with ``smoke``), bf16, cut to ``layers`` (+ ``enc_layers``) layers,
+    built by ``launch.train.build`` with the port's pipeline. MoE: an
+    untimed forward of the first batch counts each layer's routed and
+    dropped assignments. Then a warm-up step, ``steps`` timed steps and a
+    profiled one, every step under a recorder of each gradient leaf's
+    finiteness (a wrapper of ``train_step.value_and_grad``), with the
+    allocator's device allocations and retries and the garbage
+    collector's pauses counted a step. Every step's ``skipped`` equals
+    "some gradient or the loss non-finite"; a skipped step leaves params
+    and moments as they were (their words' sums each step; bit for bit
+    against a host copy when every step skipped); dense, moe and encdec:
+    every loss finite, every microbatch endorsed. K5's forward and
+    backward launched ``lm.attention_calls`` times a timed step (counters
+    set to 0 before the timed steps, read after, into
+    ``path_launches[key]``). Then a second run of 2 steps from the same
+    seed, equal bit for bit to the first run's state after 2."""
+    import gc
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models.lm import LM, tree_leaves
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train
+    from repro_torch.models import moe
+    from repro_torch.models.lm import (LM, _jax_paths, attention_calls,
+                                       tree_leaves)
     from repro_torch.training import train_step as ts_lib
     cuda = torch.device(dev).type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    layers = cfg.n_layers
+    cfg, built, tcfg, dcfg = train.build(arch, smoke=smoke, seq=seq,
+                                         batch=batch, microbatches=1,
+                                         lr=1e-3, total_steps=100,
+                                         device=dev)
+    cut = dict(n_layers=layers, dtype="bfloat16")
+    if cfg.family == "encdec":
+        cut["enc_layers"] = enc_layers
+    cfg = dataclasses.replace(cfg, **cut)
 
     def fresh():
-        model = LM(cfg, vocab_chunk=min(seq, 128), device=dev)
+        model = LM(cfg, vocab_chunk=built.vocab_chunk,
+                   moe_capacity_factor=built.moe_cf, device=dev)
         state = ts_lib.init_state(model, torch.Generator(dev).manual_seed(
             seed))
-        return state, ts_lib.make_train_step(model, tcfg)
+        return model, state, ts_lib.make_train_step(model, tcfg)
 
-    state, step_fn = fresh()
+    t1 = time.perf_counter()
+    model, state, step_fn = fresh()
+    sync()
+    init_s = time.perf_counter() - t1
     n_params = sum(t.numel() for t in tree_leaves(state.params))
+    batches = [train.device_batch(pipeline.global_batch_for_step(dcfg, i),
+                                  dev) for i in range(steps + 2)]
+    per_step = attention_calls(cfg)
+    names = ["/".join(p) for p in _jax_paths(state.params)]
+    kept = [t for g in ts_lib.state_leaves(state)[:-1] for t in g]
+    kept = [t for t in kept if t.is_floating_point()]  # params, m, v
+    drops = None
+    if cfg.family == "moe":  # the warm-up step's forward, untimed
+        calls, real_moe = [], moe.moe_mlp
+        moe.moe_mlp = _drop_recorder(real_moe, lambda: calls)
+        try:
+            with torch.no_grad():
+                model.loss(batches[0])
+        finally:
+            moe.moe_mlp = real_moe
+        drops = _drop_shares(calls, cfg.n_layers)
+        del calls
+    records = []
+    real_vg = ts_lib.value_and_grad
+
+    def recording_vg(model_, params, batch_):
+        loss, metrics, grads = real_vg(model_, params, batch_)
+        fin = torch.stack([torch.isfinite(g).all() for g in grads])
+        records.append((torch.isfinite(loss), fin))
+        return loss, metrics, grads
+
+    gc_pause, gc_at = [0.0], [0.0]
+
+    def gc_timer(phase, info):
+        if phase == "start":
+            gc_at[0] = time.perf_counter()
+        else:
+            gc_pause[0] += time.perf_counter() - gc_at[0]
+
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    losses, step_s, after2 = [], [], None
-    for i in range(steps + 1):  # a warm-up step, then the timed ones
-        if i == 1:
+    rows, step_s, host, after2 = [], [], None, None
+    gc.collect()
+    gc.callbacks.append(gc_timer)
+    ts_lib.value_and_grad = recording_vg
+    try:
+        for i in range(steps + 2):  # warm-up, timed steps, profiled step
+            if i == 1:
+                sync()
+                zero_counts()
+            before = _words_sum(kept)
+            if i == steps + 1:
+                got = counts()
+                prof = profile(activities=[ProfilerActivity.CPU] + (
+                    [ProfilerActivity.CUDA] if cuda else []))
+                prof.__enter__()
+            allocs, gc_pause[0] = _alloc_counts(cuda), 0.0
+            t1 = time.perf_counter()
+            state, m = step_fn(state, batches[i])
             sync()
-            zero_counts()
-        t1 = time.perf_counter()
-        state, m = step_fn(state, batches[i])
-        sync()
-        if i:
-            step_s.append(time.perf_counter() - t1)
-        losses.append(float(m["loss"]))
-        if not (math.isfinite(losses[-1])
-                and float(m["endorsed_mb"]) == tcfg.microbatches
-                and int(m["skipped"]) == 0):
-            raise AssertionError(f"training step {i}: loss {losses[-1]}, "
-                                 f"endorsed {float(m['endorsed_mb'])}, "
-                                 f"skipped {int(m['skipped'])}")
-        if i == 1:
-            after2 = _state_to_host(state)
-    got = counts()
-    path_launches["training"] = got
-    if (got["flash_attention"] != layers * steps
-            or got["flash_attention_bwd"] != layers * steps):
-        raise AssertionError(f"training: K5 launches {got}, want {layers} "
-                             f"forward and backward a step")
+            dt = time.perf_counter() - t1
+            allocs = [b - a for a, b in zip(allocs, _alloc_counts(cuda))]
+            if i == steps + 1:
+                prof.__exit__(None, None, None)
+                wall = dt
+            elif i:
+                step_s.append(dt)
+            loss_ok, fin = records[-1]
+            grads_ok = bool(fin.all())
+            skipped = int(m["skipped"])
+            same = bool(torch.equal(before, _words_sum(kept)))
+            row = {"loss": float(m["loss"]), "skipped": skipped,
+                   "endorsed_mb": float(m["endorsed_mb"]),
+                   "loss_finite": bool(loss_ok), "grads_finite": grads_ok,
+                   "nonfinite_leaves": [n for n, ok in zip(
+                       names, _jax_order_flags(state.params, fin)) if not ok],
+                   "state_unchanged": same, "ms": dt * 1e3,
+                   "device_allocs": allocs[0], "alloc_retries": allocs[1],
+                   "gc_ms": gc_pause[0] * 1e3}
+            rows.append(row)
+            if skipped != int(not (grads_ok and bool(loss_ok))):
+                raise AssertionError(f"{arch} step {i}: skipped {skipped}, "
+                                     f"but loss finite {bool(loss_ok)} and "
+                                     f"gradients finite {grads_ok}")
+            if skipped and not same:
+                raise AssertionError(f"{arch} step {i} skipped but changed "
+                                     f"params or moments")
+            if cfg.family in ("dense", "moe", "encdec") and not (
+                    math.isfinite(row["loss"]) and not skipped
+                    and row["endorsed_mb"] == tcfg.microbatches):
+                raise AssertionError(f"{arch} step {i}: {row}")
+            if i == 0 and skipped:  # the fresh draw, kept as it was
+                host = [t.detach().to("cpu", copy=True) for t in kept]
+            if i == 1:
+                after2 = _state_to_host(state)
+    finally:
+        ts_lib.value_and_grad = real_vg
+        gc.callbacks.remove(gc_timer)
+    if all(r["skipped"] for r in rows):
+        # Every step skipped, the warm-up too: params and moments are still
+        # the fresh draw, bit for bit.
+        if not all(torch.equal(t.detach().cpu(), h)
+                   for t, h in zip(kept, host)):
+            raise AssertionError(f"{arch}: skipped steps changed the state")
+    del host
+    path_launches[key] = got
+    if (got["flash_attention"] != per_step * steps
+            or got["flash_attention_bwd"] != per_step * steps):
+        raise AssertionError(f"{arch} training: K5 launches {got}, want "
+                             f"{per_step} forward and backward a step")
     peak = torch.cuda.max_memory_allocated() if cuda else None
-    # One more step under the profiler: the device's busy share.
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-    t1 = time.perf_counter()
-    with profile(activities=acts) as prof:
-        state, m = step_fn(state, batches[steps + 1])
-        sync()
-    wall = time.perf_counter() - t1
     evs = _device_events(prof)
     busy = sum(ev.self_device_time_total for ev in evs) / 1e6
-    # K5's backward kernels (delta, dQ, dK/dV) in the profiled step.
+    k5 = sum(ev.self_device_time_total for ev in evs
+             if "flash_" in ev.key) / 1e6
     k5_bwd = sum(ev.self_device_time_total for ev in evs
                  if "flash_bwd" in ev.key) / 1e6
-    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
+    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:6]
     med = sorted(step_s)[len(step_s) // 2]
-    out = {"config": cfg.name, "layers": layers, "dtype": cfg.dtype,
-           "params": n_params, "seq": seq, "batch": batch,
-           "tokens_per_step": batch * seq, "losses": losses,
-           "step_s": step_s, "median_step_ms": med * 1e3,
-           "tokens_per_s": batch * seq * len(step_s) / sum(step_s),
-           "peak_bytes": peak, "launches": got,
+    tokens = batch * seq
+    endorsed = sum(1 for r in rows if not r["skipped"])
+    out = {"config": cfg.name, "family": cfg.family, "layers": layers,
+           "enc_layers": cfg.enc_layers, "dtype": cfg.dtype,
+           "params": n_params, "init_s": init_s, "seq": seq, "batch": batch,
+           "enc_len": seq // dcfg.enc_frac if dcfg.enc_frac else 0,
+           "tokens_per_step": tokens, "steps": rows, "step_s": step_s,
+           "median_step_ms": med * 1e3,
+           "tokens_per_s": tokens * len(step_s) / sum(step_s),
+           "peak_bytes": peak, "launches": got, "k5_per_step": per_step,
+           "endorsed_share": endorsed / len(rows), "moe_drops": drops,
            "profiled_step": {
                "wall_s": wall, "device_busy_s": busy,
                "busy_share": busy / wall, "busy_of_median": busy / med,
-               "k5_bwd_s": k5_bwd, "k5_bwd_share_of_busy": k5_bwd / busy
-               if busy else None,
+               "k5_s": k5, "k5_bwd_s": k5_bwd,
                "device_ops": sum(e.count for e in evs),
                "top": [(e.key[:70], e.self_device_time_total / 1e3, e.count)
                        for e in top]}}
-    log(f"[train] {cfg.name} at {layers} layers, {n_params} parameters, "
-        f"{cfg.dtype}, batch {batch} x {seq}: losses {losses}; steps "
-        f"{[round(x * 1e3, 3) for x in step_s]} ms, median "
-        f"{med * 1e3:.3f} ms, {out['tokens_per_s']:.1f} tokens/s; peak "
-        f"device memory {(peak or 0) / 2**30:.3f} GiB; K5 "
-        f"{got['flash_attention']} forward, {got['flash_attention_bwd']} "
-        f"backward launches over {steps} steps")
-    log(f"[train] profiled step: {wall:.4f} s, device busy {busy:.4f} s "
-        f"({busy / wall * 100:.2f} % of it, {busy / med * 100:.2f} % of "
-        f"the median unprofiled step) over "
-        f"{out['profiled_step']['device_ops']} device ops; K5's backward "
-        f"{k5_bwd * 1e3:.4f} ms of it ("
-        f"{k5_bwd / busy * 100 if busy else 0:.3f} % of the busy time)")
+    enc = (f" + {cfg.enc_layers} encoder layers over {batch} x "
+           f"{out['enc_len']} frames" if cfg.enc_layers else "")
+    log(f"[{tag}] {cfg.name} at {layers} layers{enc}, {n_params} "
+        f"parameters (drawn in {init_s:.2f} s), bf16, batch {batch} x "
+        f"{seq}: losses {[round(r['loss'], 4) for r in rows]}; steps "
+        f"{[round(x * 1e3, 3) for x in step_s]} ms, median {med * 1e3:.3f} "
+        f"ms, {out['tokens_per_s']:.1f} tokens/s; peak device memory "
+        f"{(peak or 0) / 2**30:.3f} GiB; K5 {got['flash_attention']} "
+        f"forward, {got['flash_attention_bwd']} backward launches over "
+        f"{steps} steps ({per_step} a step); endorsed {endorsed} of "
+        f"{len(rows)} steps")
+    log(f"[{tag}] {cfg.name} each step (warm-up, timed, profiled): ms "
+        f"{[round(r['ms'], 3) for r in rows]}; device allocations "
+        f"{[r['device_allocs'] for r in rows]}; allocator retries "
+        f"{[r['alloc_retries'] for r in rows]}; garbage-collector pauses ms "
+        f"{[round(r['gc_ms'], 3) for r in rows]}")
+    if drops:
+        log(f"[{tag}] {cfg.name}: the first batch's forward dropped "
+            f"{drops['share'] * 100:.3f} % of {drops['assignments']} routed "
+            f"assignments; by layer "
+            f"{[round(x * 100, 3) for x in drops['per_layer']]} %")
+    if endorsed < len(rows):
+        log(f"[{tag}] {cfg.name}: skipped steps' non-finite leaves "
+            f"{rows[0]['nonfinite_leaves']} (loss finite "
+            f"{rows[0]['loss_finite']}); params and moments unchanged")
+    log(f"[{tag}] {cfg.name} profiled step: {wall:.4f} s, device busy "
+        f"{busy:.4f} s ({busy / wall * 100:.2f} % of it, "
+        f"{busy / med * 100:.2f} % of the median step) over "
+        f"{out['profiled_step']['device_ops']} device ops; K5 "
+        f"{k5 * 1e3:.4f} ms of it (backward {k5_bwd * 1e3:.4f})")
     for e in top:
-        log(f"[train]   {e.self_device_time_total / 1e3:10.3f} ms "
+        log(f"[{tag}]   {e.self_device_time_total / 1e3:10.3f} ms "
             f"{e.count:6d}x {e.key[:90]}")
-    del state, step_fn, m, prof, evs, top
+    del state, step_fn, model, kept, records, prof, evs, top
     if cuda:
         torch.cuda.empty_cache()
     # The same seed again, 2 steps: bit for bit the first run's.
-    state, step_fn = fresh()
+    model, state, step_fn = fresh()
     for i in range(2):
         state, _ = step_fn(state, batches[i])
     sync()
-    if not _same_state(state, after2):
-        raise AssertionError("training: a second run of 2 steps from the "
-                             "same seed differs")
-    del state, step_fn, after2
+    out["repeat_identical"] = _same_state(state, after2)
+    log(f"[{tag}] {cfg.name}: a second run of 2 steps from the same seed "
+        f"bit-identical {out['repeat_identical']}")
+    if not out["repeat_identical"]:
+        raise AssertionError(f"{arch}: a second run of 2 steps from the "
+                             f"same seed differs")
+    del model, state, step_fn, after2, batches
     if cuda:
         torch.cuda.empty_cache()
     return out
 
 
-def _train_card_vs_cpu(dev, cfg, counts, zero_counts, *, seed,
-                       check_seq) -> dict:
-    """Phase 16 (b): ``cfg`` at 1 layer, f32, batch 1 x ``check_seq``: one
-    step's loss, gradient norm and gradients, card against CPU."""
+def _grads_card_vs_cpu(dev, arch, counts, zero_counts, *, seed, seq,
+                       smoke=False, cut=None, tag: str) -> dict:
+    """Phases 16 (b) and 21 (b): ``arch`` (its smoke config with
+    ``smoke``) as ``launch.train.build`` makes it, with ``cut`` applied,
+    f32, drawn on ``dev`` from ``seed`` and copied to the CPU; one loss and
+    gradient of the pipeline's batch 1 x ``seq`` on each (TF32 off): the
+    same set of non-finite leaves, the finite ones within GRAD_TOL of each
+    leaf's largest magnitude on the CPU, the loss (and, every leaf finite,
+    the gradient norm) within TRAIN_LOSS_TOL; on the card K5 forward and
+    backward ``lm.attention_calls`` times."""
     from repro_torch.data import pipeline
     from repro_torch.launch import train
-    from repro_torch.models.lm import (LM, jax_leaves, map_tree,
-                                       tree_leaves, tree_unflatten)
+    from repro_torch.models.lm import (LM, _jax_paths, attention_calls,
+                                       jax_leaves, map_tree, tree_leaves,
+                                       tree_unflatten)
     from repro_torch.training import optimizer
     from repro_torch.training import train_step as ts_lib
     cuda = torch.device(dev).type == "cuda"
-    cfg1 = dataclasses.replace(cfg, n_layers=1, dtype="float32")
-    batch = pipeline.global_batch_for_step(pipeline.DataConfig(
-        vocab=cfg1.vocab, seq_len=check_seq, global_batch=1), 0)
-    chunk = min(check_seq, 128)
-    model_g = LM(cfg1, vocab_chunk=chunk, device=dev).init(
+    cfg, built, _, dcfg = train.build(arch, smoke=smoke, seq=seq, batch=1,
+                                      microbatches=1, lr=1e-3,
+                                      total_steps=100, device=dev)
+    cfg = dataclasses.replace(cfg, dtype="float32", **(cut or {}))
+    batch = pipeline.global_batch_for_step(dcfg, 0)
+    kw = dict(vocab_chunk=built.vocab_chunk, moe_capacity_factor=built.moe_cf)
+    model_g = LM(cfg, device=dev, **kw).init(
         torch.Generator(dev).manual_seed(seed))
-    model_c = LM(cfg1, vocab_chunk=chunk, device="cpu").load_params(
+    model_c = LM(cfg, device="cpu", **kw).load_params(
         map_tree(lambda t: t.detach().cpu(), model_g.params.tree()))
+    names = ["/".join(p) for p in _jax_paths(model_c.params.tree())]
     res = {}
     for where, model, d_ in (("card", model_g, dev), ("cpu", model_c, "cpu")):
         model.params.requires_grad_(True)
@@ -1742,53 +2034,72 @@ def _train_card_vs_cpu(dev, cfg, counts, zero_counts, *, seed,
         zero_counts()
         loss, _, grads = ts_lib.value_and_grad(
             model, params, train.device_batch(batch, d_))
+        tree = tree_unflatten(model.params.tree(), grads)
         res[where] = (float(loss), float(optimizer.global_norm(grads)),
-                      tree_unflatten(model.params.tree(), grads),
-                      counts())
+                      [[g.detach().cpu() for g in group]
+                       for group in jax_leaves(tree)], counts())
     (lg, ng, gg, cg), (lc, nc, gc, _) = res["card"], res["cpu"]
+    bad = {w: [n for n, group in zip(names, g)
+               if not all(bool(torch.isfinite(x).all()) for x in group)]
+           for w, g in (("card", gg), ("cpu", gc))}
     worst = 0.0
-    for grp_g, grp_c in zip(jax_leaves(gg), jax_leaves(gc)):
+    for n, grp_g, grp_c in zip(names, gg, gc):
+        if n in bad["cpu"]:
+            continue
         for a, w in zip(grp_g, grp_c):
             scale = float(w.abs().max()) or 1.0
-            worst = max(worst, float((a.cpu() - w).abs().max()) / scale)
-    out = {"loss": (lg, lc), "grad_norm": (ng, nc),
-           "worst_grad_share": worst, "grad_tol": GRAD_TOL,
-           "loss_tol": TRAIN_LOSS_TOL, "seq": check_seq, "launches": cg}
-    log(f"[train-check] {cfg1.name} 1 layer f32, batch 1 x {check_seq}: "
-        f"loss card {lg} / CPU {lc}, grad norm {ng} / {nc}; worst "
-        f"gradient difference {worst:.3e} of its leaf's largest magnitude "
-        f"(limit {GRAD_TOL}); K5 launches {cg}")
-    if not (abs(lg - lc) <= TRAIN_LOSS_TOL * abs(lc)
-            and abs(ng - nc) <= TRAIN_LOSS_TOL * abs(nc)
-            and worst <= GRAD_TOL) or (cuda and (
-                cg["flash_attention"] != 1
-                or cg["flash_attention_bwd"] != 1)):
-        raise AssertionError(f"training card against CPU: {out}")
+            worst = max(worst, float((a - w).abs().max()) / scale)
+    per_step = attention_calls(cfg)
+    out = {"config": cfg.name, "layers": cfg.n_layers,
+           "enc_layers": cfg.enc_layers, "seq": seq, "loss": (lg, lc),
+           "grad_norm": (ng, nc), "nonfinite": bad["cpu"],
+           "leaves": len(names), "worst_grad_share": worst,
+           "grad_tol": GRAD_TOL, "loss_tol": TRAIN_LOSS_TOL, "launches": cg}
+    log(f"[{tag}] {cfg.name} at {cfg.n_layers} layers"
+        f"{f' + {cfg.enc_layers}' if cfg.enc_layers else ''}, f32, batch 1 "
+        f"x {seq}: loss card {lg} / CPU {lc}, grad norm {ng} / {nc}; "
+        f"non-finite leaves card {len(bad['card'])} / CPU "
+        f"{len(bad['cpu'])} of {len(names)} {bad['cpu'] or ''}; worst "
+        f"finite gradient difference {worst:.3e} of its leaf's largest "
+        f"magnitude (limit {GRAD_TOL}); K5 launches "
+        f"{cg['flash_attention']} forward, {cg['flash_attention_bwd']} "
+        f"backward")
+    if not (bad["card"] == bad["cpu"] and worst <= GRAD_TOL
+            and abs(lg - lc) <= TRAIN_LOSS_TOL * abs(lc)
+            and (bad["cpu"] or abs(ng - nc) <= TRAIN_LOSS_TOL * abs(nc))
+            ) or (cuda and (cg["flash_attention"] != per_step
+                            or cg["flash_attention_bwd"] != per_step)):
+        raise AssertionError(f"{cfg.name} gradients card against CPU: {out}")
     del model_g, model_c, res, gg, gc
     if cuda:
         torch.cuda.empty_cache()
     return out
 
 
-def _train_restart(dev, *, seed) -> dict:
-    """Phase 16 (c): the smoke config in f32 and bf16, 6 steps straight
-    against 3 + a Checkpointer save + restore into a fresh state + 3."""
+def _train_restart(dev, *, seed, arch: str = TRAIN_ARCH,
+                   dtypes=("float32", "bfloat16"), tag: str = "train-check"
+                   ) -> dict:
+    """Phase 16 (c) (and 21 (c)): ``arch``'s smoke config in each of
+    ``dtypes``, built by ``launch.train.build``, 6 steps straight against 3
+    + a Checkpointer save + restore into a fresh state + 3."""
     from repro_torch.checkpoint.checkpointer import Checkpointer
     from repro_torch.data import pipeline
     from repro_torch.launch import train
     from repro_torch.models.lm import LM
     from repro_torch.training import train_step as ts_lib
     out = {}
-    for dtype in ("float32", "bfloat16"):
-        cfg, _, tcfg, dcfg = train.build(TRAIN_ARCH, smoke=True, seq=64,
-                                         batch=8, microbatches=1, lr=1e-3,
-                                         total_steps=10, device=dev)
+    for dtype in dtypes:
+        cfg, built, tcfg, dcfg = train.build(arch, smoke=True, seq=64,
+                                             batch=8, microbatches=1,
+                                             lr=1e-3, total_steps=10,
+                                             device=dev)
         cfg = dataclasses.replace(cfg, dtype=dtype)
         batches = [train.device_batch(pipeline.global_batch_for_step(
             dcfg, i), dev) for i in range(6)]
 
         def start():
-            model = LM(cfg, vocab_chunk=16, device=dev)
+            model = LM(cfg, vocab_chunk=16, moe_capacity_factor=built.moe_cf,
+                       device=dev)
             state = ts_lib.init_state(
                 model, torch.Generator(dev).manual_seed(seed))
             return state, ts_lib.make_train_step(model, tcfg)
@@ -1812,7 +2123,7 @@ def _train_restart(dev, *, seed) -> dict:
         same = _same_state(s_c, _state_to_host(s_a))
         out[dtype] = {"restored_at": at, "chain_ok": chain_ok,
                       "identical": same}
-        log(f"[train-check] restart {cfg.name} {dtype}: 6 steps straight "
+        log(f"[{tag}] restart {cfg.name} {dtype}: 6 steps straight "
             f"against 3 + save + restore (step {at}) + 3: identical "
             f"{same}, chain verified {chain_ok}")
         if not (same and chain_ok and at == 3):
@@ -1825,14 +2136,12 @@ def training_phase(dev, counts, zero_counts, path_launches, *,
                    seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
                    steps: int = TRAIN_STEPS, check_seq: int = TRAIN_CHECK_SEQ,
                    full: bool = True, flash_cases=FLASH_BWD_CASES) -> dict:
-    """Phase 16: LM training on the card. (a) Qwen2-7B at full width, bf16,
-    cut to ``layers`` layers, batches of the port's pipeline: a warm-up
-    step, ``steps`` timed steps and a profiled one; every loss finite,
-    every microbatch endorsed, K5's forward and backward launched once a
-    layer a step; a second run of 2 steps from the same seed bit-identical
-    to the first run's state after 2 steps. (b) The same width at 1 layer,
-    f32 (TF32 off), batch 1 at ``check_seq``: one step's loss, gradient
-    norm and gradients, card against CPU. (c) The smoke config, f32 and
+    """Phase 16: LM training on the card. (a) ``_train_full_width`` of
+    Qwen2-7B at full width, bf16, cut to ``layers`` layers: ``steps`` timed
+    steps, every loss finite, every microbatch endorsed, K5's forward and
+    backward launched once a layer a step, a second run of 2 steps from the
+    same seed bit-identical. (b) ``_grads_card_vs_cpu`` at the same width
+    cut to 1 layer, f32 (TF32 off), batch 1 at ``check_seq``. (c) The smoke config, f32 and
     bf16: 6 steps straight against 3 + a Checkpointer save + restore into
     a fresh state + 3, bit for bit, the chain verified. (a)-(c) run under
     torch's deterministic algorithms; then the embedding's backward is run
@@ -1843,12 +2152,6 @@ def training_phase(dev, counts, zero_counts, path_launches, *,
     from repro_torch.data import pipeline
     from repro_torch.launch import train
     cuda = torch.device(dev).type == "cuda"
-    cfg, _, tcfg, dcfg = train.build(TRAIN_ARCH, smoke=not full, seq=seq,
-                                     batch=batch, microbatches=1, lr=1e-3,
-                                     total_steps=100, device=dev)
-    cfg = dataclasses.replace(cfg, n_layers=layers)
-    batches = [train.device_batch(pipeline.global_batch_for_step(dcfg, i),
-                                  dev) for i in range(steps + 2)]
     out = {}
     # Every op of the steps on its deterministic implementation where torch
     # has one (the warnings name any that has none); cuBLAS's workspace was
@@ -1858,11 +2161,13 @@ def training_phase(dev, counts, zero_counts, path_launches, *,
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             out["full_width"] = _train_full_width(
-                dev, cfg, tcfg, batches, counts, zero_counts, path_launches,
-                seed=seed, seq=seq, batch=batch, steps=steps)
-            out["card_vs_cpu"] = _train_card_vs_cpu(
-                dev, cfg, counts, zero_counts, seed=seed,
-                check_seq=check_seq)
+                dev, TRAIN_ARCH, layers, 0, counts, zero_counts,
+                path_launches, key="training", tag="train", seed=seed,
+                seq=seq, batch=batch, steps=steps, smoke=not full)
+            out["card_vs_cpu"] = _grads_card_vs_cpu(
+                dev, TRAIN_ARCH, counts, zero_counts, seed=seed,
+                seq=check_seq, smoke=not full, cut={"n_layers": 1},
+                tag="train-check")
             out["restart"] = _train_restart(dev, seed=seed)
         out["nondeterministic_warnings"] = sorted(
             {str(w.message)[:200] for w in caught
@@ -1876,10 +2181,14 @@ def training_phase(dev, counts, zero_counts, path_launches, *,
     # into shared rows is the embedding's backward (an index_put_ with
     # accumulate over repeated tokens): run it twice with the flag off.
     if cuda:
+        cfg, _, _, dcfg = train.build(TRAIN_ARCH, smoke=not full, seq=seq,
+                                      batch=batch, microbatches=1, lr=1e-3,
+                                      total_steps=100, device=dev)
         g_ = torch.Generator(dev).manual_seed(seed)
         table = torch.randn((cfg.vocab_padded, cfg.d_model), generator=g_,
                             device=dev).to(cfg.torch_dtype).requires_grad_()
-        toks = batches[0].tokens.long()
+        toks = train.device_batch(pipeline.global_batch_for_step(dcfg, 0),
+                                  dev).tokens.long()
         gy = torch.randn((*toks.shape, cfg.d_model), generator=g_,
                          device=dev).to(cfg.torch_dtype)
         emb = [torch.autograd.grad(table[toks], table, gy)[0]
@@ -2254,8 +2563,9 @@ def moe_serving_phase(dev, counts, zero_counts, path_launches, *,
     path_launches["moe_serving"] = out["launches"]
     # The drop shares, from an untimed replay (the timed run called
     # moe_mlp plain): every moe_mlp call of a prefill or a decode step
-    # adds its routed and dropped assignments to that kind's stats.
-    stats, kind, moe_mlp = {"prefill": {}, "decode": {}}, [None], moe.moe_mlp
+    # records its routed and dropped assignments under that kind, one
+    # call a layer in layer order.
+    calls, kind, moe_mlp = {"prefill": [], "decode": []}, [None], moe.moe_mlp
     replay = ServeEngine(model, slots=slots, max_len=max_len)
 
     def tagged(fn, what):
@@ -2267,7 +2577,7 @@ def moe_serving_phase(dev, counts, zero_counts, path_launches, *,
     replay.prefill_fn = tagged(replay.prefill_fn, "prefill")
     replay.decode_fn = tagged(replay.decode_fn, "decode")
     again = [Request(rid=r.rid, prompt=r.prompt, max_new=new) for r in reqs]
-    moe.moe_mlp = lambda *a, **kw: moe_mlp(*a, stats=stats[kind[0]], **kw)
+    moe.moe_mlp = _drop_recorder(moe_mlp, lambda: calls[kind[0]])
     try:
         replay.run(again)
     finally:
@@ -2276,10 +2586,8 @@ def moe_serving_phase(dev, counts, zero_counts, path_launches, *,
         raise AssertionError("moe serving: the untimed replay's tokens "
                              "differ from the timed run's")
     del replay
-    drops = {kind: {"assignments": st["assignments"],
-                    "dropped": int(st["dropped"]),
-                    "share": int(st["dropped"]) / st["assignments"]}
-             for kind, st in stats.items()}
+    drops = {kind: _drop_shares(c, cfg.n_layers)
+             for kind, c in calls.items()}
     # The longest prompt's prefill twice: bit for bit. The first records
     # each layer's busiest expert (its share of the layer's assignments).
     longest = max(reqs, key=lambda r: len(r.prompt))
@@ -2327,6 +2635,10 @@ def moe_serving_phase(dev, counts, zero_counts, path_launches, *,
         f"{busiest.min() * 100:.2f}-{busiest.max() * 100:.2f} % (median "
         f"{busiest.median() * 100:.2f} %) of their assignments, capacity "
         f"{drops['busiest_expert_share']['capacity_share'] * 100:.2f} %")
+    log(f"[moe-serve] prefill's dropped share by layer "
+        f"{[round(x * 100, 3) for x in drops['prefill']['per_layer']]} %; "
+        f"decode's {[round(x * 100, 3) for x in drops['decode']['per_layer']]}"
+        f" %")
     if cuda:
         out["profile"] = serve_profile(model, eng, longest.prompt,
                                        "moe-serve-profile")
@@ -2659,6 +2971,58 @@ def encdec_phase(dev, counts, zero_counts, path_launches, *, seed: int = 0,
         tag="encdec-check", seed=seed, prompts=check_prompts,
         frames=check_frames, new=check_new, cache_tol=ENCDEC_CACHE_TOL,
         cache_scaled=True)
+    return out
+
+
+def family_training_phase(dev, counts, zero_counts, path_launches, *,
+                          seed: int = 0, families=FAMILY_TRAIN,
+                          seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
+                          steps: int = FAMILY_TRAIN_STEPS,
+                          check_seq: int = FAMILY_CHECK_SEQ,
+                          smoke_seq: int = FAMILY_SMOKE_SEQ,
+                          full: bool = True) -> dict:
+    """Phase 21: training the moe, ssm, hybrid and encdec families on the
+    card, under torch's deterministic algorithms (strict, as
+    ``launch.train`` sets them; cuBLAS's workspace fixed at start). For
+    each of ``families`` ((arch, layers, encoder layers)): (a)
+    ``_train_full_width``; (b) ``_grads_card_vs_cpu`` at the
+    published width cut to 1 layer (hybrid: 1 group; encdec: 1 + 1) at
+    ``check_seq`` and at the smoke config at ``smoke_seq`` (every leaf
+    finite there); (c) ``_train_restart`` of the smoke config in bf16.
+    ``full=False`` runs (a) and (b)'s first part at the smoke configs (a
+    rehearsal on the CPU)."""
+    from repro_torch.configs import base as cfg_base
+    out = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for arch, layers, enc_layers in families:
+            fam = {}
+            base = cfg_base.get(arch) if full else cfg_base.get_smoke(arch)
+            fam["full_width"] = _train_full_width(
+                dev, arch, layers, enc_layers, counts, zero_counts,
+                path_launches, key=f"train_{base.family}",
+                tag="family-train", seed=seed, seq=seq, batch=batch,
+                steps=steps, smoke=not full)
+            one = dict(n_layers=1)
+            if base.family == "hybrid":
+                one["n_layers"] = base.attn_every
+            if base.family == "encdec":
+                one["enc_layers"] = 1
+            fam["published_vs_cpu"] = _grads_card_vs_cpu(
+                dev, arch, counts, zero_counts, seed=seed, seq=check_seq,
+                smoke=not full, cut=one, tag="family-check")
+            fam["smoke_vs_cpu"] = _grads_card_vs_cpu(
+                dev, arch, counts, zero_counts, seed=seed, seq=smoke_seq,
+                smoke=True, tag="family-check")
+            if fam["smoke_vs_cpu"]["nonfinite"]:
+                raise AssertionError(f"{arch} smoke gradients non-finite at "
+                                     f"S = {smoke_seq}")
+            fam["restart"] = _train_restart(dev, seed=seed, arch=arch,
+                                            dtypes=("bfloat16",),
+                                            tag="family-check")
+            out[base.family] = fam
+    finally:
+        torch.use_deterministic_algorithms(False)
     return out
 
 
@@ -4320,6 +4684,14 @@ def main(argv=None) -> int:
     encdec["card"] = card
     phase_done("20 encdec", t0)
 
+    # -- 21. training the moe, ssm, hybrid and encdec families --------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    family_training = family_training_phase(dev, counts, zero_counts,
+                                            path_launches, seed=args.seed)
+    family_training["card"] = card
+    phase_done("21 family training", t0)
+
     kernels = [{
         "name": t["name"], "route": "cuda", "source": t["source"],
         "replaces": t["replaces"],
@@ -4346,6 +4718,7 @@ def main(argv=None) -> int:
     log(json.dumps({"ssm": ssm_run}, default=str))
     log(json.dumps({"hybrid": hybrid}, default=str))
     log(json.dumps({"encdec": encdec}, default=str))
+    log(json.dumps({"family_training": family_training}, default=str))
     log(json.dumps({"phase_s": phase_s,
                     "total_s": time.perf_counter() - t_start}))
     log(card)

@@ -14,9 +14,14 @@ Files are the JAX package's: ``step_XXXXXXXX/arrays.npz`` (``leaf_i``, in
 the JAX flatten order of ``TrainState``: params, ``opt.step``, ``opt.m``,
 ``opt.v``, ``ledger_head``, per-layer leaves stacked on a leading layer
 axis) and ``manifest.json``, published by one atomic rename; the newest
-``keep`` are kept. So each package restores the other's directories (f32
-states). A bf16 leaf is saved as its raw 16-bit words (uint16) with
-``"bfloat16"`` in ``dtypes``; the port restores it bit-exactly.
+``keep`` are kept. So each package restores the other's directories. A
+bf16 leaf is written as f32, which holds it exactly, with ``"bfloat16"``
+in ``dtypes``: the JAX package's restore (``astype`` to the leaf's dtype)
+reads it back bit for bit, where it would read raw 16-bit words as
+integers. The port also restores a bf16 leaf saved as 16-bit words: the
+JAX package's own bf16 files (numpy keeps them as 2-byte voids, which the
+JAX restore cannot cast) and the port's older ones (uint16). The leaves
+the model keeps f32 (``models.lm.F32_LEAVES``) and the moments stay f32.
 
 ``restore`` writes into the tensors of the state it is given (the model
 holds the params), where the JAX package returns new arrays.
@@ -70,20 +75,21 @@ def _chain(prev: int, step: int, digests: list[int]) -> int:
 
 def _to_host(group: list[torch.Tensor], u32_words: bool) -> np.ndarray:
     """One JAX leaf as numpy: a group of one tensor as it is, of several
-    stacked; bf16 as its raw uint16 words, u32 words as uint32."""
+    stacked; bf16 as f32 (exact), u32 words as uint32."""
     t = (group[0].detach().to("cpu", copy=True) if len(group) == 1 else
          torch.stack([x.detach() for x in group]).cpu())  # a copy: the
     # state changes in place while the writer thread hashes
     if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(np.uint16)
+        return t.float().numpy()
     return u32.to_numpy(t) if u32_words else t.numpy()
 
 
 def _to_tensor(arr: np.ndarray, dtype_name: str, like: torch.Tensor
                ) -> torch.Tensor:
     """A saved leaf (or one layer of it) as a CPU tensor of ``like``'s
-    dtype: raw bf16 words reinterpreted, anything else converted."""
-    if dtype_name == "bfloat16":
+    dtype: bf16 saved as 16-bit words reinterpreted, anything else (bf16
+    saved as f32 included) converted."""
+    if dtype_name == "bfloat16" and arr.dtype.itemsize == 2:
         t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(
             torch.bfloat16)
     elif arr.dtype == np.uint32:  # u32 words

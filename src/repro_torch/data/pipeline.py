@@ -11,7 +11,10 @@ with per-document (m, a): in-context learnable, so a short run shows a
 falling loss.
 
 The fields of the returned :class:`~repro_torch.models.lm.Batch` are numpy
-arrays; ``launch.train.device_batch`` moves them to a device.
+arrays; ``launch.train.device_batch`` moves them to a device. A vision
+config gets stub ``prefix_embeds``, an encoder-decoder one (``enc_frac``)
+stub encoder frames ``enc_embeds``, each from its own seed off the batch's
+first document ID.
 """
 
 from __future__ import annotations
@@ -67,14 +70,7 @@ def tokens_for_ids(cfg: DataConfig, ids: np.ndarray) -> np.ndarray:
 
 def global_batch_for_step(cfg: DataConfig, step: int, dp_rank: int = 0
                           ) -> Batch:
-    """The dp_rank's shard of the step's global batch (numpy fields).
-
-    The encoder-decoder family's ``enc_embeds`` are not part of the port's
-    dense ``Batch``; a config with ``enc_frac`` raises."""
-    if cfg.enc_frac and cfg.d_model:
-        raise NotImplementedError(
-            "encoder embeddings (enc_frac) belong to the encoder-decoder "
-            "family, which is not ported (ROADMAP.md)")
+    """The dp_rank's shard of the step's global batch (numpy fields)."""
     ids = doc_ids_for_step(cfg, step)
     per = cfg.global_batch // cfg.dp_shards
     ids = ids[dp_rank * per:(dp_rank + 1) * per]
@@ -82,7 +78,7 @@ def global_batch_for_step(cfg: DataConfig, step: int, dp_rank: int = 0
     inputs = toks[:, :-1].astype(np.int32)
     labels = toks[:, 1:].astype(np.int32)
 
-    prefix = None
+    prefix = enc = None
     if cfg.n_prefix and cfg.d_model:
         rng = np.random.default_rng(int(ids[0]) & 0x7FFFFFFF)
         prefix = rng.standard_normal(
@@ -90,4 +86,10 @@ def global_batch_for_step(cfg: DataConfig, step: int, dp_rank: int = 0
         )
         inputs = inputs[:, : cfg.seq_len - cfg.n_prefix]
         labels = labels[:, : cfg.seq_len - cfg.n_prefix]
-    return Batch(tokens=inputs, labels=labels, prefix_embeds=prefix)
+    if cfg.enc_frac and cfg.d_model:
+        rng = np.random.default_rng((int(ids[0]) >> 1) & 0x7FFFFFFF)
+        enc = rng.standard_normal(
+            (per, cfg.seq_len // cfg.enc_frac, cfg.d_model),
+            dtype=np.float32)
+    return Batch(tokens=inputs, labels=labels, prefix_embeds=prefix,
+                 enc_embeds=enc)

@@ -39,18 +39,11 @@ from repro_torch.training import optimizer, train_step as ts_lib
 def build(arch: str, *, smoke: bool, seq: int, batch: int,
           microbatches: int, lr: float, total_steps: int, device=None):
     """(cfg, model without weights, TrainConfig, DataConfig), as the JAX
-    launcher builds them; the model on ``device`` (the card by default).
-    Dense configs only: the moe, ssm, hybrid and encdec families serve but
-    do not train yet."""
+    launcher builds them (MoE at capacity factor 2.0); the model on
+    ``device`` (the card by default). Every family trains."""
     cfg = cfg_base.get_smoke(arch) if smoke else cfg_base.get(arch)
-    if cfg.family in ("moe", "ssm", "hybrid", "encdec"):
-        raise NotImplementedError(
-            f"training the {cfg.family} family ({cfg.name}) is not ported: "
-            f"its backward (the MoE dispatch, the SSD scan, the shared "
-            f"block, the encoder and cross-attention), the aux loss in the "
-            f"train step and the encoder's inputs in the data pipeline come "
-            f"with the training slice for these families (ROADMAP.md)")
-    model = LM(cfg, vocab_chunk=min(seq, 128), device=device)
+    model = LM(cfg, vocab_chunk=min(seq, 128), moe_capacity_factor=2.0,
+               device=device)
     tcfg = ts_lib.TrainConfig(
         opt=optimizer.AdamWConfig(lr=lr, warmup_steps=max(total_steps // 20,
                                                           5),
@@ -71,7 +64,8 @@ def device_batch(batch: Batch, device) -> Batch:
     move = lambda x: None if x is None else torch.from_numpy(
         np.ascontiguousarray(x)).to(device)
     return Batch(tokens=move(batch.tokens), labels=move(batch.labels),
-                 prefix_embeds=move(batch.prefix_embeds))
+                 prefix_embeds=move(batch.prefix_embeds),
+                 enc_embeds=move(batch.enc_embeds))
 
 
 def run(argv=None) -> dict:

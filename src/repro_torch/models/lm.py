@@ -195,6 +195,20 @@ FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 F32_LEAVES = moe.F32_LEAVES | ssm.F32_LEAVES
 
 
+def attention_calls(cfg: ModelConfig) -> int:
+    """Attention calls (so K5 forward launches on the card, and backward
+    ones in a training step) of one pass over a batch (``loss``,
+    ``prefill``): one an attention layer of dense and moe; hybrid's shared
+    block once a group of ``attn_every`` layers; encdec's encoder layer
+    once and its decoder layer twice (self- and cross-attention); none for
+    ssm."""
+    _check_family(cfg)
+    if cfg.family == "hybrid":
+        return -(-cfg.n_layers // cfg.attn_every)
+    return {"dense": cfg.n_layers, "moe": cfg.n_layers, "ssm": 0,
+            "encdec": 2 * cfg.n_layers + cfg.enc_layers}[cfg.family]
+
+
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r} ({cfg.name})")

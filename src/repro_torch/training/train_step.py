@@ -91,13 +91,15 @@ def _split_batch(batch: Batch, n: int) -> Batch:
                                                 *x.shape[1:])
 
     return Batch(tokens=r(batch.tokens), labels=r(batch.labels),
-                 prefix_embeds=r(batch.prefix_embeds))
+                 prefix_embeds=r(batch.prefix_embeds),
+                 enc_embeds=r(batch.enc_embeds))
 
 
 def _index_batch(batch: Batch, i: int) -> Batch:
     g = lambda x: None if x is None else x[i]
     return Batch(tokens=g(batch.tokens), labels=g(batch.labels),
-                 prefix_embeds=g(batch.prefix_embeds))
+                 prefix_embeds=g(batch.prefix_embeds),
+                 enc_embeds=g(batch.enc_embeds))
 
 
 def value_and_grad(model: LM, params: list, batch: Batch):

@@ -241,10 +241,19 @@ def test_serve_launcher_moe_runs_and_ssm_exits(capsys):
 
 
 def test_train_launcher_refuses_moe_and_ssm():
-    """The training launcher refuses every family but dense by name: moe,
-    ssm, hybrid (zamba2) and encdec (seamless) do not train yet."""
+    """The training launcher refuses no family any more: moe, ssm, hybrid
+    (zamba2) and encdec (seamless) build as the JAX launcher builds them,
+    MoE at capacity factor 2.0, encdec with encoder frames a quarter of
+    the text (their training: test_torch_train_families*.py)."""
+    from repro.launch import train as jtrain
+    kw = dict(smoke=True, seq=16, batch=2, microbatches=1, lr=1e-3,
+              total_steps=10)
     for arch in ("qwen2-moe-a2.7b", "moonshot-v1-16b-a3b", "mamba2-2.7b",
                  "zamba2-1.2b", "seamless-m4t-medium"):
-        with pytest.raises(NotImplementedError, match="training"):
-            ttrain.build(arch, smoke=True, seq=16, batch=2, microbatches=1,
-                         lr=1e-3, total_steps=10, device="cpu")
+        cfg, model, tcfg_, dcfg = ttrain.build(arch, device="cpu", **kw)
+        jcfg_, jmodel, jtcfg, jdcfg = jtrain.build(arch, **kw)
+        assert cfg.name == jcfg_.name and model.cfg.family == cfg.family
+        assert model.moe_cf == jmodel.moe_cf == 2.0
+        assert dataclasses.asdict(dcfg) == dataclasses.asdict(jdcfg)
+        assert tcfg_.microbatches == jtcfg.microbatches
+        assert tuple(tcfg_.opt) == tuple(jtcfg.opt)
