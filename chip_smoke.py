@@ -302,13 +302,36 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
    at FAMILY_SMOKE_SEQ, every leaf finite and within GRAD_TOL. (c) The
    smoke config in bf16: 6 steps straight against 3 + a Checkpointer save
    + restore into a fresh state + 3, bit for bit.
+22. Shards and channels over a (data, model) mesh (``mesh_phase``, also
+   run alone by tools/mesh_turns.py): a (2, 2) mesh of the cards present
+   (``card_mesh``: one card a position with four or more, else all four
+   positions on cuda:0, printed as such), phase 4's configuration at two
+   channels over ``data``. (a) The window engine at depth 8 over the mesh,
+   bucket-sharded (in turns with the one-device engine of the same
+   configuration: one, mesh, mesh, one) and replicated (one, mesh), two
+   rounds of 1,000 transactions a channel each: store chain, validity
+   bits, log, journal and ledger heads, state_digest, tree_head and
+   overflow bits of both channels equal the one-device engine's; counters
+   set to 0 before the first mesh turn and read after, K1, K2 and K4
+   launches by device exactly as ``mesh_window_launches`` reckons them;
+   the consensus bytes a block equal their formula (``spw`` words, two id
+   words and a flag byte a transaction from each other model rank). (b)
+   The mesh engine durable and sharded, a snapshot every 5 blocks: a
+   round of 500, one of 200, the butterfly doubling of channel 0 (2^20 ->
+   2^21), one of 200; verify_all; the grown table equals the one-device
+   butterfly of the same table, and ``recover_shard`` of shard 1 onto rank
+   (0, 1)'s device (crossing the re-anchor) equals it onto the first device
+   and the live shard. (c) One block a channel of the Fabric 1.2 step on
+   the mesh (the whole wire in consensus; K3 on every replica) equals the
+   one-device step on the CPU; its launches by device and consensus bytes
+   a block against FASTFABRIC's.
 
 The lines before the last give each phase's seconds, the card's name and
 power limit (as nvidia-smi prints them), the engine, ladder, serving,
 durability, observability, pipeline, channel, sharding, training, MoE
-serving, SSM, hybrid, encdec and family-training summaries (with the
-storage objects' sizes) and the kernels (K1-K5 and K5's backward); the last line is
-{"ok": true, "device": {...}}.
+serving, SSM, hybrid, encdec, family-training and mesh summaries (with
+the storage objects' sizes) and the kernels (K1-K5 and K5's backward); the
+last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -377,6 +400,15 @@ SHARD_DURABLE_EVERY, SHARD_AFTER_TXS = 10, 300
 SHARD_TURNS = ("replicated", "sharded", "sharded", "replicated")
 SHARD_CHECK_NB, SHARD_CHECK_TXS = 1 << 14, 300
 ELASTIC_START, ELASTIC_ROUNDS, ELASTIC_EVERY = 1 << 11, 4, 25
+# Phase 22: a (data, model) mesh of the cards present (every position on
+# cuda:0 when there are fewer cards than positions), two channels over
+# ``data``; the engines' turns; the durable run's snapshot cadence and its
+# rounds (500, then 200 before and after the doubling: a snapshot at block
+# 4, the resize after block 6, recover_shard's suffix crosses it).
+MESH_SHAPE = (2, 2)
+MESH_CHANNELS = 2
+MESH_TURNS = ("one", "mesh", "mesh", "one")
+MESH_DURABLE_EVERY, MESH_DURABLE_TXS, MESH_AFTER_TXS = 5, 500, 200
 DUMP_FILES = {"trace.jsonl", "trace_chrome.json", "metrics.json",
               "lifecycles.json", "meta.json"}
 ROUTE_SWEEP = (32, 64, 100, 128, 160, 192, 256, 512, 1024, 1235)  # K4
@@ -671,6 +703,42 @@ def max_abs_err(got, want) -> int:
         if g.numel():
             err = max(err, int((g - w).abs().max()))
     return err
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.hash_table import ops as ht_ops
+    from repro_torch.kernels.mvcc_validate import ops as mv_ops
+    from repro_torch.kernels.sig_mac import ops as mac_ops
+    return {"mac_many": mac_ops.launches, "lookup": ht_ops.launches,
+            "commit": ht_ops.commit_launches, "validate": mv_ops.launches,
+            "flash_attention": fa_ops.launches,
+            "flash_attention_bwd": fa_ops.launches_bwd}
+
+
+def launches_by_device() -> dict:
+    """K1-K4's launch counts by device: kernel -> {"cuda:i": n}."""
+    from repro_torch.kernels.hash_table import ops as ht_ops
+    from repro_torch.kernels.mvcc_validate import ops as mv_ops
+    from repro_torch.kernels.sig_mac import ops as mac_ops
+    return {"mac_many": dict(mac_ops.launches_by_device),
+            "lookup": dict(ht_ops.launches_by_device),
+            "commit": dict(ht_ops.commit_launches_by_device),
+            "validate": dict(mv_ops.launches_by_device)}
+
+
+def zero_launch_counts() -> None:
+    """Every launch count to 0, the counts by device too."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.hash_table import ops as ht_ops
+    from repro_torch.kernels.mvcc_validate import ops as mv_ops
+    from repro_torch.kernels.sig_mac import ops as mac_ops
+    mac_ops.launches = ht_ops.launches = ht_ops.commit_launches = 0
+    mv_ops.launches = fa_ops.launches = fa_ops.launches_bwd = 0
+    for c in (mac_ops.launches_by_device, ht_ops.launches_by_device,
+              ht_ops.commit_launches_by_device, mv_ops.launches_by_device):
+        c.clear()
 
 
 def k1_k4_launches(stats, k4_per_block: int = 1) -> dict:
@@ -1435,6 +1503,343 @@ def sharding_phase(cfg, reference_view, counts, zero_counts, same_results,
     log(f"[sharding] card = CPU at {check_nb} buckets: the depth-1 step over "
         f"{SHARD_CHECK_TXS // bsz} blocks and the window engine over two "
         f"rounds of {SHARD_CHECK_TXS}")
+    return out
+
+
+def card_mesh(shape: tuple = MESH_SHAPE):
+    """Phase 22's mesh: one card a position when there are enough, else
+    every position on cuda:0, listed so."""
+    from repro_torch.launch import mesh as mesh_mod
+    if torch.cuda.device_count() >= shape[0] * shape[1]:
+        return mesh_mod.from_cards(*shape)
+    return mesh_mod.Mesh([["cuda:0"] * shape[1]] * shape[0])
+
+
+def mesh_window_launches(mesh, stats, depth: int, n_channels: int,
+                         engine_device) -> dict:
+    """K1, K2 and K4 launches by device of a window engine's rounds over
+    ``mesh`` (every channel in one shape group): at every rank, once a
+    window K1 on its rows, twice a window a channel it holds K2 (the fill
+    and the fused commit), once a block position K4 (one CTA); at the
+    engine's device, twice a round a channel K1 (the endorsers' tags and
+    admission) and K2 (the endorser's reads) and once a block K2 (the
+    replica's update)."""
+    import collections
+    over = n_channels % mesh.dp_size == 0
+    c_loc = n_channels // mesh.dp_size if over else n_channels
+    out = {k: collections.Counter() for k in ("mac_many", "lookup",
+                                              "validate")}
+    eng = str(engine_device)
+    for rnd in stats:
+        n_blocks = rnd[0].n_blocks
+        windows = [min(depth, n_blocks - lo)
+                   for lo in range(0, n_blocks, depth)]
+        out["mac_many"][eng] += 2 * n_channels
+        out["lookup"][eng] += (2 + n_blocks) * n_channels
+        for row in mesh.devices:
+            for dev in row:
+                out["mac_many"][str(dev)] += len(windows)
+                out["lookup"][str(dev)] += 2 * c_loc * len(windows)
+                out["validate"][str(dev)] += sum(windows)
+    return {k: dict(v) for k, v in out.items()}
+
+
+def _same_views(a: dict, b: dict, what: str) -> None:
+    """Two engine views (:func:`mesh_view`) equal field by field."""
+    if len(a["chain"]) != len(b["chain"]):
+        raise AssertionError(f"{what}: chains differ in length")
+    for x, y in zip(a["chain"], b["chain"]):
+        if x[0] != y[0] or not all(np.array_equal(u, v)
+                                   for u, v in zip(x[1:], y[1:])):
+            raise AssertionError(f"{what}: block {x[0]} differs")
+    for k in a.keys() - {"chain"}:
+        xs, ys = ((a[k], b[k]) if isinstance(a[k], list)
+                  else ([a[k]], [b[k]]))
+        if len(xs) != len(ys) or not all(np.array_equal(u, v)
+                                         for u, v in zip(xs, ys)):
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def mesh_view(e, channel: int) -> dict:
+    """:func:`window_view` with the ledger head, the digest tree and the
+    overflow bits."""
+    wc = e.window_committer
+    return {**window_view(e, channel),
+            "ledger_head": wc.ledger_head_for(channel),
+            "tree_head": wc.tree_head(channel),
+            "bits": wc.overflow_bits_for(channel)}
+
+
+def mesh_phase(cfg, counts, zero_counts, path_launches, mesh, *,
+               n_accounts: int = None, round_txs: int = None,
+               durable_txs: int = None, after_txs: int = None,
+               turns: tuple = MESH_TURNS, card: str = "") -> dict:
+    """Phase 22: the window engine over ``mesh`` against the one-device
+    window engine, under phase 4's engine configuration ``cfg`` at
+    ``MESH_CHANNELS`` channels; see the module docstring. The keyword
+    sizes default to the phase's; a rehearsal on the CPU passes smaller
+    ones and a mesh of CPU positions. ``tools/mesh_turns.py`` runs it
+    alone."""
+    from repro_torch.core import endorser, engine, unmarshal
+    from repro_torch.launch import fabric_step as fs
+    from repro_torch.launch import state_sharding as ss
+    from repro_torch.pipeline import engine_bridge as eb
+    from repro_torch.storage import recovery
+    n_accounts = n_accounts or N_ACCOUNTS
+    round_txs = round_txs or ROUND_TXS
+    durable_txs = durable_txs or MESH_DURABLE_TXS
+    after_txs = after_txs or MESH_AFTER_TXS
+    nch, first = MESH_CHANNELS, mesh.first
+    cuda = first.type == "cuda"
+    dims, bsz, m = cfg.dims, cfg.orderer.block_size, mesh.model_size
+    ccfg = dataclasses.replace(cfg, n_channels=nch)
+    distinct = len(mesh.distinct())
+    out = {"card": card, "mesh": [[str(x) for x in r] for r in mesh.devices],
+           "distinct_devices": distinct, "channels": nch,
+           "depth": WINDOW_DEPTH}
+    log(f"[mesh] {mesh!r}: {mesh.dp_size} x {m} positions on {distinct} "
+        f"distinct device(s); {nch} channels over data")
+
+    def sync():
+        if cuda:
+            mesh.synchronize()
+
+    def committer(kind, sharded):
+        step = dataclasses.replace(fs.FASTFABRIC_PIPELINED_STEP,
+                                   shard_state=sharded)
+        if kind == "mesh":
+            return eb.WindowCommitter(dims, step, n_buckets=cfg.n_buckets,
+                                      slots=cfg.slots, n_channels=nch,
+                                      mesh=mesh)
+        return eb.WindowCommitter(dims, step, n_buckets=cfg.n_buckets,
+                                  slots=cfg.slots, n_channels=nch,
+                                  n_shards=m, device=first)
+
+    def rounds(e, plan):
+        return [e.run_rounds([e.make_proposals(n, seed=100 * sd + c,
+                                               n_accounts=n_accounts)
+                              for c in range(nch)]) for sd, n in plan]
+
+    def views(e):
+        return [mesh_view(e, c) for c in range(nch)]
+
+    def check_launches(name, want):
+        got = launches_by_device()
+        path_launches[name] = counts()
+        for k, n in want.items():
+            if got[k] != n:
+                raise AssertionError(f"{name}: {k} launches by device "
+                                     f"{got[k]}, expected {n}")
+        return got
+
+    # (a) The sharded window engine in turns with the one-device one, then
+    # the replicated pair: same proposals, same results; launches by device
+    # and gathered bytes of the first mesh turn.
+    plan = [(sd, round_txs) for sd in SEEDS]
+    parts_s = {}
+    for mode, mode_turns in (("sharded", turns), ("replicated",
+                                                  ("one", "mesh"))):
+        t_part = time.perf_counter()
+        ref, res = None, []
+        for kind in mode_turns:
+            if cuda:
+                torch.cuda.empty_cache()
+            e = engine.FabricEngine(ccfg, device=first,
+                                    window_committer=committer(
+                                        kind, mode == "sharded"))
+            counted = kind == "mesh" and not any(
+                r["engine"] == "mesh" for r in res)
+            if counted:
+                zero_counts()
+                mesh.moved.clear()
+            st = rounds(e, plan)
+            sync()
+            v = views(e)
+            if ref is None:
+                ref = v
+            else:
+                for c in range(nch):
+                    _same_views(v[c], ref[c], f"{mode} {kind} engine, "
+                                f"channel {c}, against the one-device one")
+            row = {"engine": kind, "tps": sum(x.n_txs for x in st[-1])
+                   / st[-1][0].wall_s, "wall_s": st[-1][0].wall_s,
+                   "order_s": st[-1][0].order_s,
+                   "commit_s": st[-1][0].commit_s,
+                   "replay_s": st[-1][0].replay_s}
+            if counted:
+                row["launches_by_device"] = check_launches(
+                    f"mesh_{mode}", mesh_window_launches(
+                        mesh, st, WINDOW_DEPTH, nch, first))
+                row["moved"] = dict(mesh.moved)
+                n_blocks = sum(x[0].n_blocks for x in st)
+                row["consensus_bytes_a_block"] = (
+                    mesh.moved["consensus"] / (nch * n_blocks))
+                want = fs.consensus_bytes(dims, fs.FASTFABRIC_STEP, bsz, m)
+                if row["consensus_bytes_a_block"] != want:
+                    raise AssertionError(
+                        f"{mode}: consensus bytes a block "
+                        f"{row['consensus_bytes_a_block']}, formula {want}")
+            res.append(row)
+            log(f"[mesh] {mode} turn {kind}: {row['tps']:.1f} tx/s over "
+                f"{nch} channels, wall {row['wall_s']:.4f} s = order "
+                f"{row['order_s']:.4f} + commit {row['commit_s']:.4f}; "
+                f"replay {row['replay_s']:.4f} s")
+            e.store.close()
+            del e
+        med = {k: float(np.median([r["tps"] for r in res
+                                   if r["engine"] == k]))
+               for k in ("one", "mesh")}
+        mesh_row = next(r for r in res if r["engine"] == "mesh")
+        out[mode] = {"turns": res, "median_tps": med,
+                     "tps_ratio": med["mesh"] / med["one"],
+                     "launches_by_device": mesh_row["launches_by_device"],
+                     "moved": mesh_row["moved"]}
+        parts_s[mode] = time.perf_counter() - t_part
+        log(f"[mesh] {mode}: chain, validity, log/journal/ledger heads, "
+            f"state_digest, tree_head and overflow bits of both channels "
+            f"equal the one-device window engine's; median tx/s mesh "
+            f"{med['mesh']:.1f} / one device {med['one']:.1f} = "
+            f"{out[mode]['tps_ratio']:.4f}; K1/K2/K4 launches by device "
+            f"{mesh_row['launches_by_device']}; bytes between ranks "
+            f"{mesh_row['moved']}")
+
+    # (b) Durable, sharded, on the mesh: a round of durable_txs, one of
+    # after_txs, the butterfly doubling of channel 0 (2^20 -> 2^21), another
+    # round; verify_all. The grown table against the one-device butterfly
+    # of the same table, and recover_shard of shard 1 onto rank (0, 1)'s
+    # device against recover_shard onto the first device and the live
+    # shard.
+    t_part = time.perf_counter()
+    if cuda:
+        torch.cuda.empty_cache()
+    mesh.moved.clear()
+    tmp = tempfile.TemporaryDirectory()
+    dcfg = dataclasses.replace(
+        ccfg, snapshot_every_blocks=MESH_DURABLE_EVERY,
+        **{k: os.path.join(tmp.name, k)
+           for k in ("journal_dir", "snapshot_dir", "block_dir")})
+    e = engine.FabricEngine(dcfg, device=first,
+                            window_committer=committer("mesh", True))
+    rounds(e, [(SEEDS[0], durable_txs), (SEEDS[-1] + 1, after_txs)])
+    wc = e.window_committer
+    nb = cfg.n_buckets
+    before = wc.hash_state(0)
+    sync()
+    t1 = time.perf_counter()
+    e.resize(2 * nb, channel=0)
+    sync()
+    resize_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    res = ss.resize_sharded(ss.shard_views(before, m), 2 * nb // m, nb, m)
+    sync()
+    one_resize_s = time.perf_counter() - t1
+    if not all(torch.equal(torch.cat(want), got) for want, got in zip(
+            zip(*res.state), wc.hash_state(0))) or bool(res.overflow):
+        raise AssertionError("the mesh's butterfly doubling differs from "
+                             "the one-device butterfly")
+    del before, res
+    rounds(e, [(SEEDS[-1] + 2, after_txs)])
+    verdict = e.verify_all()
+    if not all(all(x.values()) for x in verdict.values()):
+        raise AssertionError(f"durable mesh engine: verify {verdict}")
+    e.store.drain()
+    live = wc.shard_tables(0)[1]
+    recs = {}
+    for named in (mesh.devices[0][1], first):
+        sync()
+        t1 = time.perf_counter()
+        rec = recovery.recover_shard(
+            e.chans[0].journal, shard=1, device=named,
+            snapshot_dir=engine.ledger.channel_dir(
+                os.path.join(tmp.name, "snapshot_dir"), 0))
+        sync()
+        recs[str(named)] = time.perf_counter() - t1
+        if rec.state.keys.device != named or rec.crossed_reanchors != 1 \
+                or not all(torch.equal(x, y.to(named))
+                           for x, y in zip(rec.state, live)):
+            raise AssertionError(f"recover_shard onto {named} differs from "
+                                 f"the live shard")
+    out["durable"] = {"resize_s": resize_s, "one_device_resize_s":
+                      one_resize_s, "recover_shard_s": recs,
+                      "verify_all": verdict, "moved": dict(mesh.moved)}
+    e.store.close()
+    del e, wc, rec, live
+    tmp.cleanup()
+    parts_s["durable"] = time.perf_counter() - t_part
+    log(f"[mesh] durable, sharded: the butterfly doubling of channel 0 "
+        f"({nb} -> {2 * nb}) in {resize_s:.4f} s equals the one-device "
+        f"butterfly of the same table ({one_resize_s:.4f} s); recover_shard "
+        f"of shard 1 onto {mesh.devices[0][1]} equals it onto {first} and "
+        f"the live shard, crossing the re-anchor (s: {recs}); verify_all "
+        f"passes")
+
+    # (c) One block a channel of the Fabric 1.2 step on the same mesh
+    # (the whole wire in consensus, sequential commit: K3), against the
+    # one-device step.
+    t_part = time.perf_counter()
+    maker = engine.FabricEngine(dataclasses.replace(
+        cfg, n_buckets=1 << 10, store_blocks=False), device=first)
+    blocks = []
+    for c in range(nch):
+        txb = endorser.execute_and_endorse(
+            maker.endorser_state, maker.make_proposals(
+                bsz, seed=SEEDS[0] * 100 + c, n_accounts=n_accounts), dims)
+        blocks.append((unmarshal.marshal(txb, dims), txb.tx_id))
+    wire = torch.stack([w for w, _ in blocks])
+    ids = torch.stack([i for _, i in blocks])
+    v12 = fs.FABRIC_V12_STEP
+    # The one-device step on the CPU (the plain versions): its serial log
+    # chain takes seconds a block on the card.
+    one = fs.make_fabric_step(dims, v12, n_shards=m)
+    st1, valid1 = one(fs.create_mesh_state(nch, dims, cfg.n_buckets,
+                                           cfg.slots, device="cpu"),
+                      wire.cpu(), ids.cpu())
+    over = nch % mesh.dp_size == 0
+    ms = fs.create_mesh_state(nch, dims, cfg.n_buckets, cfg.slots,
+                              mesh=mesh, channels_over_data=over)
+    zero_counts()
+    mesh.moved.clear()
+    t1 = time.perf_counter()
+    ms, valid2 = fs.make_fabric_step(dims, v12, mesh=mesh,
+                                     channels_over_data=over)(ms, wire, ids)
+    sync()
+    v12_s = time.perf_counter() - t1
+    c_loc = nch // mesh.dp_size if over else nch
+    want = {k: {} for k in ("mac_many", "lookup", "commit", "validate")}
+    for row in mesh.devices:
+        for dev in row:
+            for k, n in (("mac_many", 1), ("lookup", c_loc),
+                         ("commit", c_loc), ("validate", 1)):
+                want[k][str(dev)] = want[k].get(str(dev), 0) + n
+    v12_launches = check_launches("mesh_fabric12", want)
+    gathered = fs.gather_state(ms, "cpu")
+    if not torch.equal(valid1, valid2.cpu()) or not all(
+            torch.equal(x, y) for x, y in zip(st1, gathered)):
+        raise AssertionError("the Fabric 1.2 step on the mesh differs from "
+                             "the one-device step")
+    ff = fs.consensus_bytes(dims, fs.FASTFABRIC_STEP, bsz, m)
+    f12 = mesh.moved["consensus"] / nch
+    if f12 != fs.consensus_bytes(dims, v12, bsz, m):
+        raise AssertionError(f"Fabric 1.2 consensus bytes a block {f12}")
+    out["fabric12"] = {"step_s": v12_s, "launches_by_device": v12_launches,
+                       "consensus_bytes_a_block": f12,
+                       "valid": int(valid2.sum())}
+    out["consensus_bytes_a_block"] = {
+        "fastfabric": ff, "fabric12": f12, "ratio": f12 / ff,
+        "published_words_a_tx": {
+            "fastfabric": unmarshal.struct_prefix_words(dims),
+            "fabric12": dims.payload_words}}
+    parts_s["fabric12"] = time.perf_counter() - t_part
+    log(f"[mesh] Fabric 1.2 step, one block a channel: state and validity "
+        f"equal the one-device step's on the CPU ({v12_s:.3f} s on the "
+        f"mesh); launches by device {v12_launches}")
+    log(f"[mesh] consensus bytes a block between the {m} model ranks of a "
+        f"row: FASTFABRIC {ff} ({unmarshal.struct_prefix_words(dims)} words "
+        f"a tx) / Fabric 1.2 {f12:.0f} ({dims.payload_words} words a tx) = "
+        f"1 / {f12 / ff:.2f}")
+    del ms, st1, gathered, maker
+    out["parts_s"] = parts_s
+    log(f"[mesh] seconds by part: {parts_s}")
     return out
 
 
@@ -3073,16 +3478,7 @@ def main(argv=None) -> int:
         phase_s[name] = time.perf_counter() - t0
         log(f"[phase] {name}: {phase_s[name]:.1f} s")
 
-    def counts():
-        return {"mac_many": mac_ops.launches, "lookup": ht_ops.launches,
-                "commit": ht_ops.commit_launches,
-                "validate": mv_ops.launches,
-                "flash_attention": fa_ops.launches,
-                "flash_attention_bwd": fa_ops.launches_bwd}
-
-    def zero_counts():
-        mac_ops.launches = ht_ops.launches = ht_ops.commit_launches = 0
-        mv_ops.launches = fa_ops.launches = fa_ops.launches_bwd = 0
+    counts, zero_counts = launch_counts, zero_launch_counts
 
     dims = types.PAPER_DIMS
     nb, slots = 1 << 20, 8
@@ -4692,6 +5088,13 @@ def main(argv=None) -> int:
     family_training["card"] = card
     phase_done("21 family training", t0)
 
+    # -- 22. shards and channels over a (data, model) mesh ------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    mesh_run = mesh_phase(cfg, counts, zero_counts, path_launches,
+                          card_mesh(), card=card)
+    phase_done("22 mesh", t0)
+
     kernels = [{
         "name": t["name"], "route": "cuda", "source": t["source"],
         "replaces": t["replaces"],
@@ -4719,6 +5122,7 @@ def main(argv=None) -> int:
     log(json.dumps({"hybrid": hybrid}, default=str))
     log(json.dumps({"encdec": encdec}, default=str))
     log(json.dumps({"family_training": family_training}, default=str))
+    log(json.dumps({"mesh": mesh_run}, default=str))
     log(json.dumps({"phase_s": phase_s,
                     "total_s": time.perf_counter() - t_start}))
     log(card)

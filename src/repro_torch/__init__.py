@@ -23,3 +23,12 @@ def resolve_device(device=None) -> torch.device:
             "plain PyTorch versions on the CPU"
         )
     return torch.device("cuda")
+
+
+def canonical_device(device) -> torch.device:
+    """``device`` with its index filled in: a bare ``cuda`` names the
+    current card, so that ``cuda`` and ``cuda:0`` compare equal there."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None and torch.cuda.is_available():
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev

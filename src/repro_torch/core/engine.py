@@ -30,7 +30,11 @@ its depth instead of one block at a time, and the engine reads the peer's
 table, heads and overflow bits, snapshots, verifies and resizes through it.
 A committer with bucket-sharded state gives its shard count
 (:attr:`FabricEngine.n_shards`) to the snapshots' parts, the re-anchor
-records, the ``state.shard_overflow`` gauges and the policy's hot shard.
+records, the ``state.shard_overflow`` gauges and the policy's hot shard. A
+committer over a mesh of devices (``WindowCommitter(mesh=...)``) runs on
+the mesh's first device, where the engine orders; the round's syncs then
+wait for every card of the mesh, and each snapshot part is copied from its
+shard's device.
 
 Several channels (``EngineConfig.n_channels``): each channel has its own
 peer and replica tables, heads, journal, snapshots, block chain and resize
@@ -52,7 +56,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import canonical_device, resolve_device
 from repro_torch.core import (committer, endorser, ledger, orderer, types,
                               u32, unmarshal)
 from repro_torch.core import world_state as ws
@@ -212,9 +216,10 @@ class FabricEngine:
     unless the caller passes ``device='cpu'`` (the plain versions of the
     kernels then run). The obs handle (``cfg.obs``) gives the durability
     layer's journal and snapshot metrics their registry. A
-    ``window_committer`` (on the engine's device, driving
-    ``cfg.n_channels`` channels) takes over the commit: the peer's tables
-    and heads are then its state, at its bucket counts."""
+    ``window_committer`` (on the engine's device, or over a mesh whose
+    first device it is, driving ``cfg.n_channels`` channels) takes over the
+    commit: the peer's tables and heads are then its state, at its bucket
+    counts."""
 
     def __init__(self, cfg: EngineConfig = FASTFABRIC, *, device=None,
                  window_committer=None):
@@ -230,7 +235,8 @@ class FabricEngine:
         self.cfg = cfg
         self.device = resolve_device(device)
         if window_committer is not None:
-            if window_committer.device != self.device:
+            if (canonical_device(window_committer.device)
+                    != canonical_device(self.device)):
                 raise ValueError(
                     f"window committer on {window_committer.device}, engine "
                     f"on {self.device}")
@@ -320,6 +326,9 @@ class FabricEngine:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        wc = self.window_committer
+        if wc is not None and wc.mesh is not None:
+            wc.block_until_ready()
 
     @contextlib.contextmanager
     def _edge(self, name: str, sync, **args):
@@ -734,6 +743,8 @@ class FabricEngine:
         return self.chans[channel].peer_state.hash_state
 
     def _peer_digest(self, channel: int = 0) -> np.ndarray:
+        if self.window_committer is not None:
+            return self.window_committer.state_digest(channel)
         return u32.to_numpy(ws.state_digest(self._state_view(channel)))
 
     def _peer_journal_head(self, channel: int = 0) -> np.ndarray:
@@ -914,8 +925,10 @@ class FabricEngine:
         self.store.drain()  # the journal must cover every shipped block
         with self.obs.tracer.span("snapshot.take", block_no=tip,
                                   channel=channel):
+            wc = self.window_committer
             snap = snapshot.take(
-                self._state_view(channel), block_no=tip,
+                self._state_view(channel) if wc is None
+                else wc.shard_tables(channel), block_no=tip,
                 journal_head=self._peer_journal_head(channel),
                 ledger_head=self._ledger_head(channel),
                 n_shards=self.n_shards,

@@ -3,13 +3,17 @@ and the sequential commit.
 
 A CUDA tensor launches the kernel, a CPU tensor takes the plain version in
 ``ref.py``; there is no fallback between them. ``launches`` counts probe
-launches and ``commit_launches`` commit launches. The probe is one kernel
+launches and ``commit_launches`` commit launches, and
+``launches_by_device`` / ``commit_launches_by_device`` the same by device
+(``"cuda:1"``). The probe is one kernel
 for every shape (a group of lanes a query; 16-byte value loads at VW = 4),
 and so is the commit (``commit_runs_kernel``: each bucket's run of writes
 applied with its row in registers, or walked in memory when S > 32).
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -19,6 +23,8 @@ from repro_torch.kernels.hash_table import ref
 
 launches = 0
 commit_launches = 0
+launches_by_device = collections.Counter()
+commit_launches_by_device = collections.Counter()
 
 
 def _check_table(tkeys, tvers, tvals, dev):
@@ -55,6 +61,7 @@ def lookup(tkeys, tvers, tvals, queries):
                  vers.data_ptr(), vals.data_ptr(), slots.data_ptr(),
                  q, nb, s, vw, vec4)
     launches += 1
+    launches_by_device[str(dev)] += 1
     return found, vers, vals, slots
 
 
@@ -78,4 +85,5 @@ def commit(tkeys, tvers, tvals, wkeys, wvals, active):
                      tvals.data_ptr(), wkeys.data_ptr(), wvals.data_ptr(),
                      active.data_ptr(), flag.data_ptr(), k, nb, s, vw)
         commit_launches += 1
+        commit_launches_by_device[str(dev)] += 1
     return flag[0] != 0

@@ -6,11 +6,13 @@ block size: one CTA a block (``mvcc_kernel``, one launch) for blocks of at
 most ``CTA_MAX_TXS`` txs, else the tiled route (``mvcc_conf_kernel`` over a
 grid, then ``mvcc_scan_kernel``: two launches, with the conflict words in
 a scratch buffer). :func:`validate_blocks` takes NB independent blocks in
-those one or two launches. ``launches`` counts kernel launches.
+those one or two launches. ``launches`` counts kernel launches,
+``launches_by_device`` the same by device (``"cuda:1"``).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -26,6 +28,7 @@ ROUTES = ("cta", "tiled")
 # (RK = WK = 2, each route forced; chip_smoke.py's route lines).
 CTA_MAX_TXS = 160
 launches = 0
+launches_by_device = collections.Counter()
 
 
 @functools.cache
@@ -113,6 +116,7 @@ def validate_blocks(read_keys, read_vers, write_keys, current_versions, ok0,
         f = build.c_function("mvcc_validate", "mvcc_validate", 6, 4)
         build.launch(f, "mvcc_validate", dev, *ptrs, nblk, b, nr, nw)
         launches += 1
+        launches_by_device[str(dev)] += 1
         return valid
     scratch = torch.empty(
         (nblk * _c_size("mvcc_validate_scratch_words", 1)(b),),
@@ -121,4 +125,5 @@ def validate_blocks(read_keys, read_vers, write_keys, current_versions, ok0,
     build.launch(f, "mvcc_validate_tiled", dev, *ptrs, scratch.data_ptr(),
                  nblk, b, nr, nw)
     launches += 2
+    launches_by_device[str(dev)] += 2
     return valid

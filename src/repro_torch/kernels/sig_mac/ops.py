@@ -2,10 +2,12 @@
 
 A CUDA tensor launches the kernel, a CPU tensor takes the plain version in
 ``ref.py``; there is no fallback between them. ``launches`` counts kernel
-launches.
+launches, ``launches_by_device`` the same by device (``"cuda:1"``).
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -14,6 +16,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.sig_mac import ref
 
 launches = 0
+launches_by_device = collections.Counter()
 
 
 def mac_many(msg: torch.Tensor, rs: torch.Tensor, ss: torch.Tensor,
@@ -45,4 +48,5 @@ def mac_many(msg: torch.Tensor, rs: torch.Tensor, ss: torch.Tensor,
                  ss.data_ptr(), tags.data_ptr(), b, w, ne,
                  b if step is None else min(step, b))
     launches += 1
+    launches_by_device[str(dev)] += 1
     return tags

@@ -23,6 +23,11 @@ resize the choice of the old shard pair each new shard rebuilds from
 and the results come back to the device of the keys, so the shards may
 lie on different devices.
 
+The ``rank_*`` functions are one rank's part of a routed read or commit,
+for the mesh step (launch/fabric_step), which runs each rank on its own
+device and reduces the parts with the mesh's collectives; the list
+functions here are built from them.
+
 Concatenating the shard tables in order gives the replicated table array
 for array, because writes to one bucket always share an owner: a sharded
 step equals the replicated one in every state tensor, head and validity
@@ -150,16 +155,48 @@ def sharded_lookup(shards: list, keys: torch.Tensor, n_buckets_global: int,
                               lambda st, k: tuple(ws.lookup(st, k))))
 
 
+def rank_versions(local: ws.HashState, rank: int, keys: torch.Tensor,
+                  n_buckets_global: int, n_shards: int) -> torch.Tensor:
+    """Rank ``rank``'s part of the routed version read of a flat (K, 2) key
+    batch: the versions of the keys its shard ``local`` owns, 0 for the
+    others (one K2 probe, on the shard's device, where the keys must
+    lie)."""
+    mine = owned_mask(keys, n_buckets_global, n_shards, rank)
+    return torch.where(mine, ws.lookup(local, keys).versions, 0)
+
+
+def rank_fill(local: ws.HashState, rank: int, keys: torch.Tensor,
+              free_keys: torch.Tensor, n_buckets_global: int, n_shards: int
+              ) -> tuple:
+    """Rank ``rank``'s part of the window fill: :func:`rank_versions` of
+    ``keys`` (K, 2) and the empty-slot counts of the owned buckets of
+    ``free_keys`` (F, 2), 0 elsewhere. Returns (versions (K,), free (F,)
+    int32)."""
+    mine = owned_mask(free_keys, n_buckets_global, n_shards, rank)
+    free = torch.where(mine, ws.bucket_free_slots(local, free_keys), 0)
+    return (rank_versions(local, rank, keys, n_buckets_global, n_shards),
+            free)
+
+
+def _sum_to(device, parts: list) -> torch.Tensor:
+    """The masked parts summed on ``device``: each element is non-zero on
+    its owner's part at most, so the sum is the owner's pick."""
+    out = parts[0].to(device)
+    for p in parts[1:]:
+        out = out + p.to(device)
+    return out
+
+
 def sharded_lookup_versions(shards: list, keys: torch.Tensor,
                             n_buckets_global: int, n_shards: int
                             ) -> torch.Tensor:
-    """Routed versions of a flat (K, 2) key batch -> (K,) u32: the MVCC
-    read check needs only versions (one gather where the reference has
-    three)."""
+    """Routed versions of a flat (K, 2) key batch -> (K,) u32 on the keys'
+    device: the MVCC read check needs only versions (one gather where the
+    reference has three)."""
     _check(shards, n_buckets_global, n_shards)
-    (vers,) = _routed(shards, keys, n_buckets_global,
-                      lambda st, k: (ws.lookup(st, k).versions,))
-    return vers
+    return _sum_to(keys.device, [
+        rank_versions(st, m, keys.to(st.keys.device), n_buckets_global,
+                      n_shards) for m, st in enumerate(shards)])
 
 
 def sharded_window_fill(shards: list, keys: torch.Tensor,
@@ -167,13 +204,14 @@ def sharded_window_fill(shards: list, keys: torch.Tensor,
                         n_shards: int):
     """The window fill's routed gather: versions of a flat (K, 2) key batch
     and the empty-slot counts of the buckets of a flat (F, 2) key batch,
-    one K2 probe a shard. Returns (versions (K,) u32, free (F,) int32)."""
+    one K2 probe a shard. Returns (versions (K,) u32, free (F,) int32) on
+    the keys' device."""
     _check(shards, n_buckets_global, n_shards)
-    (vers,) = _routed(shards, keys, n_buckets_global,
-                      lambda st, k: (ws.lookup(st, k).versions,))
-    (free,) = _routed(shards, free_keys, n_buckets_global,
-                      lambda st, k: (ws.bucket_free_slots(st, k),))
-    return vers, free
+    parts = [rank_fill(st, m, keys.to(st.keys.device),
+                       free_keys.to(st.keys.device), n_buckets_global,
+                       n_shards) for m, st in enumerate(shards)]
+    return (_sum_to(keys.device, [v for v, _ in parts]),
+            _sum_to(keys.device, [f for _, f in parts]))
 
 
 def _check(shards: list, n_buckets_global: int, n_shards: int) -> None:
@@ -196,44 +234,67 @@ def _blank_unowned(keys: torch.Tensor, mine: torch.Tensor) -> torch.Tensor:
     return torch.where(mine[..., None], keys, 0)
 
 
+def rank_commit(local: ws.HashState, rank: int, write_keys: torch.Tensor,
+                write_vals: torch.Tensor, active: torch.Tensor,
+                n_buckets_global: int, n_shards: int, *,
+                sequential: bool = False) -> torch.Tensor:
+    """Rank ``rank``'s part of a routed commit, in place on its shard
+    ``local``: the block's write sets (B, WK, 2) / (B, WK, VW) / (B,) on the
+    shard's device, with the write keys it does not own blanked to EMPTY
+    (``active`` stays per transaction, so a transaction whose writes
+    straddle shards commits each write on its owner). Returns the shard's
+    () bool overflow flag."""
+    mine = owned_mask(write_keys, n_buckets_global, n_shards, rank)
+    return ws.commit(local, _blank_unowned(write_keys, mine), write_vals,
+                     active, sequential=sequential).overflow
+
+
 def sharded_commit(shards: list, write_keys: torch.Tensor,
                    write_vals: torch.Tensor, active: torch.Tensor,
                    n_buckets_global: int, n_shards: int, *,
                    sequential: bool = False) -> RoutedCommitResult:
-    """Apply a block's validated write sets (B, WK, 2) / (B, WK, VW) / (B,)
-    on the owning shards only, in place: each shard commits the block with
-    the write keys it does not own blanked to EMPTY (``active`` stays per
-    transaction, so a transaction whose writes straddle shards commits each
-    write on its owner). A sequential commit is one K3 launch a shard."""
+    """Apply a block's validated write sets on the owning shards only, in
+    place (:func:`rank_commit` on every shard, on its device); the flags
+    land on the write keys' device. A sequential commit is one K3 launch a
+    shard."""
     _check(shards, n_buckets_global, n_shards)
     flags = []
     for m, st in enumerate(shards):
         dev = st.keys.device
-        wk = write_keys.to(dev)
-        mine = owned_mask(wk, n_buckets_global, n_shards, m)
-        res = ws.commit(st, _blank_unowned(wk, mine), write_vals.to(dev),
-                        active.to(dev), sequential=sequential)
-        flags.append(res.overflow.to(write_keys.device))
+        flags.append(rank_commit(
+            st, m, write_keys.to(dev), write_vals.to(dev), active.to(dev),
+            n_buckets_global, n_shards, sequential=sequential
+        ).to(write_keys.device))
     shard_ovf = torch.stack(flags)
     return RoutedCommitResult(state=shards, overflow=shard_ovf.any(),
                               shard_overflow=shard_ovf)
+
+
+def rank_commit_window(local: ws.HashState, rank: int,
+                       log_keys: torch.Tensor, log_vals: torch.Tensor,
+                       log_bumps: torch.Tensor, log_new: torch.Tensor,
+                       n_buckets_global: int, n_shards: int) -> None:
+    """Rank ``rank``'s part of the fused window commit, in place on its
+    shard: the window log with the entries it does not own blanked and
+    their bump and new flags cleared, so its scatter touches only its own
+    buckets."""
+    mine = owned_mask(log_keys, n_buckets_global, n_shards, rank)
+    ws.commit_window(local, _blank_unowned(log_keys, mine), log_vals,
+                     log_bumps & mine, log_new & mine)
 
 
 def commit_window_routed(shards: list, log_keys: torch.Tensor,
                          log_vals: torch.Tensor, log_bumps: torch.Tensor,
                          log_new: torch.Tensor, n_buckets_global: int,
                          n_shards: int) -> list:
-    """Owner-shard :func:`world_state.commit_window`, in place: each shard
-    applies the window log with the entries it does not own blanked and
-    their bump and new flags cleared, so its fused scatter touches only
-    its own buckets."""
+    """Owner-shard :func:`world_state.commit_window`, in place:
+    :func:`rank_commit_window` on every shard, on its device."""
     _check(shards, n_buckets_global, n_shards)
     for m, st in enumerate(shards):
         dev = st.keys.device
-        lk = log_keys.to(dev)
-        mine = owned_mask(lk, n_buckets_global, n_shards, m)
-        ws.commit_window(st, _blank_unowned(lk, mine), log_vals.to(dev),
-                         log_bumps.to(dev) & mine, log_new.to(dev) & mine)
+        rank_commit_window(st, m, log_keys.to(dev), log_vals.to(dev),
+                           log_bumps.to(dev), log_new.to(dev),
+                           n_buckets_global, n_shards)
     return shards
 
 
@@ -281,7 +342,8 @@ def butterfly_sources(n_shards: int, grow: bool) -> list:
 
 
 def resize_sharded(shards: list, new_nb_loc: int, n_buckets_global: int,
-                   n_shards: int) -> RoutedResizeResult:
+                   n_shards: int, *, device=None, moved=None
+                   ) -> RoutedResizeResult:
     """Halve or double every shard's bucket count.
 
     Under the high-bit partition a global doubling sends the keys of the
@@ -294,7 +356,9 @@ def resize_sharded(shards: list, new_nb_loc: int, n_buckets_global: int,
     of the merged table, split, array for array; a shrink that overflows a
     merged bucket drops the same entries and sets its shard's flag.
     ``new_nb_loc`` must be 2x or x/2 the current local bucket count. New
-    shard r is built on old shard r's device."""
+    shard r is built on old shard r's device; the flags land on ``device``
+    (default: shard 0's). ``moved`` (a Counter) adds under ``"resize"``
+    the bytes of the old shards a new shard takes from another rank."""
     _check(shards, n_buckets_global, n_shards)
     nb_loc = shards[0].n_buckets
     if new_nb_loc not in (2 * nb_loc, nb_loc // 2):
@@ -305,6 +369,7 @@ def resize_sharded(shards: list, new_nb_loc: int, n_buckets_global: int,
     new_nb_glob = n_buckets_global * 2 if grow else n_buckets_global // 2
     ws.shard_buckets(new_nb_glob, n_shards)  # validate the new partition
 
+    device = shards[0].keys.device if device is None else device
     if n_shards == 1:
         res = ws.resize(shards[0], new_nb_loc)
         return RoutedResizeResult(state=[res.state], overflow=res.overflow,
@@ -315,19 +380,35 @@ def resize_sharded(shards: list, new_nb_loc: int, n_buckets_global: int,
         dev = shards[r].keys.device
         pair = ws.HashState(*(torch.cat([a.to(dev), b.to(dev)])
                               for a, b in zip(shards[lo], shards[hi])))
+        if moved is not None:
+            moved["resize"] += sum(t.numel() * t.element_size()
+                                   for src in (lo, hi) if src != r
+                                   for t in shards[src])
         mine = owned_mask(pair.keys, new_nb_glob, n_shards, r)
         res = ws.resize(pair._replace(keys=_blank_unowned(pair.keys, mine)),
                         new_nb_loc)
         out.append(res.state)
-        flags.append(res.overflow.to(shards[0].keys.device))
+        flags.append(res.overflow.to(device))
     shard_ovf = torch.stack(flags)
     return RoutedResizeResult(state=out, overflow=shard_ovf.any(),
                               shard_overflow=shard_ovf)
 
 
-def sharded_digest(shards: list) -> torch.Tensor:
-    """(2,) head of the sharded state: the digest tree over the shards'
-    digests, gathered in shard order."""
-    dev = shards[0].keys.device
+def sharded_digest(shards: list, device=None) -> torch.Tensor:
+    """(2,) head of the sharded state on ``device`` (default: shard 0's):
+    each shard's digest on its own device, gathered there in shard order
+    and folded by the digest tree."""
+    dev = shards[0].keys.device if device is None else device
     return ws.shard_digest_tree(torch.stack(
         [ws.state_digest(st).to(dev) for st in shards]))
+
+
+def sharded_state_digest(shards: list, device=None) -> torch.Tensor:
+    """(2,) :func:`world_state.state_digest` of the table the shards make
+    up, on ``device`` (default: shard 0's): the XOR of the shards'
+    digests, each computed on its own device."""
+    dev = shards[0].keys.device if device is None else device
+    out = ws.state_digest(shards[0]).to(dev)
+    for st in shards[1:]:
+        out = out ^ ws.state_digest(st).to(dev)
+    return out

@@ -40,6 +40,23 @@ class WindowFill(NamedTuple):
     # key's bucket (the planner's slot budget)
 
 
+def fill_keys(read_keys: torch.Tensor, write_keys: torch.Tensor) -> tuple:
+    """The fill's probe keys: the read keys (N, RK, 2) and write keys
+    (N, WK, 2) flat and together, and the write keys flat, whose buckets'
+    free slots the fill counts."""
+    wflat = write_keys.reshape(-1, 2)
+    return torch.cat([read_keys.reshape(-1, 2), wflat]), wflat
+
+
+def as_fill(vers: torch.Tensor, free: torch.Tensor, n: int, n_read: int
+            ) -> WindowFill:
+    """A :class:`WindowFill` of ``n`` transactions from the probe of
+    :func:`fill_keys`' keys, the first ``n_read`` of them read keys."""
+    return WindowFill(read_vers=vers[:n_read].reshape(n, -1),
+                      write_vers=vers[n_read:].reshape(n, -1),
+                      write_free=free.reshape(n, -1))
+
+
 def gather_window_state(local: ws.HashState, read_keys: torch.Tensor,
                         write_keys: torch.Tensor, shard_state: bool = False,
                         *, n_buckets_global: int = None, n_shards: int = 1
@@ -50,10 +67,7 @@ def gather_window_state(local: ws.HashState, read_keys: torch.Tensor,
     the reads, writes and free counts go through one routed
     ``sharded_window_fill`` over its ``n_shards`` shards of
     ``n_buckets_global`` buckets in all."""
-    n = read_keys.shape[0]
-    rflat = read_keys.reshape(-1, 2)
-    wflat = write_keys.reshape(-1, 2)
-    allk = torch.cat([rflat, wflat])
+    allk, wflat = fill_keys(read_keys, write_keys)
     if shard_state:
         vers, free = state_sharding.sharded_window_fill(
             state_sharding.shard_views(local, n_shards), allk, wflat,
@@ -61,11 +75,8 @@ def gather_window_state(local: ws.HashState, read_keys: torch.Tensor,
     else:
         vers = ws.lookup(local, allk).versions
         free = ws.bucket_free_slots(local, wflat)
-    nr = rflat.shape[0]
-    return WindowFill(
-        read_vers=vers[:nr].reshape(n, -1),
-        write_vers=vers[nr:].reshape(n, -1),
-        write_free=free.reshape(n, -1))
+    return as_fill(vers, free, read_keys.shape[0],
+                   read_keys.shape[0] * read_keys.shape[1])
 
 
 def version_adjustment(read_keys: torch.Tensor, wlog_keys: torch.Tensor,

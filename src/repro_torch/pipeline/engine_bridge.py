@@ -29,6 +29,17 @@ their reads and commits over them, a resize is the butterfly exchange
 (``state_sharding.resize_sharded``), and the shard stats, hot shard, digest
 tree and the engine's snapshots and re-anchor records follow the shards.
 With replicated state a table is one shard.
+
+``mesh=`` (launch/mesh) is the counterpart of the reference's
+``MeshWindowCommitter``: each shape group's state is placed over the
+mesh's (data, model) devices (``fabric_step.MeshState``), its channels
+split over ``data`` exactly when the group's size divides it, and each
+window runs the mesh step. A resize runs where the channel lives (the
+butterfly across its row's shard devices, or every replica); the shard
+stats, hot shard, digests and snapshots read each shard on its device;
+the gathers of channels between groups at a resize go through the mesh's
+first device, as the reference's go through the host. The committer's
+``device`` is then the mesh's first, where the orderer runs.
 """
 
 from __future__ import annotations
@@ -116,6 +127,8 @@ class _ChannelGroup:
 
     @property
     def n_buckets(self) -> int:
+        if isinstance(self.state, fs.MeshState):
+            return self.state.n_buckets
         return self.state.keys.shape[1]
 
 
@@ -127,16 +140,26 @@ def _take(state: fs.FabricMeshState, idx: list) -> fs.FabricMeshState:
 class WindowCommitter:
     """The committer role backed by the windowed fabric step: ``n_channels``
     channels on one device (default: the card; raises without one unless
-    ``device='cpu'``). Each channel's results equal a one-channel
-    committer's fed that channel's blocks. ``n_shards`` is the reference's
-    ``model`` size: the bucket shards of a table under ``cfg.shard_state``
-    (a power of two dividing ``n_buckets``)."""
+    ``device='cpu'``), or over ``mesh``. Each channel's results equal a
+    one-channel committer's fed that channel's blocks. ``n_shards`` is the
+    reference's ``model`` size (with a mesh, the mesh's): the bucket shards
+    of a table under ``cfg.shard_state`` (a power of two dividing
+    ``n_buckets``)."""
 
     def __init__(self, dims: types.FabricDims, cfg: fs.FabricStepConfig, *,
                  n_buckets: int = 1 << 12, slots: int = 8,
-                 n_channels: int = 1, n_shards: int = 1, device=None):
+                 n_channels: int = 1, n_shards: int = 1, device=None,
+                 mesh=None):
         if n_channels < 1:
             raise ValueError(f"n_channels must be >= 1, got {n_channels}")
+        if mesh is not None:
+            if n_shards not in (1, mesh.model_size):
+                raise ValueError(f"n_shards={n_shards} on a mesh of "
+                                 f"{mesh.model_size} model ranks")
+            if device is not None:
+                raise ValueError("a mesh committer runs on the mesh's "
+                                 "devices: pass mesh= or device=, not both")
+            n_shards = mesh.model_size
         if n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {n_shards}")
         if cfg.shard_state:
@@ -147,11 +170,17 @@ class WindowCommitter:
         self.model_size = n_shards
         self.slots = slots
         self.n_channels = n_channels
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.first if mesh is not None else resolve_device(
+            device)
         self.groups = [_ChannelGroup(
             tuple(range(n_channels)),
             fs.create_mesh_state(n_channels, dims, n_buckets, slots,
-                                 device=self.device))]
+                                 device=self.device)
+            if mesh is None else fs.create_mesh_state(
+                n_channels, dims, n_buckets, slots, mesh=mesh,
+                shard_state=cfg.shard_state,
+                channels_over_data=self._over_data(n_channels)))]
         self._prev_hash = [torch.zeros((2,), dtype=u32.WORD,
                                        device=self.device)
                            for _ in range(n_channels)]
@@ -166,6 +195,29 @@ class WindowCommitter:
         self.obs = obs
 
     # -- channels --------------------------------------------------------------
+
+    def _over_data(self, n: int) -> bool:
+        """A group of ``n`` channels splits over ``data`` when it divides."""
+        return n % self.mesh.dp_size == 0
+
+    def _take(self, state, idx: list):
+        """The channels ``idx`` of a group's state, as a state of their own
+        (on a mesh: gathered on its first device and placed again)."""
+        if self.mesh is None:
+            return _take(state, idx)
+        return self._place(_take(fs.gather_state(state), idx))
+
+    def _place(self, state: fs.FabricMeshState) -> fs.MeshState:
+        return fs.place_state(
+            state, self.mesh, shard_state=self.cfg.shard_state,
+            channels_over_data=self._over_data(state.keys.shape[0]))
+
+    def _field(self, g: _ChannelGroup, name: str) -> torch.Tensor:
+        """A field of a group's state, channel dim leading, on the
+        committer's device."""
+        if self.mesh is None:
+            return getattr(g.state, name)
+        return fs.gather_field(g.state, name)
 
     def _locate(self, channel: int) -> tuple:
         for g in self.groups:
@@ -187,17 +239,19 @@ class WindowCommitter:
     @property
     def state(self) -> fs.FabricMeshState:
         """THE state, while every channel shares one layout (always, with
-        one channel)."""
+        one channel); on a mesh, gathered on its first device (a copy)."""
         if len(self.groups) != 1:
             raise ValueError("channels hold different bucket layouts: use "
                              "channel_state(c)")
-        return self.groups[0].state
+        g = self.groups[0]
+        return g.state if self.mesh is None else fs.gather_state(g.state)
 
     def channel_state(self, channel: int) -> fs.FabricMeshState:
-        """One channel's state with a channel dim of 1 (views), shaped as a
-        one-channel committer's ``state``."""
+        """One channel's state with a channel dim of 1 (views; on a mesh a
+        gathered copy), shaped as a one-channel committer's ``state``."""
         g, pos = self._locate(channel)
-        return fs.FabricMeshState(*(a[pos:pos + 1] for a in g.state))
+        st = g.state if self.mesh is None else fs.gather_state(g.state)
+        return fs.FabricMeshState(*(a[pos:pos + 1] for a in st))
 
     @property
     def n_buckets(self) -> int:
@@ -213,7 +267,10 @@ class WindowCommitter:
             self._steps[key] = fs.make_fabric_step(
                 self.dims, dataclasses.replace(self.cfg, pipeline_depth=d),
                 n_shards=self.model_size,
-                channel=None if self.n_channels == 1 else channels)
+                channel=None if self.n_channels == 1 else channels,
+                mesh=self.mesh,
+                channels_over_data=(self.mesh is None
+                                    or self._over_data(len(channels))))
         return self._steps[key]
 
     # -- windows ---------------------------------------------------------------
@@ -260,7 +317,7 @@ class WindowCommitter:
                     g.state, valid = step(g.state, wire_g, ids_g)
                 prevs, hashes = _chain_hashes(
                     torch.stack([self._prev_hash[c] for c in chans]),
-                    u32.sub(g.state.block_no, d), wire_g, valid)
+                    u32.sub(self._field(g, "block_no"), d), wire_g, valid)
                 for i, c in enumerate(chans):
                     self._prev_hash[c] = hashes[i, -1]
                     valid_c[c], prevs_c[c], hashes_c[c] = (
@@ -291,10 +348,11 @@ class WindowCommitter:
         in flight: the window write log assumes one layout a window): split
         the channel out of its shape group, rehash it (under
         ``cfg.shard_state`` the butterfly exchange of its shards, one
-        doubling or halving at a time), merge it into a group at the new
-        layout if there is one, and latch any shrink overflow on the bits
-        of the shards that dropped entries. Other channels are untouched.
-        Returns the epoch's :class:`ReanchorInfo`."""
+        doubling or halving at a time; on a mesh where it lives), merge it
+        into a group at the new layout if there is one, and latch any
+        shrink overflow on the bits of the shards that dropped entries.
+        Other channels are untouched. Returns the epoch's
+        :class:`ReanchorInfo`."""
         g, pos = self._locate(channel)
         old_nb = g.n_buckets
         if new_n_buckets == old_nb:
@@ -302,33 +360,24 @@ class WindowCommitter:
         m = self.n_shards
         if self.cfg.shard_state:
             # Refuse before the channel leaves its group.
-            new_nb_loc = new_n_buckets // m
             if new_n_buckets not in (2 * old_nb, old_nb // 2):
                 raise ValueError(
                     f"resize_sharded steps by 2x only: nb_loc={old_nb // m}"
-                    f" -> {new_nb_loc}")
+                    f" -> {new_n_buckets // m}")
             ws.shard_buckets(new_n_buckets, m)
-        lone = _take(g.state, [pos])
+        lone = self._take(g.state, [pos])
         if len(g.channels) > 1:
-            g.state = _take(g.state, [i for i in range(len(g.channels))
-                                      if i != pos])
+            g.state = self._take(g.state, [i for i in range(len(g.channels))
+                                           if i != pos])
             g.channels = tuple(c for c in g.channels if c != channel)
         else:
             self.groups.remove(g)
-        tab = ws.HashState(lone.keys[0], lone.versions[0], lone.values[0])
-        if self.cfg.shard_state:
-            res = state_sharding.resize_sharded(
-                state_sharding.shard_views(tab, m), new_nb_loc, old_nb, m)
-            new = ws.HashState(*(torch.cat(a) for a in zip(*res.state)))
+        if self.mesh is None:
+            lone = self._resize_one(lone, old_nb, new_n_buckets)
         else:
-            res = ws.resize(tab, new_n_buckets)
-            new = res.state
-        lone = lone._replace(
-            keys=new.keys[None], versions=new.versions[None],
-            values=new.values[None],
-            overflow=lone.overflow | state_sharding.overflow_bits(
-                res.shard_overflow if self.cfg.shard_state
-                else res.overflow[None]))
+            lone = lone._replace(ranks=tuple(
+                self._resize_row(row, old_nb, new_n_buckets)
+                for row in lone.ranks))
         target = next((h for h in self.groups
                        if h.n_buckets == new_n_buckets), None)
         if target is None:
@@ -336,9 +385,15 @@ class WindowCommitter:
         else:
             chans = target.channels + (channel,)
             order = sorted(range(len(chans)), key=chans.__getitem__)
-            merged = fs.FabricMeshState(*(torch.cat([a, b]) for a, b in
-                                          zip(target.state, lone)))
-            target.state = _take(merged, order)
+            if self.mesh is None:
+                parts = (target.state, lone)
+            else:
+                parts = (fs.gather_state(target.state),
+                         fs.gather_state(lone))
+            merged = _take(fs.FabricMeshState(*(torch.cat(a) for a in
+                                                zip(*parts))), order)
+            target.state = merged if self.mesh is None else self._place(
+                merged)
             target.channels = tuple(sorted(chans))
         info = ReanchorInfo(
             block_no=self.block_no_for(channel) - 1, old_n_buckets=old_nb,
@@ -351,60 +406,113 @@ class WindowCommitter:
             overflow_bits=info.overflow_bits)
         return info
 
+    def _resize_one(self, lone: fs.FabricMeshState, old_nb: int,
+                    new_nb: int) -> fs.FabricMeshState:
+        """A one-channel state rehashed to ``new_nb`` buckets on one device:
+        the butterfly over its shard views, or ``world_state.resize``."""
+        m = self.n_shards
+        tab = ws.HashState(lone.keys[0], lone.versions[0], lone.values[0])
+        if self.cfg.shard_state:
+            res = state_sharding.resize_sharded(
+                state_sharding.shard_views(tab, m), new_nb // m, old_nb, m)
+            new = ws.HashState(*(torch.cat(a) for a in zip(*res.state)))
+            ovf = res.shard_overflow
+        else:
+            res = ws.resize(tab, new_nb)
+            new, ovf = res.state, res.overflow[None]
+        return lone._replace(
+            keys=new.keys[None], versions=new.versions[None],
+            values=new.values[None],
+            overflow=lone.overflow | state_sharding.overflow_bits(ovf))
+
+    def _resize_row(self, row: tuple, old_nb: int, new_nb: int) -> tuple:
+        """One data row's copy of a lone channel rehashed where it lives:
+        the butterfly across the row's shard devices (each rank's flag
+        reduced onto every rank), or every replica on its own device."""
+        if not self.cfg.shard_state:
+            return tuple(self._resize_one(r, old_nb, new_nb) for r in row)
+        m = self.n_shards
+        res = state_sharding.resize_sharded(
+            [fs.table(r.keys, r.versions, r.values, 0) for r in row],
+            new_nb // m, old_nb, m, moved=self.mesh.moved)
+        out = []
+        for r, new in zip(row, res.state):
+            bits = state_sharding.overflow_bits(
+                res.shard_overflow.to(r.keys.device))
+            out.append(r._replace(
+                keys=new.keys[None], versions=new.versions[None],
+                values=new.values[None], overflow=r.overflow | bits))
+        return tuple(out)
+
     def shard_stats(self, channels=(0,)) -> dict:
         """channel -> (per-shard occupancy (M,), min free slots, per-shard
-        slot capacity, sticky overflow bits), in one stacked read a shape
-        group."""
-        want = set(channels)
-        for c in want:
+        slot capacity, sticky overflow bits): each shard counted on its
+        device, in one host read for all ``channels``."""
+        channels = list(channels)
+        for c in channels:
             self._locate(c)
         m = self.n_shards
+        parts = []
+        for c in channels:
+            tabs = self.shard_tables(c)
+            parts += [ws.shard_occupancy(t, 1).to(self.device) for t in tabs]
+            parts += [ws.shard_min_free(t, 1).to(self.device) for t in tabs]
+            parts.append(u32.to_u64(self._head("overflow", c)).to(
+                self.device))
+        host = torch.cat(parts).cpu().numpy()
+        w = 2 * m + state_sharding.OVERFLOW_LANES
         out = {}
-        for g in self.groups:
-            sel = [i for i, c in enumerate(g.channels) if c in want]
-            if not sel:
-                continue
-            parts = []
-            for i in sel:
-                st = ws.HashState(g.state.keys[i], g.state.versions[i],
-                                  g.state.values[i])
-                parts += [ws.shard_occupancy(st, m), ws.shard_min_free(st, m),
-                          u32.to_u64(g.state.overflow[i])]
-            host = torch.cat(parts).cpu().numpy()
-            w = 2 * m + state_sharding.OVERFLOW_LANES
-            for k, i in enumerate(sel):
-                row = host[k * w:(k + 1) * w]
-                out[g.channels[i]] = (
-                    row[:m], int(row[m:2 * m].min()),
-                    g.n_buckets // m * self.slots,
-                    state_sharding.bits_to_int(row[2 * m:]))
+        for k, c in enumerate(channels):
+            row = host[k * w:(k + 1) * w]
+            out[c] = (row[:m], int(row[m:2 * m].min()),
+                      self.n_buckets_for(c) // m * self.slots,
+                      state_sharding.bits_to_int(row[2 * m:]))
         return out
 
     def hot_shard(self, channel: int = 0) -> int:
         """The shard a grow should relieve: the first overflowed one, else
         the fullest."""
-        return ws.hot_shard(self.overflow_bits_for(channel),
-                            ws.shard_occupancy(self.hash_state(channel),
-                                               self.n_shards))
+        return ws.hot_shard(self.overflow_bits_for(channel), torch.cat([
+            ws.shard_occupancy(t, 1).cpu()
+            for t in self.shard_tables(channel)]))
 
     # -- state accessors -------------------------------------------------------
 
+    def shard_tables(self, channel: int = 0) -> list:
+        """A channel's ``n_shards`` tables where they live (views): on one
+        device the shard views of its table, on a mesh its shards on their
+        devices, or its replica at model rank 0."""
+        g, pos = self._locate(channel)
+        if self.mesh is not None:
+            return g.state.tables(pos)
+        return state_sharding.shard_views(self.hash_state(channel),
+                                          self.n_shards)
+
     def hash_state(self, channel: int = 0) -> ws.HashState:
-        """A channel's committed table (views of the live tensors)."""
+        """A channel's committed table: views of the live tensors on one
+        device; on a mesh its shards (or its replica) gathered on the
+        committer's device."""
+        if self.mesh is not None:
+            return ws.HashState(*(torch.cat([x.to(self.device) for x in a])
+                                  for a in zip(*self.shard_tables(channel))))
         g, pos = self._locate(channel)
         return ws.HashState(g.state.keys[pos], g.state.versions[pos],
                             g.state.values[pos])
 
     def state_digest(self, channel: int = 0) -> np.ndarray:
-        return u32.to_numpy(ws.state_digest(self.hash_state(channel)))
+        return u32.to_numpy(state_sharding.sharded_state_digest(
+            self.shard_tables(channel), self.device))
 
     def tree_head(self, channel: int = 0) -> np.ndarray:
         """(2,) u32 digest-tree head of a channel's table's shards."""
-        return u32.to_numpy(ws.tree_head(self.hash_state(channel),
-                                         self.n_shards))
+        return u32.to_numpy(state_sharding.sharded_digest(
+            self.shard_tables(channel), self.device))
 
     def _head(self, name: str, channel: int) -> torch.Tensor:
         g, pos = self._locate(channel)
+        if self.mesh is not None:
+            d, i = g.state.rank_of(pos)
+            return getattr(g.state.ranks[d][0], name)[i]
         return getattr(g.state, name)[pos]
 
     @property
@@ -424,7 +532,8 @@ class WindowCommitter:
     def overflow(self) -> bool:
         """Sticky: some commit on some channel dropped a write on a full
         bucket."""
-        return any(bool(g.state.overflow.any()) for g in self.groups)
+        return any(bool(self._field(g, "overflow").any())
+                   for g in self.groups)
 
     @property
     def overflow_bits(self) -> int:
@@ -436,9 +545,16 @@ class WindowCommitter:
         return state_sharding.bits_to_int(self._head("overflow", channel))
 
     def sync_target(self) -> tuple:
-        """The tensors a sync on the committed windows waits for."""
-        return tuple(g.state.ledger_head for g in self.groups)
+        """The tensors a sync on the committed windows waits for: on a mesh
+        every rank's, so that the sync covers every device."""
+        if self.mesh is None:
+            return tuple(g.state.ledger_head for g in self.groups)
+        return tuple(r.ledger_head for g in self.groups
+                     for row in g.state.ranks for r in row)
 
     def block_until_ready(self) -> None:
-        if self.device.type == "cuda":
+        """Wait for the committer's device, or every card of its mesh."""
+        if self.mesh is not None:
+            self.mesh.synchronize()
+        elif self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

@@ -97,23 +97,32 @@ def _shard_digest(keys, versions, values) -> torch.Tensor:
     return ws.state_digest(ws.HashState(keys, versions, values))
 
 
-def take(state: ws.HashState, *, block_no: int, journal_head, ledger_head,
+def take(state, *, block_no: int, journal_head, ledger_head,
          n_shards: int = 1, overflow_bits: int = 0,
          reanchor_head=None) -> Snapshot:
-    """Snapshot ``state`` as ``n_shards`` host parts + manifest. The shard
-    digests and the tree head are computed on the state's device, then the
-    arrays are copied to the host. Call between rounds, off the timed
-    window."""
-    sk, sv, sva = ws.split_table(state.keys, state.versions, state.values,
-                                 n_shards)
-    digests = torch.stack([_shard_digest(sk[m], sv[m], sva[m])
-                           for m in range(n_shards)])
+    """Snapshot ``state`` as ``n_shards`` host parts + manifest. ``state``
+    is one table, split into its shard views, or the list of its
+    ``n_shards`` shard tables, which may lie on different devices. Each
+    shard's digest is computed on its shard's device and its part copied to
+    the host from there; the tree head folds the digests on shard 0's
+    device. Call between rounds, off the timed window."""
+    if isinstance(state, ws.HashState):
+        shards = [ws.HashState(*t) for t in zip(*ws.split_table(
+            state.keys, state.versions, state.values, n_shards))]
+    else:
+        shards = list(state)
+        if len(shards) != n_shards:
+            raise ValueError(f"{len(shards)} shard tables for a snapshot "
+                             f"of {n_shards} shards")
+    dev = shards[0].keys.device
+    digests = torch.stack([_shard_digest(*st).to(dev) for st in shards])
     tree = u32.to_numpy(ws.shard_digest_tree(digests))
     shard_digests = u32.to_numpy(digests)
-    parts = tuple(ShardPart(shard=m, keys=u32.host_copy(sk[m]),
-                            versions=u32.host_copy(sv[m]),
-                            values=u32.host_copy(sva[m]))
-                  for m in range(n_shards))
+    parts = tuple(ShardPart(shard=m, keys=u32.host_copy(st.keys),
+                            versions=u32.host_copy(st.versions),
+                            values=u32.host_copy(st.values))
+                  for m, st in enumerate(shards))
+    nb = sum(st.n_buckets for st in shards)
     manifest = Manifest(
         block_no=int(block_no),
         journal_head=u32.host_copy(journal_head),
@@ -122,8 +131,8 @@ def take(state: ws.HashState, *, block_no: int, journal_head, ledger_head,
                        else u32.host_copy(reanchor_head)),
         # XOR decomposition: the full-table digest without a second pass.
         state_digest=np.bitwise_xor.reduce(shard_digests, axis=0),
-        n_buckets=state.n_buckets, slots=state.slots,
-        value_width=state.value_width, n_shards=int(n_shards),
+        n_buckets=nb, slots=shards[0].slots,
+        value_width=shards[0].value_width, n_shards=int(n_shards),
         shard_digests=shard_digests, tree_head=tree,
         overflow_bits=int(overflow_bits))
     return Snapshot(manifest=manifest, shards=parts)
