@@ -66,7 +66,7 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
 7. The peer ladder: Fabric 1.2 (sorted store, staged serial validation),
    P-I and P-I+II (hash table, sequential commit kernel), each behind the
    Fabric 1.2 orderer, at the same size: a warm-up round of one block, a
-   timed round of 500 disjoint transfers and a conflicting round of 300
+   timed round of 200 disjoint transfers and a conflicting round of 200
    transfers among 256 accounts (src != dst), counters set to 0 before each
    configuration and read after it; verify() all True, every kernel of the
    configuration launched (K1 and K4 as in phase 4: a serial check is one
@@ -154,8 +154,8 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
    0; each channel's chain, heads and digests equal a one-channel window
    engine's on the card fed that channel's proposals; per-channel tx/s
    (the shared wall) beside that engine's and the fairness ratio (min /
-   max). (b) The host path under the Zipf (s = 1.2) load, 2,100 / 900 /
-   500 / 400 txs (4,000 split by weight, rounded down to the block size),
+   max). (b) The host path under the Zipf (s = 1.2) load, 1,000 / 400 /
+   200 / 200 txs (2,000 split by weight, rounded down to the block size),
    K1 and K4 as in phase 4; card = CPU (chains, heads, digests,
    verify_all). (c) Durability: two channels through a two-channel
    committer with a journal, snapshots every 10 blocks and a block spill
@@ -325,11 +325,27 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
    the mesh (the whole wire in consensus; K3 on every replica) equals the
    one-device step on the CPU; its launches by device and consensus bytes
    a block against FASTFABRIC's.
+23. The program contracts on the card (``contracts_phase``): the contract
+   gate's seven programs (repro_torch.analysis: the fabric step replicated
+   and sharded at depth 1, sharded at depth 8 and at depth 4 over two
+   channels, the stats pass, the butterfly resize 256 -> 512 buckets, the
+   qwen2-7b smoke decode step) at the gate's sizing on a (1, 4) mesh of
+   the cards present (four positions on cuda:0 with fewer than four), each
+   a warm-up call and a call recorded under the dispatch mode and
+   ``set_sync_debug_mode("error")``: no host sync, collective calls by
+   type within their budgets, one commit pass into every table, the
+   tables kept in place, no f64/u64 result and no s64 tensor in or out;
+   counters set to 0 before each recorded call and read after, K1, K2 and
+   K4 launches by device as ``contract_launches`` reckons them (none in
+   the other three programs); a seeded ``.item()`` in a step caught as a
+   host sync; the committer's rebuild and signature audit and the
+   host-sync lint clean; the phase within CONTRACT_PHASE_S.
 
 The lines before the last give each phase's seconds, the card's name and
 power limit (as nvidia-smi prints them), the engine, ladder, serving,
 durability, observability, pipeline, channel, sharding, training, MoE
-serving, SSM, hybrid, encdec, family-training and mesh summaries (with
+serving, SSM, hybrid, encdec, family-training, mesh and analysis
+summaries (with
 the storage objects' sizes) and the kernels (K1-K5 and K5's backward); the
 last line is {"ok": true, "device": {...}}.
 """
@@ -358,8 +374,11 @@ ALU_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores; the
 # same units at no more than this rate
 TC_BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 ROUND_TXS = 1000
-LADDER_TXS = 500  # the ladder's timed round
-LADDER_CONFLICT_TXS = 300  # its conflicting round
+# The ladder's timed round and its conflicting round: Fabric 1.2's orderer
+# chains every transaction serially (~17 tx/s on the card's host), so these
+# sizes set the phase's time on the card and on the CPU.
+LADDER_TXS = 200
+LADDER_CONFLICT_TXS = 200
 N_ACCOUNTS = 1 << 22
 SEEDS = (0, 1)  # warm-up round, then the timed round
 PROFILED_TXS = 300  # the profiled round (its trace takes minutes to read)
@@ -381,11 +400,11 @@ WINDOW_DEPTH = 8
 WINDOW_TURNS = ("block", "window", "window", "block")
 WINDOW_ELASTIC_START = 1 << 11
 # Phase 14: four channels (the fairness rows' uniform load, then the Zipf
-# s = 1.2 split of 4,000 txs rounded down to the block size), the durable
+# s = 1.2 split of 2,000 txs rounded down to the block size), the durable
 # two-channel run's table (cut to 2^18 x 8: six snapshots of it) and
 # K4's block counts and sizes.
 CHANNELS = 4
-CHANNEL_ZIPF = (2100, 900, 500, 400)
+CHANNEL_ZIPF = (1000, 400, 200, 200)
 CHANNEL_DURABLE_NB, CHANNEL_DURABLE_EVERY = 1 << 18, 10
 K4_NBS, K4_NB_TXS = (1, 2, 4, 8), (100, 1024)
 # Phase 15: four bucket shards (2^18 buckets each of phase 4's table); the
@@ -409,6 +428,10 @@ MESH_SHAPE = (2, 2)
 MESH_CHANNELS = 2
 MESH_TURNS = ("one", "mesh", "mesh", "one")
 MESH_DURABLE_EVERY, MESH_DURABLE_TXS, MESH_AFTER_TXS = 5, 500, 200
+# Phase 23: the program contracts at the gate's sizing (TEST_DIMS, 8 txs a
+# model rank a block, 256 x 8 tables) on its (1, 4) mesh of the cards
+# present (four positions on cuda:0 with fewer cards).
+CONTRACT_PHASE_S = 30.0
 DUMP_FILES = {"trace.jsonl", "trace_chrome.json", "metrics.json",
               "lifecycles.json", "meta.json"}
 ROUTE_SWEEP = (32, 64, 100, 128, 160, 192, 256, 512, 1024, 1235)  # K4
@@ -1840,6 +1863,100 @@ def mesh_phase(cfg, counts, zero_counts, path_launches, mesh, *,
     del ms, st1, gathered, maker
     out["parts_s"] = parts_s
     log(f"[mesh] seconds by part: {parts_s}")
+    return out
+
+
+def contract_launches(mesh, depth: int, n_channels: int) -> dict:
+    """K1, K2 and K4 launches by device of one call of a fabric step
+    program over ``mesh``: at every rank once K1 on its rows, twice K2 a
+    channel (the read or fill, and the commit's probe), once K4 a block
+    position."""
+    import collections
+    out = {k: collections.Counter() for k in ("mac_many", "lookup",
+                                              "validate")}
+    for row in mesh.devices:
+        for dev in row:
+            out["mac_many"][str(dev)] += 1
+            out["lookup"][str(dev)] += 2 * n_channels
+            out["validate"][str(dev)] += depth
+    return {k: dict(v) for k, v in out.items()}
+
+
+def contracts_phase(mesh, zero_counts, path_launches, *, card: str = ""
+                    ) -> dict:
+    """Phase 23: the contract gate's seven programs (repro_torch.analysis)
+    over ``mesh``, each a warm-up call and a call recorded under the
+    dispatch mode (and, on a card, ``set_sync_debug_mode("error")``), held
+    against ``contracts.json``; K1, K2 and K4 launches by device of each
+    fabric step's recorded call as ``contract_launches`` reckons them, and
+    none in the others; a seeded ``.item()`` in a wrapped step caught as a
+    host sync; the retrace workload and the lint. A rehearsal on the CPU
+    passes a mesh of CPU positions."""
+    from repro_torch.analysis import checks, contracts, gate, registry
+    from repro_torch.core import types
+    t0 = time.perf_counter()
+    ctx = gate.build_context(mesh)
+    out = {"card": card, "mesh": [[str(x) for x in r] for r in mesh.devices],
+           "distinct_devices": len(mesh.distinct()), "programs": {}}
+    viols = []
+    for name, reg in registry.discover().items():
+        built = reg.builder(ctx)
+        measured, v = gate.check_program(built, contracts.for_program(name),
+                                         on_record=zero_counts)
+        got = {k: {d: n for d, n in c.items() if n}
+               for k, c in launches_by_device().items()}
+        if name.startswith("fabric_step/"):
+            want = contract_launches(mesh, built.meta["depth"],
+                                     built.meta["n_channels"])
+            path_launches[f"contracts {name}"] = launch_counts()
+        else:
+            want = {}
+        for k in ("mac_many", "lookup", "commit", "validate"):
+            if got.get(k, {}) != want.get(k, {}):
+                raise AssertionError(f"[contracts] {name}: {k} launches by "
+                                     f"device {got.get(k)}, expected "
+                                     f"{want.get(k)}")
+        row = {**checks.summary(measured), "seconds": measured["seconds"],
+               "launches_by_device": {k: c for k, c in got.items() if c},
+               "violations": [str(x) for x in v]}
+        out["programs"][name] = row
+        viols += v
+        log(gate.report_line(name, {"measured": row, "violations": v}))
+    # A seeded .item() in a wrapped step is caught as a host sync (on a
+    # card by the sync debug mode, which raises inside the call).
+    built = registry.get("fabric_step/shard/d1").builder(ctx)
+    step = built.fn
+
+    def seeded(st, wire, ids):
+        res = step(st, wire, ids)
+        res[1].any().item()
+        return res
+
+    built.fn = seeded
+    syncs = checks.run_program(built)["host_syncs"]
+    cuda = mesh.first.type == "cuda"
+    if not syncs or (cuda and not any(x.startswith("cuda:") for x in syncs)):
+        raise AssertionError(f"[contracts] a seeded .item() in a step went "
+                             f"unseen: {syncs}")
+    out["seeded_item"] = syncs
+    auditor = gate.run_retrace(mesh, types.TEST_DIMS)
+    out["retrace"] = auditor.report()
+    viols += auditor.violations
+    lint_viols = gate.run_lint()
+    out["lint"] = len(lint_viols)
+    viols += lint_viols
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[contracts] seeded .item(): {syncs[-1]}; retrace "
+        + ", ".join(f"{k} calls={r['calls']} traces={r['traces']}"
+                    for k, r in out["retrace"].items())
+        + f"; lint {len(lint_viols)}; {out['seconds']:.1f} s on "
+        f"{out['distinct_devices']} distinct device(s)")
+    if viols:
+        raise AssertionError("[contracts] " + "; ".join(map(str, viols)))
+    if cuda and out["seconds"] > CONTRACT_PHASE_S:
+        raise AssertionError(f"[contracts] phase 23 took "
+                             f"{out['seconds']:.1f} s, more than "
+                             f"{CONTRACT_PHASE_S} s")
     return out
 
 
@@ -5095,6 +5212,14 @@ def main(argv=None) -> int:
                           card_mesh(), card=card)
     phase_done("22 mesh", t0)
 
+    # -- 23. the program contracts on the card -------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    from repro_torch.analysis import gate as contract_gate
+    analysis = contracts_phase(contract_gate.make_mesh("cuda"), zero_counts,
+                               path_launches, card=card)
+    phase_done("23 contracts", t0)
+
     kernels = [{
         "name": t["name"], "route": "cuda", "source": t["source"],
         "replaces": t["replaces"],
@@ -5123,6 +5248,7 @@ def main(argv=None) -> int:
     log(json.dumps({"encdec": encdec}, default=str))
     log(json.dumps({"family_training": family_training}, default=str))
     log(json.dumps({"mesh": mesh_run}, default=str))
+    log(json.dumps({"analysis": analysis}, default=str))
     log(json.dumps({"phase_s": phase_s,
                     "total_s": time.perf_counter() - t_start}))
     log(card)

@@ -154,13 +154,13 @@ def resize(state: HashState, new_n_buckets: int) -> ResizeResult:
     live = sb < new_n_buckets
     overflow = (live & (rank >= s)).any()
     keep = live & (rank < s)
-    dest = sb[keep] * s + rank[keep]
-    src = order[keep]
+    dest = torch.where(keep, sb * s + rank, 0)
 
     def scat(arr, width):
         out = torch.zeros((new_n_buckets * s, *width), dtype=u32.WORD,
                           device=dev)
-        out[dest] = arr.reshape(k, *width)[src]
+        put_rows(out, dest, arr.reshape(k, *width).index_select(0, order),
+                 keep)
         return out.reshape(new_n_buckets, s, *width)
 
     return ResizeResult(
@@ -259,6 +259,24 @@ class CommitResult(NamedTuple):
     overflow: torch.Tensor  # () bool: a bucket ran out of slots
 
 
+def put_rows(dst: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor,
+             mask: torch.Tensor) -> None:
+    """``dst[idx[mask]] = rows[mask]`` in place, with no host sync (a
+    boolean mask would size the scatter by the data). The entries ``mask``
+    leaves out write the first kept entry's row to its index again, or,
+    when none is kept, ``dst``'s own row at ``idx[0]`` back, so an index the
+    scatter sees twice gets one value; the kept indices must be distinct
+    and ``idx[0]`` in range."""
+    if idx.numel() == 0:
+        return
+    first = torch.argmax(mask.to(torch.int32)).view(1)
+    at = idx.index_select(0, first)
+    fill = torch.where(mask.any(), rows.index_select(0, first),
+                       dst.index_select(0, at))
+    keep = mask.view(-1, *([1] * (rows.dim() - 1)))
+    dst.index_put_((torch.where(mask, idx, at),), torch.where(keep, rows, fill))
+
+
 def _flatten_writes(write_keys, write_vals, active):
     """(B, WK, 2)/(B, WK, VW)/(B,) -> flat (K, 2)/(K, VW)/(K,)."""
     bsz, wk, _ = write_keys.shape
@@ -304,10 +322,10 @@ def commit_vectorized(state: HashState, write_keys, write_vals, active
     new_ver = torch.where(is_update, u32.add(look.versions, 1), 1)
     # Only applied writes are written: a stale write-back at a guessed slot
     # (argmax of an all-false mask is 0) would clobber a same-bucket insert.
-    flat = (b * state.slots + slot)[do]
-    state.keys.view(-1, 2)[flat] = fk[do]
-    state.versions.view(-1)[flat] = new_ver[do].to(u32.WORD)
-    state.values.view(-1, state.value_width)[flat] = fv[do]
+    flat = b * state.slots + slot
+    put_rows(state.keys.view(-1, 2), flat, fk, do)
+    put_rows(state.versions.view(-1), flat, new_ver.to(u32.WORD), do)
+    put_rows(state.values.view(-1, state.value_width), flat, fv, do)
     return CommitResult(state, overflow)
 
 
@@ -349,7 +367,8 @@ def commit_window(state: HashState, log_keys: torch.Tensor,
     slot the window-start slot or the rank-th empty slot of its bucket in
     ``log_new`` order, the slot the per-block commits would have given it.
     Only each key's last bump is written (as :func:`commit_vectorized`
-    writes only applied writes): the card's scatter orders no duplicates.
+    writes only applied writes, :func:`put_rows`): the card's scatter
+    orders no duplicates.
     """
     lk = log_keys
     dev = lk.device
@@ -379,10 +398,10 @@ def commit_window(state: HashState, log_keys: torch.Tensor,
     slot = torch.where(look.found, look.slots.long(), ins_slot)
     new_ver = u32.add(look.versions, total)
 
-    flat = (b * state.slots + slot)[lww]
-    state.keys.view(-1, 2)[flat] = lk[lww]
-    state.versions.view(-1)[flat] = new_ver[lww]
-    state.values.view(-1, state.value_width)[flat] = log_vals[lww]
+    flat = b * state.slots + slot
+    put_rows(state.keys.view(-1, 2), flat, lk, lww)
+    put_rows(state.versions.view(-1), flat, new_ver, lww)
+    put_rows(state.values.view(-1, state.value_width), flat, log_vals, lww)
     return state
 
 

@@ -417,8 +417,10 @@ def on_mesh(row):
         first = ms.mesh.first
         ranks, valid = [], []
         for d, chans in enumerate(ms.channels):
-            idx = list(chans)
-            out, mine = row(d, ms.ranks[d], wire[idx], ids[idx])
+            # A row's channels are a contiguous range (_channel_rows): a
+            # slice, where a list index would copy it to the card first.
+            sl = slice(chans[0], chans[-1] + 1)
+            out, mine = row(d, ms.ranks[d], wire[sl], ids[sl])
             ranks.append(tuple(out))
             if ms.over_data or d == 0:
                 valid.append(torch.cat([v.to(first) for v in mine], dim=-1))

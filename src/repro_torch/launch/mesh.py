@@ -7,10 +7,13 @@ world state over ``model``. Here a :class:`Mesh` is an explicit 2-D list
 of ``torch.device``s, position (d, m) being data rank d and model rank m.
 One controller runs every rank's work on its position's device, stage by
 stage, and the collectives of the reference become copies between the
-ranks of one data row (:meth:`Mesh.all_gather`, :meth:`Mesh.psum`). Each
-collective adds the bytes it delivers from one position to another to
-:attr:`Mesh.moved`, by kind, counted from the shapes: positions that share
-a device count the same bytes as positions on two cards.
+ranks of one data row (:meth:`Mesh.all_gather`, :meth:`Mesh.psum`,
+:meth:`Mesh.permute`). Each collective adds the bytes it delivers from one
+position to another to :attr:`Mesh.moved`, by kind, counted from the
+shapes: positions that share a device count the same bytes as positions on
+two cards; and one to :attr:`Mesh.calls` under the reference's HLO name of
+its type (``all-gather``, ``all-reduce``, ``collective-permute``), which
+the contract analysis (repro_torch.analysis) holds against its budgets.
 
 A mesh holds the devices it is given. Positions share a device only where
 the caller lists them so; :func:`from_cards` takes one card a position and
@@ -41,6 +44,7 @@ class Mesh:
         self.devices = tuple(tuple(r) for r in rows)
         self.shape = {"data": len(rows), "model": len(rows[0])}
         self.moved = collections.Counter()  # kind -> bytes between ranks
+        self.calls = collections.Counter()  # collective type -> calls
 
     @property
     def dp_size(self) -> int:
@@ -79,7 +83,7 @@ class Mesh:
     def all_gather(self, d: int, parts: list, dim: int, kind: str) -> list:
         """``parts[m]`` on rank (d, m)'s device -> on every rank of row
         ``d``, the parts concatenated along ``dim`` in rank order."""
-        self._count(kind, parts)
+        self._count(kind, parts, "all-gather")
         return [torch.cat([p.to(dev) for p in parts], dim=dim)
                 for dev in self.row(d)]
 
@@ -88,7 +92,7 @@ class Mesh:
         ``d``, their sum (OR for bool). The routed gathers send masked
         parts, each element non-zero on one rank at most, so the sum of
         u32 words held as int32 is exact."""
-        self._count(kind, parts)
+        self._count(kind, parts, "all-reduce")
         out = []
         for dev in self.row(d):
             acc = None
@@ -99,9 +103,24 @@ class Mesh:
             out.append(acc)
         return out
 
-    def _count(self, kind: str, parts: list) -> None:
+    def permute(self, d: int, parts: list, pairs: list, kind: str) -> list:
+        """The reference's ``ppermute`` over row ``d``: for each (source,
+        destination) rank pair, ``parts[source]`` onto the destination's
+        device, at position ``destination`` of the result (None where no
+        pair lands). Only the pairs between two ranks count as moved."""
+        self.calls["collective-permute"] += 1
+        out = [None] * len(parts)
+        for src, dst in pairs:
+            out[dst] = parts[src].to(self.row(d)[dst])
+            if src != dst:
+                self.moved[kind] += (parts[src].numel()
+                                     * parts[src].element_size())
+        return out
+
+    def _count(self, kind: str, parts: list, op: str) -> None:
         """Each part reaches the row's other ranks once."""
         n = len(parts)
+        self.calls[op] += 1
         self.moved[kind] += (n - 1) * sum(p.numel() * p.element_size()
                                           for p in parts)
 

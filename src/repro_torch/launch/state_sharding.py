@@ -342,7 +342,7 @@ def butterfly_sources(n_shards: int, grow: bool) -> list:
 
 
 def resize_sharded(shards: list, new_nb_loc: int, n_buckets_global: int,
-                   n_shards: int, *, device=None, moved=None
+                   n_shards: int, *, device=None, mesh=None, row: int = 0
                    ) -> RoutedResizeResult:
     """Halve or double every shard's bucket count.
 
@@ -357,8 +357,11 @@ def resize_sharded(shards: list, new_nb_loc: int, n_buckets_global: int,
     merged bucket drops the same entries and sets its shard's flag.
     ``new_nb_loc`` must be 2x or x/2 the current local bucket count. New
     shard r is built on old shard r's device; the flags land on ``device``
-    (default: shard 0's). ``moved`` (a Counter) adds under ``"resize"``
-    the bytes of the old shards a new shard takes from another rank."""
+    (default: shard 0's). With ``mesh`` the shards are data row ``row``'s
+    model ranks: the pairs move through :meth:`Mesh.permute` (two
+    permutations a table field, as the reference's six ``ppermute``s; the
+    bytes a new shard takes from another rank count under ``"resize"``) and
+    the flags through one :meth:`Mesh.psum`."""
     _check(shards, n_buckets_global, n_shards)
     nb_loc = shards[0].n_buckets
     if new_nb_loc not in (2 * nb_loc, nb_loc // 2):
@@ -375,21 +378,39 @@ def resize_sharded(shards: list, new_nb_loc: int, n_buckets_global: int,
         return RoutedResizeResult(state=[res.state], overflow=res.overflow,
                                   shard_overflow=res.overflow[None])
 
+    sources = butterfly_sources(n_shards, grow)
+    if mesh is None:
+        pairs = [[(shards[lo][f].to(shards[r].keys.device),
+                   shards[hi][f].to(shards[r].keys.device))
+                  for f in range(len(ws.HashState._fields))]
+                 for r, (lo, hi) in enumerate(sources)]
+    else:
+        pa, pb = _butterfly_perms(n_shards, grow)
+        got = [[mesh.permute(row, [s[f] for s in shards], perm, "resize")
+                for perm in (pa, pb)]
+               for f in range(len(ws.HashState._fields))]
+        # The low source came through pa at a rank below M/2 (growing) or
+        # at an even rank (shrinking); its twin got the two swapped.
+        pairs = [[(ga[r], gb[r]) if (r < n_shards // 2 if grow
+                                    else r % 2 == 0) else (gb[r], ga[r])
+                  for ga, gb in got] for r in range(n_shards)]
     out, flags = [], []
-    for r, (lo, hi) in enumerate(butterfly_sources(n_shards, grow)):
-        dev = shards[r].keys.device
-        pair = ws.HashState(*(torch.cat([a.to(dev), b.to(dev)])
-                              for a, b in zip(shards[lo], shards[hi])))
-        if moved is not None:
-            moved["resize"] += sum(t.numel() * t.element_size()
-                                   for src in (lo, hi) if src != r
-                                   for t in shards[src])
+    for r, fields in enumerate(pairs):
+        pair = ws.HashState(*(torch.cat(ab) for ab in fields))
         mine = owned_mask(pair.keys, new_nb_glob, n_shards, r)
         res = ws.resize(pair._replace(keys=_blank_unowned(pair.keys, mine)),
                         new_nb_loc)
         out.append(res.state)
-        flags.append(res.overflow.to(device))
-    shard_ovf = torch.stack(flags)
+        flags.append(res.overflow)
+    if mesh is None:
+        shard_ovf = torch.stack([f.to(device) for f in flags])
+    else:
+        hot = []
+        for r, f in enumerate(flags):
+            h = torch.zeros(n_shards, dtype=torch.bool, device=f.device)
+            h[r] = f
+            hot.append(h)
+        shard_ovf = mesh.psum(row, hot, "resize_overflow")[0].to(device)
     return RoutedResizeResult(state=out, overflow=shard_ovf.any(),
                               shard_overflow=shard_ovf)
 

@@ -116,6 +116,20 @@ def _chain_hashes(prev_hash: torch.Tensor, block_no0: torch.Tensor,
             torch.stack(hashes, dim=1).reshape(*lead, d, 2))
 
 
+def stats_pass(tables: list, overflow: list, device) -> torch.Tensor:
+    """The device part of :meth:`WindowCommitter.shard_stats`: for each
+    channel, its shards' occupancy, then their least free slots a bucket,
+    then its overflow lanes, each counted where its shard lives and stacked
+    on ``device`` as one vector of u32 words for one host read.
+    ``tables[k]`` is channel k's shard tables, ``overflow[k]`` its lanes."""
+    parts = []
+    for tabs, lanes in zip(tables, overflow):
+        for count in (ws.shard_occupancy, ws.shard_min_free):
+            parts += [count(t, 1).to(u32.WORD).to(device) for t in tabs]
+        parts.append(lanes.to(device))
+    return torch.cat(parts)
+
+
 class _ChannelGroup:
     """Channels sharing one bucket layout, stacked in one state."""
 
@@ -185,6 +199,8 @@ class WindowCommitter:
                                        device=self.device)
                            for _ in range(n_channels)]
         self._steps: dict = {}
+        self._auditor = None
+        self._audited: dict = {}
         self.obs = obs_mod.Obs.disabled()
 
     def attach_obs(self, obs) -> None:
@@ -193,6 +209,24 @@ class WindowCommitter:
         (host enqueue), ``window.steady`` ends on a device sync, and
         ``window.drain`` covers the host copy of the chain hashes."""
         self.obs = obs
+
+    def attach_retrace_auditor(self, auditor) -> None:
+        """Route every program this committer builds or calls (window
+        steps, the stats pass, the resize exchange) through
+        ``auditor.wrap`` (repro_torch.analysis.retrace.RetraceAuditor).
+        Attach before the first window: steps built earlier are not
+        wrapped."""
+        self._auditor = auditor
+
+    def _program(self, name: str, fn):
+        """``fn``, wrapped once under ``name`` when an auditor is
+        attached."""
+        if self._auditor is None:
+            return fn
+        key = (name, fn)
+        if key not in self._audited:
+            self._audited[key] = self._auditor.wrap(name, fn)
+        return self._audited[key]
 
     # -- channels --------------------------------------------------------------
 
@@ -264,13 +298,17 @@ class WindowCommitter:
     def _step_for(self, d: int, channels: tuple):
         key = (d, channels)
         if key not in self._steps:
-            self._steps[key] = fs.make_fabric_step(
+            step = fs.make_fabric_step(
                 self.dims, dataclasses.replace(self.cfg, pipeline_depth=d),
                 n_shards=self.model_size,
                 channel=None if self.n_channels == 1 else channels,
                 mesh=self.mesh,
                 channels_over_data=(self.mesh is None
                                     or self._over_data(len(channels))))
+            if self._auditor is not None:
+                step = self._auditor.wrap(f"pipeline/window_step/d{d}",
+                                          step)
+            self._steps[key] = step
         return self._steps[key]
 
     # -- windows ---------------------------------------------------------------
@@ -376,8 +414,8 @@ class WindowCommitter:
             lone = self._resize_one(lone, old_nb, new_n_buckets)
         else:
             lone = lone._replace(ranks=tuple(
-                self._resize_row(row, old_nb, new_n_buckets)
-                for row in lone.ranks))
+                self._resize_row(d, row, old_nb, new_n_buckets)
+                for d, row in enumerate(lone.ranks)))
         target = next((h for h in self.groups
                        if h.n_buckets == new_n_buckets), None)
         if target is None:
@@ -413,28 +451,32 @@ class WindowCommitter:
         m = self.n_shards
         tab = ws.HashState(lone.keys[0], lone.versions[0], lone.values[0])
         if self.cfg.shard_state:
-            res = state_sharding.resize_sharded(
+            res = self._program("pipeline/resize_exchange",
+                                state_sharding.resize_sharded)(
                 state_sharding.shard_views(tab, m), new_nb // m, old_nb, m)
             new = ws.HashState(*(torch.cat(a) for a in zip(*res.state)))
             ovf = res.shard_overflow
         else:
-            res = ws.resize(tab, new_nb)
+            res = self._program("pipeline/resize_exchange", ws.resize)(
+                tab, new_nb)
             new, ovf = res.state, res.overflow[None]
         return lone._replace(
             keys=new.keys[None], versions=new.versions[None],
             values=new.values[None],
             overflow=lone.overflow | state_sharding.overflow_bits(ovf))
 
-    def _resize_row(self, row: tuple, old_nb: int, new_nb: int) -> tuple:
-        """One data row's copy of a lone channel rehashed where it lives:
+    def _resize_row(self, d: int, row: tuple, old_nb: int, new_nb: int
+                    ) -> tuple:
+        """Data row ``d``'s copy of a lone channel rehashed where it lives:
         the butterfly across the row's shard devices (each rank's flag
         reduced onto every rank), or every replica on its own device."""
         if not self.cfg.shard_state:
             return tuple(self._resize_one(r, old_nb, new_nb) for r in row)
         m = self.n_shards
-        res = state_sharding.resize_sharded(
+        res = self._program("pipeline/resize_exchange",
+                            state_sharding.resize_sharded)(
             [fs.table(r.keys, r.versions, r.values, 0) for r in row],
-            new_nb // m, old_nb, m, moved=self.mesh.moved)
+            new_nb // m, old_nb, m, mesh=self.mesh, row=d)
         out = []
         for r, new in zip(row, res.state):
             bits = state_sharding.overflow_bits(
@@ -452,14 +494,10 @@ class WindowCommitter:
         for c in channels:
             self._locate(c)
         m = self.n_shards
-        parts = []
-        for c in channels:
-            tabs = self.shard_tables(c)
-            parts += [ws.shard_occupancy(t, 1).to(self.device) for t in tabs]
-            parts += [ws.shard_min_free(t, 1).to(self.device) for t in tabs]
-            parts.append(u32.to_u64(self._head("overflow", c)).to(
-                self.device))
-        host = torch.cat(parts).cpu().numpy()
+        host = u32.to_numpy(self._program("pipeline/stats_pass", stats_pass)(
+            [self.shard_tables(c) for c in channels],
+            [self._head("overflow", c) for c in channels],
+            self.device)).astype(np.int64)
         w = 2 * m + state_sharding.OVERFLOW_LANES
         out = {}
         for k, c in enumerate(channels):

@@ -183,6 +183,7 @@ def test_overflow_latch_trip_and_health_match_jax(tmp_path):
             slo=(jobs if mod is jeng else tobs).SLOConfig(commit_p95_s=60.0))
         eng = _engine(mod, cfg)
         st = eng.run_round(eng.make_proposals(3 * BLOCK, seed=0))
+        eng.store.drain()  # the journal counters settle in the writer
         v = eng.health()
         m = eng.metrics()
         views.append((st.n_valid, eng.overflow_bits(), v.to_dict(),
