@@ -30,7 +30,8 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
    edges of its wgmma kernel's tiles and at the hybrid and encdec
    families' D = 64 shapes: causal MHA of 32 heads, an encoder without
    the causal mask, cross-attention at Skv = S / 4, and Skv below one key
-   tile and far above S.
+   tile and far above S; and at phase 24's per-rank shapes (LLaVA-NeXT-
+   34B's 14 Q and 2 KV heads at 4 x 4,096, Moonshot's 4 MHA heads).
 3. Time each kernel with CUDA events over many launches after a warm-up,
    beside its plain version, its bound (the larger of bytes over 3.35 TB/s
    and operations over 67 T/s, or 989 TFLOP/s for K5's bf16 products),
@@ -38,7 +39,8 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
    SDPA in turns at a 2,048- and a 777-token Qwen2-7B prefill, a
    2,048-token phi3-mini one (D = 96), zamba2's shared block and
    seamless's encoder and cross-attention (D = 64, the last two without
-   the causal mask) (TFLOP/s, share of the bound, ratio);
+   the causal mask) and LLaVA-NeXT-34B's per-rank prefill of phase 24
+   (TFLOP/s, share of the bound, ratio);
    K1 at step 1, 16 and 100 on the verify block, the serial admission of a
    ladder round and the launch floor (1 x 1 x 1), device time a step; K2
    at 200 and 8,192 queries; K3 at 200, 2,048 and 4,096 writes and on a
@@ -66,7 +68,7 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
 7. The peer ladder: Fabric 1.2 (sorted store, staged serial validation),
    P-I and P-I+II (hash table, sequential commit kernel), each behind the
    Fabric 1.2 orderer, at the same size: a warm-up round of one block, a
-   timed round of 200 disjoint transfers and a conflicting round of 200
+   timed round of 100 disjoint transfers and a conflicting round of 100
    transfers among 256 accounts (src != dst), counters set to 0 before each
    configuration and read after it; verify() all True, every kernel of the
    configuration launched (K1 and K4 as in phase 4: a serial check is one
@@ -340,11 +342,28 @@ Phases; any failure raises and exits nonzero, and no result line is printed:
    the other three programs); a seeded ``.item()`` in a step caught as a
    host sync; the committer's rebuild and signature audit and the
    host-sync lint clean; the phase within CONTRACT_PHASE_S.
+24. The dense and MoE LMs over a (data, model) mesh (``lm_mesh_phase``):
+   models.lm.MeshLM in the layout of launch.sharding on a (1, 4) mesh of
+   the cards present (four positions on cuda:0 with fewer than four).
+   (a) f32 checks at full width cut to 2 layers, TF32 off, LLaVA-NeXT-34B
+   (vision prefix; 14 Q and 2 KV heads a rank) and Moonshot-v1-16B-A3B
+   (16 experts a rank): the mesh against the one-device port at the same
+   weights, logits within LOGITS_TOL of the largest, greedy tokens equal,
+   gathered caches within ENCDEC_CACHE_TOL; the mesh's prefill and a
+   decode step under ``set_sync_debug_mode("error")``. (b) bf16 in turns
+   with the one-device port (both resident), LLaVA-NeXT-34B cut to 16 of
+   60 layers, 4 prompts of 576 patches + 3,520 tokens, 16 greedy steps,
+   and Moonshot cut to 8 of 48 layers, 4 x 2,048: prompt tokens/s, decode
+   p50, peak memory, bytes between ranks a prefill and a decode step by
+   kind; every logit finite. Counters set to 0 before each run and read
+   after, K5 launches by device asserted (one a layer a position, at the
+   per-rank shapes that phase 2 holds against the plain version); the
+   phase within LM_MESH_PHASE_S.
 
 The lines before the last give each phase's seconds, the card's name and
 power limit (as nvidia-smi prints them), the engine, ladder, serving,
 durability, observability, pipeline, channel, sharding, training, MoE
-serving, SSM, hybrid, encdec, family-training, mesh and analysis
+serving, SSM, hybrid, encdec, family-training, mesh, analysis and LM-mesh
 summaries (with
 the storage objects' sizes) and the kernels (K1-K5 and K5's backward); the
 last line is {"ok": true, "device": {...}}.
@@ -353,6 +372,7 @@ last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import dataclasses
 import json
@@ -377,8 +397,8 @@ ROUND_TXS = 1000
 # The ladder's timed round and its conflicting round: Fabric 1.2's orderer
 # chains every transaction serially (~17 tx/s on the card's host), so these
 # sizes set the phase's time on the card and on the CPU.
-LADDER_TXS = 200
-LADDER_CONFLICT_TXS = 200
+LADDER_TXS = 100
+LADDER_CONFLICT_TXS = 100
 N_ACCOUNTS = 1 << 22
 SEEDS = (0, 1)  # warm-up round, then the timed round
 PROFILED_TXS = 300  # the profiled round (its trace takes minutes to read)
@@ -499,7 +519,12 @@ FLASH_CASES = (((1, 2048, 2048, 28, 4, 128), "bfloat16", True),
                ((4, 512, 512, 16, 16, 64), "bfloat16", False),
                ((4, 2048, 512, 16, 16, 64), "bfloat16", False),
                ((1, 300, 77, 16, 16, 64), "bfloat16", False),
-               ((2, 16, 512, 16, 16, 64), "bfloat16", False))
+               ((2, 16, 512, 16, 16, 64), "bfloat16", False),
+               # phase 24's per-rank shapes over 4 model ranks: LLaVA-NeXT-
+               # 34B's 14 Q and 2 KV heads a rank (a GQA group of 7) at 4 x
+               # 4,096, Moonshot's 4 MHA heads a rank at 4 x 2,048
+               ((4, 4096, 4096, 14, 2, 128), "bfloat16", True),
+               ((4, 2048, 2048, 4, 4, 128), "bfloat16", True))
 # K5 timed at these (B, S, Skv, H, Hkv, D), causal (bf16), in turns with
 # SDPA: Qwen2-7B's prefill of a full and a ragged prompt, phi3-mini's (D =
 # 96, MHA), zamba2's shared block, seamless's decoder self-attention,
@@ -510,7 +535,8 @@ FLASH_TIMED = ((1, 2048, 2048, 28, 4, 128, True),
                (4, 2048, 2048, 32, 32, 64, True),
                (4, 2048, 2048, 16, 16, 64, True),
                (4, 512, 512, 16, 16, 64, False),
-               (4, 2048, 512, 16, 16, 64, False))
+               (4, 2048, 512, 16, 16, 64, False),
+               (4, 4096, 4096, 14, 2, 128, True))
 # Prefill logits, card (K5, cuBLAS) against CPU (plain, MKL), f32 with
 # TF32 off: both sides sum the same f32 products in other orders, ~1e-6
 # relative through two layers and a 3,584-term head product on logits of
@@ -600,6 +626,31 @@ FAMILY_TRAIN = (("qwen2-moe-a2.7b", 4, 0), ("mamba2-2.7b", 14, 0),
 FAMILY_TRAIN_STEPS = 3
 FAMILY_CHECK_SEQ = 256
 FAMILY_SMOKE_SEQ = 64
+# Phase 24: the dense and MoE LMs over a (1, 4) mesh (one card a position
+# with four cards, else four positions on cuda:0), in the reference's
+# dry-run layout (launch.sharding), each beside the one-device port. (a)
+# f32 checks, TF32 off, 2 layers at full width: LLaVA-NeXT-34B, 2 prompts
+# of 576 patch embeddings + 200 tokens into a cache of 800, and
+# Moonshot-v1-16B-A3B, 2 prompts of 256 into 288; 4 greedy steps; logits
+# within LOGITS_TOL of the largest |logit|, the same tokens, the gathered
+# caches within ENCDEC_CACHE_TOL of each field's largest magnitude; then
+# the mesh's prefill and a decode step again under
+# set_sync_debug_mode("error"). (b) bf16 in turns (one device, mesh, mesh,
+# one device), both copies resident: LLaVA-NeXT-34B cut to LM_MESH_LAYERS
+# of 60 (1.116 GB a layer, 1.84 GB embedding and head: 19.7 GB a copy), 4
+# prompts of 576 patches + 3,520 tokens into a cache of 4,160, 16 greedy
+# steps; Moonshot cut to LM_MESH_MOE_LAYERS of 48 (EP: 16 experts a rank),
+# 4 prompts of 2,048 into 2,112. K5 launches by device asserted.
+LM_MESH_SHAPE = (1, 4)
+LM_MESH_ARCH, LM_MESH_MOE_ARCH = "llava-next-34b", "moonshot-v1-16b-a3b"
+LM_MESH_LAYERS, LM_MESH_MOE_LAYERS = 16, 8
+LM_MESH_BATCH, LM_MESH_NEW = 4, 16
+LM_MESH_SEQ, LM_MESH_CACHE = 4096, 4160  # prompt (patches + tokens), cache
+LM_MESH_MOE_SEQ, LM_MESH_MOE_CACHE = 2048, 2112
+LM_MESH_CHECKS = ((LM_MESH_ARCH, 200, 800), (LM_MESH_MOE_ARCH, 256, 288))
+LM_MESH_CHECK_NEW = 4
+LM_MESH_TURNS = ("one", "mesh", "mesh", "one")
+LM_MESH_PHASE_S = 60.0
 
 
 def log(*a):
@@ -741,14 +792,16 @@ def launch_counts() -> dict:
 
 
 def launches_by_device() -> dict:
-    """K1-K4's launch counts by device: kernel -> {"cuda:i": n}."""
+    """K1-K5's launch counts by device: kernel -> {"cuda:i": n}."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.hash_table import ops as ht_ops
     from repro_torch.kernels.mvcc_validate import ops as mv_ops
     from repro_torch.kernels.sig_mac import ops as mac_ops
     return {"mac_many": dict(mac_ops.launches_by_device),
             "lookup": dict(ht_ops.launches_by_device),
             "commit": dict(ht_ops.commit_launches_by_device),
-            "validate": dict(mv_ops.launches_by_device)}
+            "validate": dict(mv_ops.launches_by_device),
+            "flash_attention": dict(fa_ops.launches_by_device)}
 
 
 def zero_launch_counts() -> None:
@@ -760,7 +813,8 @@ def zero_launch_counts() -> None:
     mac_ops.launches = ht_ops.launches = ht_ops.commit_launches = 0
     mv_ops.launches = fa_ops.launches = fa_ops.launches_bwd = 0
     for c in (mac_ops.launches_by_device, ht_ops.launches_by_device,
-              ht_ops.commit_launches_by_device, mv_ops.launches_by_device):
+              ht_ops.commit_launches_by_device, mv_ops.launches_by_device,
+              fa_ops.launches_by_device):
         c.clear()
 
 
@@ -3548,6 +3602,239 @@ def family_training_phase(dev, counts, zero_counts, path_launches, *,
     return out
 
 
+def lm_batch(cfg, batch: int, seq: int, seed: int, dev):
+    """A batch of ``seq`` positions a prompt from ``seed`` on ``dev``: for
+    a vision frontend ``cfg.n_prefix`` patch embeddings (N(0, 0.02), the
+    embedding's scale) and ``seq - n_prefix`` tokens."""
+    from repro_torch.models.lm import Batch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_text = seq - (cfg.n_prefix if cfg.frontend == "vision" else 0)
+    toks = torch.randint(0, cfg.vocab, (batch, n_text), generator=g,
+                         device=dev, dtype=torch.int32)
+    prefix = None
+    if cfg.frontend == "vision":
+        prefix = (torch.randn((batch, cfg.n_prefix, cfg.d_model),
+                              generator=g, device=dev) * 0.02).to(
+            cfg.torch_dtype)
+    return Batch(tokens=toks, prefix_embeds=prefix)
+
+
+def lm_serve(model, batch, cache_len: int, n_new: int, sync) -> dict:
+    """A prefill of ``batch`` into a fresh cache of ``cache_len`` and
+    ``n_new`` greedy decode steps through ``model`` (an LM or a MeshLM:
+    one API). Returns the tokens (B, 1 + n_new), the prefill's logits, the
+    cache, the prefill s and each step's ms (host clock, synced)."""
+    cache = model.init_cache(batch.tokens.shape[0], cache_len)
+    s = batch.tokens.shape[1] + (0 if batch.prefix_embeds is None
+                                 else batch.prefix_embeds.shape[1])
+    sync()
+    t = time.perf_counter()
+    logits0, cache = model.prefill(batch, cache)
+    sync()
+    prefill_s = time.perf_counter() - t
+    toks, step_ms = [logits0.argmax(-1)], []
+    for i in range(n_new):
+        t = time.perf_counter()
+        logits, cache = model.decode_step(cache, toks[-1], s + i)
+        toks.append(logits.argmax(-1))
+        sync()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    return {"tokens": torch.stack(toks, 1), "logits": logits0,
+            "last_logits": logits if n_new else logits0, "cache": cache,
+            "prefill_s": prefill_s, "step_ms": step_ms, "seq": s}
+
+
+def _position_bytes(model, cache, d: int = 0, m: int = 0) -> int:
+    """Bytes of position (d, m)'s params and cache blocks."""
+    from repro_torch.launch import sharding
+    blocks = [x for _, x in sharding.leaves_with_path(model.params[d][m])]
+    blocks += [cache.parts[d][m].k, cache.parts[d][m].v]
+    return sum(x.numel() * x.element_size() for x in blocks)
+
+
+def lm_mesh_check(dev, mesh, arch: str, n_text: int, cache_len: int,
+                  counts, zero_counts, path_launches, *, seed: int) -> dict:
+    """Phase 24 (a): ``arch`` at full width cut to 2 layers, f32, drawn on
+    ``dev`` from ``seed``, and the same weights cut over ``mesh``: 2
+    prompts, LM_MESH_CHECK_NEW greedy steps; logits, tokens and gathered
+    caches against the one-device port; then a prefill and a decode step
+    of the mesh under set_sync_debug_mode("error"). K5 launches by device
+    asserted for the mesh's prefill."""
+    from repro_torch.configs import base as cfg_base
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.lm import LM, MeshLM
+    cfg = dataclasses.replace(cfg_base.get(arch), n_layers=2, dtype="float32")
+    one = LM(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(
+        seed))
+    model = MeshLM.from_lm(one, mesh)
+    seq = n_text + (cfg.n_prefix if cfg.frontend == "vision" else 0)
+    batch = lm_batch(cfg, 2, seq, seed + 1, dev)
+    sync = mesh.synchronize
+    with torch.no_grad():
+        want = lm_serve(one, batch, cache_len, LM_MESH_CHECK_NEW, sync)
+        zero_counts()
+        got = lm_serve(model, batch, cache_len, LM_MESH_CHECK_NEW, sync)
+        path_launches[f"lm mesh check {arch}"] = counts()
+        by_dev = launches_by_device()["flash_attention"]
+        want_dev = collections.Counter(
+            str(x) for row in mesh.devices for x in row)
+        want_dev = {k: n * cfg.n_layers for k, n in want_dev.items()}
+        if by_dev != want_dev:
+            raise AssertionError(f"{arch}: K5 launches by device {by_dev}, "
+                                 f"expected {want_dev}")
+        out = {"arch": arch, "layers": cfg.n_layers, "prompt": seq,
+               "cache": cache_len, "launches_by_device": by_dev}
+        for key, a, b in (("prefill", got["logits"], want["logits"]),
+                          ("last step", got["last_logits"],
+                           want["last_logits"])):
+            err = float((a - b).abs().max())
+            scale = float(b.abs().max())
+            out[f"{key}_err"], out[f"{key}_scale"] = err, scale
+            if not err <= LOGITS_TOL * scale:
+                raise AssertionError(f"{arch}: {key} logits {err} apart "
+                                     f"(largest {scale})")
+        if not torch.equal(got["tokens"], want["tokens"]):
+            raise AssertionError(f"{arch}: greedy tokens differ")
+        full = got["cache"].gather(dev)
+        for f in ("k", "v"):
+            a, b = getattr(full, f), getattr(want["cache"], f)
+            err, scale = float((a - b).abs().max()), float(b.abs().max())
+            out[f"cache_{f}_err"] = err
+            if not err <= ENCDEC_CACHE_TOL * scale:
+                raise AssertionError(f"{arch}: cache {f} {err} apart "
+                                     f"(largest {scale})")
+        del full, want
+        # No host sync inside the mesh's prefill and decode step.
+        cache = model.init_cache(2, cache_len)
+        tok = got["tokens"][:, 0].contiguous()
+        sync()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            logits, cache = model.prefill(batch, cache)
+            logits, cache = model.decode_step(cache, tok, seq)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        sync()
+        out["sync_free"] = True
+    log(f"[lm mesh] {arch} f32 check on {mesh!r}: {json.dumps(out)}")
+    return out
+
+
+def lm_mesh_turns(dev, mesh, cfg, *, seq: int, cache_len: int, n_new: int,
+                  counts, zero_counts, path_launches, seed: int,
+                  batch: int = LM_MESH_BATCH, turns=LM_MESH_TURNS,
+                  tag: str = "") -> dict:
+    """Phase 24 (b): ``cfg`` (bf16) drawn from ``seed``, on ``dev`` when a
+    turn is "one" and cut over ``mesh`` (drawn layer by layer, the same
+    weights), both resident; ``batch`` prompts of ``seq`` positions,
+    ``n_new`` greedy steps, in ``turns``. Per turn: prompt tokens/s, decode
+    p50 / min / max ms, peak memory of each card; per mesh turn the bytes
+    between ranks of the prefill and of a decode step by kind, K5 launches
+    by device (asserted: one a layer a position) and position (0, 0)'s
+    resident params and cache."""
+    from repro_torch.models.lm import LM, MeshLM
+    models = {}
+    t = time.perf_counter()
+    gen = lambda: torch.Generator(device=dev).manual_seed(seed)
+    if "one" in turns:
+        models["one"] = LM(cfg, device=dev).init(gen())
+    models["mesh"] = MeshLM(cfg, mesh).init(gen(), device=dev)
+    mesh.synchronize()
+    init_s = time.perf_counter() - t
+    b = batch
+    batch = lm_batch(cfg, b, seq, seed + 1, dev)
+    cards = mesh.distinct()
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "batch": b,
+           "prompt": seq, "cache": cache_len, "new": n_new,
+           "mesh": [[str(x) for x in r] for r in mesh.devices],
+           "init_s": init_s, "turns": []}
+    tokens = {}
+    with torch.no_grad():
+        for turn in turns:
+            for c in cards:
+                torch.cuda.reset_peak_memory_stats(c)
+            moved0 = collections.Counter(mesh.moved)
+            zero_counts()
+            model = models[turn]
+            if turn == "mesh":  # the prefill's bytes apart from the steps'
+                cache = model.init_cache(b, cache_len)
+                model.prefill(batch, cache)
+                mesh.synchronize()
+                moved_prefill = collections.Counter(mesh.moved)
+                moved_prefill.subtract(moved0)
+                by_dev = launches_by_device()["flash_attention"]
+                want = {str(c): cfg.n_layers * sum(
+                    x == c for r in mesh.devices for x in r) for c in cards}
+                if by_dev != want:
+                    raise AssertionError(f"{cfg.name}: K5 launches by "
+                                         f"device {by_dev}, expected {want}")
+                resident = _position_bytes(model, cache)
+                del cache
+                zero_counts()
+                moved0 = collections.Counter(mesh.moved)
+            run = lm_serve(model, batch, cache_len, n_new, mesh.synchronize)
+            path_launches[f"lm mesh {tag}{cfg.name} {turn}"] = counts()
+            if not bool(torch.isfinite(run["logits"]).all()):
+                raise AssertionError(f"{cfg.name} {turn}: non-finite logits")
+            steps = sorted(run["step_ms"])
+            rec = {"turn": turn,
+                   "prompt_tokens_per_s": b * seq
+                   / run["prefill_s"], "prefill_s": run["prefill_s"],
+                   "decode_p50_ms": steps[len(steps) // 2],
+                   "decode_min_ms": steps[0], "decode_max_ms": steps[-1],
+                   "peak_gib": {str(c): torch.cuda.max_memory_allocated(c)
+                                / 2 ** 30 for c in cards}}
+            if turn == "mesh":
+                moved = collections.Counter(mesh.moved)
+                moved.subtract(moved0)
+                moved.subtract(moved_prefill)  # the run's own prefill
+                rec["bytes_prefill"] = {k: n for k, n in
+                                        moved_prefill.items() if n}
+                rec["bytes_decode_step"] = {k: n / n_new for k, n in
+                                            moved.items() if n}
+                rec["launches_by_device"] = by_dev
+                rec["position_resident_gib"] = resident / 2 ** 30
+            out["turns"].append(rec)
+            tokens.setdefault(turn, run["tokens"])
+            del run
+            log(f"[lm mesh] {tag}{cfg.name} {turn}: {json.dumps(rec)}")
+    if "one" in tokens:
+        out["same_tokens"] = float((tokens["one"] == tokens["mesh"]).float()
+                                   .mean())
+    del models
+    return out
+
+
+def lm_mesh_phase(dev, mesh, counts, zero_counts, path_launches, *,
+                  seed: int, card: str = "") -> dict:
+    """Phase 24: the f32 checks (a) and the bf16 turns (b) of LLaVA-NeXT-34B
+    and Moonshot-v1-16B-A3B over ``mesh`` (see LM_MESH_* above), within
+    LM_MESH_PHASE_S."""
+    from repro_torch.configs import base as cfg_base
+    t0 = time.perf_counter()
+    out = {"card": card, "mesh": repr(mesh), "checks": [], "turns": []}
+    for arch, n_text, cache_len in LM_MESH_CHECKS:
+        out["checks"].append(lm_mesh_check(
+            dev, mesh, arch, n_text, cache_len, counts, zero_counts,
+            path_launches, seed=seed))
+        torch.cuda.empty_cache()
+    for arch, layers, seq, cache_len in (
+            (LM_MESH_ARCH, LM_MESH_LAYERS, LM_MESH_SEQ, LM_MESH_CACHE),
+            (LM_MESH_MOE_ARCH, LM_MESH_MOE_LAYERS, LM_MESH_MOE_SEQ,
+             LM_MESH_MOE_CACHE)):
+        cfg = dataclasses.replace(cfg_base.get(arch), n_layers=layers)
+        out["turns"].append(lm_mesh_turns(
+            dev, mesh, cfg, seq=seq, cache_len=cache_len, n_new=LM_MESH_NEW,
+            counts=counts, zero_counts=zero_counts,
+            path_launches=path_launches, seed=seed))
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    if out["seconds"] > LM_MESH_PHASE_S:
+        raise AssertionError(f"phase 24 took {out['seconds']:.1f} s, past "
+                             f"{LM_MESH_PHASE_S} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0,
@@ -4125,12 +4412,13 @@ def main(argv=None) -> int:
         n_bytes, flop = flash_fwd_work(*shape, causal)
         t_bound, t_by = bound_ms(n_bytes, flop, TC_BF16_OPS_PER_S)
         k5, lib = [], []
+        iters = 500 if flop < 1e12 else 50  # ~1 s a turn at any shape
         for _ in range(2):
             k5.append(event_ms(
                 lambda: fa_ops.flash_attention(tq, tk, tv, causal=causal),
-                500))
+                iters))
             lib.append(event_ms(lambda: F.scaled_dot_product_attention(
-                tq_t, tk_t, tv_t, is_causal=causal, enable_gqa=True), 500))
+                tq_t, tk_t, tv_t, is_causal=causal, enable_gqa=True), iters))
         k5_ms, lib_ms = sum(k5) / 2, sum(lib) / 2
         k5_dev = device_total_ms(
             lambda: fa_ops.flash_attention(tq, tk, tv, causal=causal))
@@ -5220,6 +5508,14 @@ def main(argv=None) -> int:
                                path_launches, card=card)
     phase_done("23 contracts", t0)
 
+    # -- 24. the dense and MoE LMs over a (data, model) mesh ---------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    lm_mesh = lm_mesh_phase(dev, card_mesh(LM_MESH_SHAPE), counts,
+                            zero_counts, path_launches, seed=args.seed,
+                            card=card)
+    phase_done("24 lm mesh", t0)
+
     kernels = [{
         "name": t["name"], "route": "cuda", "source": t["source"],
         "replaces": t["replaces"],
@@ -5249,6 +5545,7 @@ def main(argv=None) -> int:
     log(json.dumps({"family_training": family_training}, default=str))
     log(json.dumps({"mesh": mesh_run}, default=str))
     log(json.dumps({"analysis": analysis}, default=str))
+    log(json.dumps({"lm_mesh": lm_mesh}, default=str))
     log(json.dumps({"phase_s": phase_s,
                     "total_s": time.perf_counter() - t_start}))
     log(card)

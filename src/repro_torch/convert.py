@@ -20,7 +20,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import committer, engine, ledger, u32
 from repro_torch.core import world_state as ws
-from repro_torch.models.lm import F32_LEAVES, LM
+from repro_torch.launch import sharding
+from repro_torch.models.lm import F32_LEAVES, LM, MeshLM
 
 
 class EngineState(NamedTuple):
@@ -138,6 +139,32 @@ def lm_params(np_params: dict, cfg: ModelConfig, device, **lm_kwargs) -> LM:
                  for k, n in stacks.items() if k in np_params}
     return LM(cfg, device=device, **lm_kwargs).load_params(
         {**tree(top), **per_layer})
+
+
+def mesh_lm_params(np_params: dict, cfg: ModelConfig, mesh,
+                   **lm_kwargs) -> MeshLM:
+    """:func:`lm_params` onto a mesh: the JAX ``LM.init`` pytree as numpy ->
+    a port :class:`MeshLM` over ``mesh`` holding those weights in the
+    layout of ``launch.sharding``. Each position's block is cut from the
+    numpy leaf on the host, converted there (dtype from the leaf's role,
+    as in :func:`lm_params`) and copied to its device: no card ever holds
+    more of a leaf than its block. ``lm_kwargs`` go to the MeshLM."""
+    model = MeshLM(cfg, mesh, **lm_kwargs)
+    stacks = {"layers": cfg.n_layers, "enc_layers": cfg.enc_layers}
+
+    def layer(d, i):
+        return {k: layer(v, i) if isinstance(v, dict) else v[i]
+                for k, v in d.items()}
+
+    tree = {k: [layer(v, i) for i in range(stacks[k])] if k in stacks
+            else v for k, v in np_params.items()}
+
+    def put(block, path, dev):
+        dt = torch.float32 if path[-1] in F32_LEAVES else cfg.torch_dtype
+        return torch.from_numpy(np.array(block, np.float32)).to(dev, dt)
+
+    model.params = sharding.place(tree, model.specs, mesh, put=put)
+    return model
 
 
 def _np_leaves(tree: dict) -> list:

@@ -5,7 +5,8 @@ A CUDA tensor launches a kernel, a CPU tensor takes the plain version in
 by dtype and head dim: bf16 at D = 64, 96, 128 (every full-width model)
 runs the Hopper kernel (TMA ring, producer warp, wgmma), bf16 at D = 16 or
 32 (smoke configurations) the mma.sync kernel, f32 the CUDA-core kernel.
-All three are named ``flash_fwd_*``; ``launches`` counts launches of each.
+All three are named ``flash_fwd_*``; ``launches`` counts launches of each,
+``launches_by_device`` the same by device (``"cuda:1"``).
 
 Training differentiates through :class:`FlashAttention`: its forward is
 the same launch with each row's log-sum-exp written beside O, its backward
@@ -19,6 +20,8 @@ takes it only when grad is enabled and an input needs a gradient; under
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from repro_torch.kernels import build
@@ -28,6 +31,7 @@ HEAD_DIMS = (16, 32, 64, 96, 128)  # the kernels' instances of D
 DTYPES = (torch.float32, torch.bfloat16)
 
 launches = 0
+launches_by_device = collections.Counter()
 launches_bwd = 0
 
 
@@ -75,6 +79,7 @@ def _forward(q, k, v, causal: bool, with_lse: bool):
                  lse.data_ptr() if with_lse else None, b, s, k.shape[1], h,
                  k.shape[2], d, int(q.dtype == torch.bfloat16), int(causal))
     launches += 1
+    launches_by_device[str(q.device)] += 1
     return out, lse
 
 

@@ -8,12 +8,15 @@ of ``torch.device``s, position (d, m) being data rank d and model rank m.
 One controller runs every rank's work on its position's device, stage by
 stage, and the collectives of the reference become copies between the
 ranks of one data row (:meth:`Mesh.all_gather`, :meth:`Mesh.psum`,
-:meth:`Mesh.permute`). Each collective adds the bytes it delivers from one
-position to another to :attr:`Mesh.moved`, by kind, counted from the
-shapes: positions that share a device count the same bytes as positions on
-two cards; and one to :attr:`Mesh.calls` under the reference's HLO name of
-its type (``all-gather``, ``all-reduce``, ``collective-permute``), which
-the contract analysis (repro_torch.analysis) holds against its budgets.
+:meth:`Mesh.permute`, :meth:`Mesh.all_to_all`) or of one model column
+(:meth:`Mesh.column_gather`). Each collective adds the
+bytes it delivers from one position to another to :attr:`Mesh.moved`, by
+kind, counted from the shapes: positions that share a device count the
+same bytes as positions on two cards; and one to :attr:`Mesh.calls` under
+the reference's HLO name of its type (``all-gather``, ``all-reduce``,
+``collective-permute``, ``all-to-all``), which the contract analysis
+(repro_torch.analysis) holds against its budgets. The mesh LM
+(``models.lm.MeshLM``) runs its layers over the same collectives.
 
 A mesh holds the devices it is given. Positions share a device only where
 the caller lists them so; :func:`from_cards` takes one card a position and
@@ -117,6 +120,40 @@ class Mesh:
                                      * parts[src].element_size())
         return out
 
+    def all_to_all(self, d: int, chunks: list, dim: int, kind: str) -> list:
+        """``chunks[m][j]``, on rank (d, m)'s device, is what rank m sends
+        to rank j -> on rank j's device, ``chunks[m][j]`` of every m
+        concatenated along ``dim`` in rank order. Chunks may differ in size
+        (a prompt shorter than the cache sends less to the last ranks);
+        only those between two ranks count as moved."""
+        self.calls["all-to-all"] += 1
+        out = []
+        for j, dev in enumerate(self.row(d)):
+            out.append(torch.cat([c[j].to(dev) for c in chunks], dim=dim))
+            self.moved[kind] += sum(c[j].numel() * c[j].element_size()
+                                    for m, c in enumerate(chunks) if m != j)
+        return out
+
+    def column_gather(self, m: int, parts: list, dim: int, kind: str
+                      ) -> list:
+        """The all-gather over ``data``: ``parts[d]`` on rank (d, m)'s
+        device -> on every rank of column ``m``, concatenated along ``dim``
+        in rank order."""
+        self._count(kind, parts, "all-gather")
+        return [torch.cat([p.to(row[m]) for p in parts], dim=dim)
+                for row in self.devices]
+
+    def collect(self, parts: list, dim: int, kind: str) -> torch.Tensor:
+        """``parts[d]`` on rank (d, 0) -> concatenated along ``dim`` on
+        :attr:`first`: a result handed back to the caller, as the
+        reference's unpinned ``out_shardings`` leave it, so no collective
+        is counted; the bytes from other positions count under ``kind``."""
+        first = self.first
+        for p, row in zip(parts, self.devices):
+            if row[0] != first:
+                self.moved[kind] += p.numel() * p.element_size()
+        return torch.cat([p.to(first) for p in parts], dim=dim)
+
     def _count(self, kind: str, parts: list, op: str) -> None:
         """Each part reaches the row's other ranks once."""
         n = len(parts)
@@ -135,6 +172,11 @@ def from_cards(data: int, model: int) -> Mesh:
                            f"{have} present")
     return Mesh([[torch.device("cuda", d * model + m) for m in range(model)]
                  for d in range(data)])
+
+
+def dp_axes(mesh: Mesh) -> tuple:
+    """The data-parallel axis names: the port's grid has no ``pod`` axis."""
+    return tuple(n for n in mesh.axis_names if n in ("pod", "data"))
 
 
 def dp_size(mesh: Mesh) -> int:

@@ -17,11 +17,13 @@ mask, at Skv = the memory's length); over a CPU tensor they take the
 kernel's plain version (``attn_naive``) or, under ``impl="chunked"`` for
 sequences longer than ``q_chunk``, ``attn_chunked``, as the JAX package
 chooses. Cached decode (one new query against a masked cache) is not K5's
-function and stays plain torch.
+function and stays plain torch. The ``*_mesh`` functions at the end are
+the rank-local forms of these sub-layers over one data row of a mesh.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -342,3 +344,285 @@ def unembed(table_or_head: torch.Tensor, x: torch.Tensor, *,
     """Logits in f32. ``transpose``: table is (V, D) tied embedding."""
     w = table_or_head.float()
     return x.float() @ (w.T if transpose else w)
+
+
+# ---------------------------------------------------------------------------
+# Rank-local sub-layers over one data row of a mesh (models.lm.MeshLM)
+# ---------------------------------------------------------------------------
+#
+# Each function takes the row's per-rank inputs as lists (``ps[m]``: rank
+# m's params, ``xs[m]``: its activations on its device, equal on every
+# rank), runs each rank's share on its device and meets the others through
+# the mesh's counted collectives (``launch.mesh.Mesh``), as the reference's
+# GSPMD partition of the same layer does. Params are laid out by
+# ``launch.sharding.param_specs``.
+
+
+@dataclasses.dataclass(frozen=True)
+class RankHeads:
+    """One model rank's share of an attention layer: ``rows`` (r0, r1) of
+    wo (= its wq/bq columns; all of them when not split), the Q heads
+    (h0, h1) whose outputs those rows read, the KV heads (k0, k1) those Q
+    heads read, and ``kv_index``, each Q head's KV head among (k0, k1),
+    where it is not the uniform grouping K5 takes (None)."""
+
+    rows: tuple
+    heads: tuple
+    kv: tuple
+    kv_index: tuple | None
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadPlan:
+    """How an attention layer falls on the model ranks, read from its param
+    specs. ``q_split``: wq/bq columns and wo rows over ``model``;
+    ``kv_split``: wk/wv/bk/bv columns. ``gather_q``: some rank's columns
+    are not whole heads, so the Q projection is all-gathered; ``gather_kv``
+    (prefill): some rank's wk columns are not the KV heads its Q heads
+    read, so the K/V projections are all-gathered. Where K/V are split on
+    head boundaries, each rank's KV heads are its Q heads' and the cache's
+    reshard (heads -> sequence) is an all-to-all."""
+
+    q_split: bool
+    kv_split: bool
+    gather_q: bool
+    gather_kv: bool
+    kv_cols: tuple  # per rank, (c0, c1) of its wk columns
+    ranks: tuple  # per rank, RankHeads
+
+
+def head_plan(cfg: ModelConfig, specs: dict, msize: int) -> HeadPlan:
+    """The :class:`HeadPlan` of an attention layer whose params have
+    ``specs`` (``launch.sharding.param_specs``) over ``msize`` model
+    ranks."""
+    h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    g = h // kv
+    q_split = specs["wq"][-1] == "model"
+    kv_split = specs["wk"][-1] == "model"
+    ranks, kv_cols = [], []
+    for m in range(msize):
+        r0, r1 = ((m * h * hd // msize, (m + 1) * h * hd // msize)
+                  if q_split else (0, h * hd))
+        h0, h1 = r0 // hd, -(-r1 // hd)
+        k0, k1 = h0 // g, (h1 - 1) // g + 1
+        nh, nk = h1 - h0, k1 - k0
+        idx = tuple((h0 + i) // g - k0 for i in range(nh))
+        uniform = nh % nk == 0 and idx == tuple(i // (nh // nk)
+                                                for i in range(nh))
+        ranks.append(RankHeads((r0, r1), (h0, h1), (k0, k1),
+                               None if uniform else idx))
+        kv_cols.append((m * kv * hd // msize, (m + 1) * kv * hd // msize)
+                       if kv_split else (0, kv * hd))
+    gather_q = q_split and h % msize != 0
+    gather_kv = kv_split and any(c != (r.kv[0] * hd, r.kv[1] * hd)
+                                 for c, r in zip(kv_cols, ranks))
+    return HeadPlan(q_split, kv_split, gather_q, gather_kv, tuple(kv_cols),
+                    tuple(ranks))
+
+
+def _proj(p, w: str, b: str, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p[w].to(x.dtype)
+    bias = p.get(b)
+    return y if bias is None else y + bias.to(y.dtype)
+
+
+def _gather_cols(mesh, d: int, parts: list, widths: tuple, kind: str
+                 ) -> list:
+    """``parts[m]``: rank m's column shards of several projections side by
+    side (widths ``widths``) -> per rank, each projection's full columns
+    (rank order), from ONE all-gather."""
+    got = mesh.all_gather(d, [p[None] for p in parts], 0, kind)
+    out = []
+    for g_ in got:  # (M, ..., sum(widths))
+        pieces, at = [], 0
+        for w in widths:
+            piece = g_[..., at:at + w]
+            pieces.append(piece.movedim(0, -2).reshape(
+                *piece.shape[1:-1], piece.shape[0] * w))
+            at += w
+        out.append(pieces)
+    return out
+
+
+def _heads(y: torch.Tensor, c0: int, span: tuple, hd: int) -> torch.Tensor:
+    """Heads ``span`` of a projection whose columns start at ``c0``:
+    (B, S, cols) -> (B, S, n, hd)."""
+    a, b = span[0] * hd - c0, span[1] * hd - c0
+    return y[..., a:b].reshape(*y.shape[:-1], span[1] - span[0], hd)
+
+
+def _qk(p, cfg: ModelConfig, q, k, positions):
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta))
+
+
+def _out_rows(p, rk: RankHeads, o: torch.Tensor, hd: int) -> torch.Tensor:
+    """The rank's Q heads' outputs (B, S, nh, hd) -> its rows of wo's
+    input, times its rows of wo (the row-parallel partial product)."""
+    o = o.reshape(*o.shape[:2], -1)
+    a = rk.rows[0] - rk.heads[0] * hd
+    return o[..., a:a + rk.rows[1] - rk.rows[0]] @ p["wo"].to(o.dtype)
+
+
+def attention_mesh(ps: list, cfg: ModelConfig, xs: list, plan: HeadPlan,
+                   mesh, d: int, *, positions: list, causal: bool = True,
+                   impl: str = "naive", q_chunk: int = 2048,
+                   kv_chunk: int = 2048):
+    """Self-attention (prefill) over one data row: each rank projects its
+    columns, runs its Q heads against the KV heads they read (K5 on the
+    card, as :func:`attention`), and multiplies by its rows of wo; the
+    partial products are summed over the row (``psum``) when wo is split.
+    Returns (outputs a rank, the K/V for the cache a rank: every KV head
+    where they are replicated or gathered, else the rank's own)."""
+    hd = cfg.head_dim
+    qs = [_proj(p, "wq", "bq", x) for p, x in zip(ps, xs)]
+    ks = [_proj(p, "wk", "bk", x) for p, x in zip(ps, xs)]
+    vs = [_proj(p, "wv", "bv", x) for p, x in zip(ps, xs)]
+    q_at = [r.rows[0] for r in plan.ranks]
+    kv_at = [c[0] for c in plan.kv_cols]
+    if plan.gather_q:
+        qs = [g[0] for g in _gather_cols(mesh, d, qs, (qs[0].shape[-1],),
+                                         "attn_q")]
+        q_at = [0] * len(qs)
+    if plan.gather_kv:
+        w = ks[0].shape[-1]
+        got = _gather_cols(mesh, d, [torch.cat([k, v], -1)
+                                     for k, v in zip(ks, vs)], (w, w),
+                           "attn_kv")
+        ks, vs = [g[0] for g in got], [g[1] for g in got]
+        kv_at = [0] * len(ks)
+    outs, kvs = [], []
+    for m, (p, rk) in enumerate(zip(ps, plan.ranks)):
+        nkv = ks[m].shape[-1] // hd
+        span = (kv_at[m] // hd, kv_at[m] // hd + nkv)
+        q, k = _qk(p, cfg, _heads(qs[m], q_at[m], rk.heads, hd),
+                   _heads(ks[m], kv_at[m], span, hd), positions[m])
+        v = _heads(vs[m], kv_at[m], span, hd)
+        kvs.append((k, v))
+        a, b = rk.kv[0] - span[0], rk.kv[1] - span[0]
+        k, v = k[:, :, a:b], v[:, :, a:b]
+        if rk.kv_index is not None:  # one KV head a Q head (no host copy)
+            k, v = (torch.cat([t[:, :, j:j + 1] for j in rk.kv_index], 2)
+                    for t in (k, v))
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if (impl == "chunked" and q.shape[1] > q_chunk
+                and q.device.type == "cpu"):
+            o = attn_chunked(q, k, v, causal=causal, q_chunk=q_chunk,
+                             kv_chunk=kv_chunk)
+        else:  # K5 on the card, its plain version on the CPU
+            o = fa_ops.flash_attention(q, k, v, causal=causal)
+        outs.append(_out_rows(p, rk, o, hd))
+    if plan.q_split:
+        outs = mesh.psum(d, outs, "attn_out")
+    return outs, kvs
+
+
+def attn_partial(q, k, v, *, pos: int, offset: int):
+    """One query a sequence, q (B, 1, H, D), over a slice of the cache, k/v
+    (B, Sk, Hkv, D) holding positions offset..offset+Sk-1, the keys past
+    ``pos`` masked -> (B, H, D + 2) f32: the exp-weighted sum of V, the
+    slice's largest score and its sum of exp(score - largest). A slice
+    whose every key is masked gives -inf, 0 and 0, and no NaN."""
+    b, _, h, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, hkv, h // hkv, d).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k.float()) * (1.0 / math.sqrt(d))
+    keys = torch.arange(offset, offset + k.shape[1], device=q.device)
+    s = s.masked_fill(keys > pos, float("-inf"))
+    mx = s.amax(dim=-1)
+    p = torch.exp(s - torch.where(mx == float("-inf"), 0.0, mx)[..., None])
+    o = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
+    return torch.cat([o, mx[..., None], p.sum(dim=-1)[..., None]],
+                     dim=-1).reshape(b, h, d + 2)
+
+
+def combine_partials(parts: torch.Tensor) -> torch.Tensor:
+    """(M, B, H, D + 2) partials of :func:`attn_partial`, one a slice of the
+    keys -> the attention output (B, H, D) f32 over all of them. The first
+    slice always holds key 0, so the largest score is finite, and a fully
+    masked slice weighs exp(-inf) = 0."""
+    o, mx, l = parts[..., :-2], parts[..., -2], parts[..., -1]
+    w = torch.exp(mx - mx.amax(dim=0))  # (M, B, H)
+    return (w[..., None] * o).sum(dim=0) / (w * l).sum(dim=0)[..., None]
+
+
+def attention_decode_mesh(ps: list, cfg: ModelConfig, xs: list,
+                          plan: HeadPlan, mesh, d: int, *, caches: list,
+                          pos: int, positions: list) -> list:
+    """Cached decode of one token a sequence over one data row, the cache's
+    sequence over the model ranks (flash-decode): ``caches[m]`` = (k, v),
+    rank m's slice (B, Sc, Hkv, D) of this layer, positions m*Sc... Every
+    rank gets every head's Q and the new K/V row (one all-gather of the
+    split projections); the rank that holds ``pos`` writes the row in
+    place; each rank forms partials over its slice for every head (one
+    all-gather); each combines its Q heads' and multiplies by its rows of
+    wo, summed over the row when split."""
+    hd, h, kv = cfg.head_dim, cfg.n_heads, cfg.n_kv
+    cols = [("wq", "bq")] if plan.q_split else []
+    cols += [("wk", "bk"), ("wv", "bv")] if plan.kv_split else []
+    local = [[_proj(p, w, b, x) for w, b in cols] for p, x in zip(ps, xs)]
+    full = ([[]] * len(xs) if not cols else _gather_cols(
+        mesh, d, [torch.cat(y, -1) for y in local],
+        tuple(y.shape[-1] for y in local[0]), "decode_qkv"))
+    sc = caches[0][0].shape[1]
+    owner = pos // sc
+    qkv = []
+    for m, (p, x) in enumerate(zip(ps, xs)):
+        got = dict(zip([w for w, _ in cols], full[m]))
+        for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")):
+            if w not in got:
+                got[w] = _proj(p, w, b, x)
+        q, k = _qk(p, cfg, _heads(got["wq"], 0, (0, h), hd),
+                   _heads(got["wk"], 0, (0, kv), hd), positions[m])
+        qkv.append((q, k, _heads(got["wv"], 0, (0, kv), hd)))
+    ck, cv = caches[owner]
+    _, k_new, v_new = qkv[owner]
+    ck[:, pos - owner * sc] = k_new[:, 0].to(ck.dtype)
+    cv[:, pos - owner * sc] = v_new[:, 0].to(cv.dtype)
+    partials = [attn_partial(q, ck_, cv_, pos=pos, offset=m * sc)[None]
+                for m, ((q, _, _), (ck_, cv_)) in enumerate(zip(qkv, caches))]
+    partials = mesh.all_gather(d, partials, 0, "decode_partials")
+    outs = []
+    for p, rk, (q, _, _), part in zip(ps, plan.ranks, qkv, partials):
+        o = combine_partials(part[:, :, rk.heads[0]:rk.heads[1]])
+        outs.append(_out_rows(p, rk, o[:, None].to(q.dtype), hd))
+    if plan.q_split:
+        outs = mesh.psum(d, outs, "attn_out")
+    return outs
+
+
+def mlp_mesh(ps: list, xs: list, split: bool, mesh, d: int) -> list:
+    """SwiGLU over one data row: gate/up column- and down row-split, the
+    partial products summed over the row; replicated when not split."""
+    ys = [mlp(p, x) for p, x in zip(ps, xs)]
+    return mesh.psum(d, ys, "mlp_out") if split else ys
+
+
+def embed_mesh(tables: list, tokens: list, split: bool, mesh, d: int
+               ) -> list:
+    """Embedding with the vocab rows over the row's ranks: each rank looks
+    up the tokens in its rows (zero elsewhere), then the row sums them,
+    exactly (every token's row is non-zero on one rank)."""
+    if not split:
+        return [embed(t, x) for t, x in zip(tables, tokens)]
+    parts = []
+    for m, (t, x) in enumerate(zip(tables, tokens)):
+        n = t.shape[0]
+        local = x.long() - m * n
+        inside = (local >= 0) & (local < n)
+        parts.append(t[local.clamp(0, n - 1)].masked_fill(
+            ~inside[..., None], 0))
+    return mesh.psum(d, parts, "embed")
+
+
+def logits_mesh(tables: list, xs: list, split: bool, vocab: int, mesh,
+                d: int) -> list:
+    """Logits (f32) with the vocab over the row's ranks: each rank's rows,
+    all-gathered along V and cut to ``vocab``."""
+    parts = [unembed(t, x, transpose=True) for t, x in zip(tables, xs)]
+    if split:
+        parts = mesh.all_gather(d, parts, -1, "logits")
+    return [y[..., :vocab] for y in parts]

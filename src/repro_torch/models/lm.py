@@ -28,7 +28,9 @@ and ``loss``) runs cross-attention through ``layers.attention(memory=)``,
 with biases and qk_norm; ``prefill`` and ``decode_step`` project the cross
 Q/K/V with bare ``@ wq/wk/wv``. The port copies each path as it is. The
 JAX package's mesh-sharding knobs (``mesh_axes``, ``shard_*``, ``remat``)
-have no counterpart here.
+have no counterpart here; :class:`MeshLM` serves the dense and moe
+families over a (data, model) mesh in the layout of the reference's
+dry-run (``launch.sharding``).
 
 Weights are registered without a gradient, as serving wants them; the
 trainer turns gradients on (``model.params.requires_grad_()``, done by
@@ -48,6 +50,7 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.launch import sharding
 from repro_torch.models import layers, moe, ssm
 
 
@@ -214,6 +217,55 @@ def _check_family(cfg: ModelConfig) -> None:
         raise ValueError(f"unknown family {cfg.family!r} ({cfg.name})")
 
 
+def init_tree(cfg: ModelConfig, dev, g: torch.Generator,
+              put=lambda path, sub: sub) -> dict:
+    """Every weight of ``cfg`` drawn with the JAX package's distributions
+    from ``g`` on ``dev``, as the params tree. Each top-level entry and each
+    layer's dict passes through ``put(path, subtree)`` as soon as it is
+    drawn (``MeshLM.init`` cuts it over a mesh there, so no whole model is
+    ever on one device); the draws keep their order whatever ``put`` does."""
+    dt = cfg.torch_dtype
+    norm = lambda: layers.init_rmsnorm(cfg.d_model, dt, dev)
+    tree = {"embed": put(("embed",), layers.init_embedding(
+        cfg.vocab_padded, cfg.d_model, dt, dev, g))}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = put(("lm_head",), layers.init_embedding(
+            cfg.vocab_padded, cfg.d_model, dt, dev, g))
+
+    def dense_layer(moe_mlp: bool = False):
+        mlp = ({"moe": moe.init_moe(cfg, dev, g)} if moe_mlp
+               else {"mlp": layers.init_mlp(cfg.d_model, cfg.d_ff, dt, dev,
+                                            g)})
+        return {"attn": layers.init_attention(cfg, dev, g), **mlp,
+                "norm1": norm(), "norm2": norm()}
+
+    def mamba_layer():
+        return {"mamba": ssm.init_mamba(cfg, dev, g), "norm": norm()}
+
+    def dec_layer():
+        return {"self_attn": layers.init_attention(cfg, dev, g),
+                "cross_attn": layers.init_attention(cfg, dev, g),
+                "mlp": layers.init_mlp(cfg.d_model, cfg.d_ff, dt, dev, g),
+                "norm1": norm(), "norm2": norm(), "norm3": norm()}
+
+    def stack(name, make, n):
+        return [put((name, i), make()) for i in range(n)]
+
+    n, fam = cfg.n_layers, cfg.family
+    if fam in ("dense", "moe"):
+        tree["layers"] = stack("layers", lambda: dense_layer(fam == "moe"), n)
+    elif fam in ("ssm", "hybrid"):
+        tree["layers"] = stack("layers", mamba_layer, n)
+        if fam == "hybrid":  # ONE param set, reused at every site
+            tree["shared_attn"] = put(("shared_attn",), dense_layer())
+    else:  # encdec
+        tree["enc_layers"] = stack("enc_layers", dense_layer, cfg.enc_layers)
+        tree["layers"] = stack("layers", dec_layer, n)
+        tree["enc_final_norm"] = put(("enc_final_norm",), norm())
+    tree["final_norm"] = put(("final_norm",), norm())
+    return tree
+
+
 class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, *, attn_impl: str = "auto",
                  q_chunk: int = 2048, kv_chunk: int = 2048,
@@ -247,46 +299,7 @@ class LM(nn.Module):
     def init(self, generator: torch.Generator) -> "LM":
         """Draw every weight with the JAX package's distributions from
         ``generator`` (on this model's device); returns the module."""
-        cfg, dev, g = self.cfg, self.device, generator
-        dt = cfg.torch_dtype
-        norm = lambda: layers.init_rmsnorm(cfg.d_model, dt, dev)
-        tree = {"embed": layers.init_embedding(cfg.vocab_padded, cfg.d_model,
-                                               dt, dev, g)}
-        if not cfg.tie_embeddings:
-            tree["lm_head"] = layers.init_embedding(
-                cfg.vocab_padded, cfg.d_model, dt, dev, g)
-
-        def dense_layer(moe_mlp: bool = False):
-            mlp = ({"moe": moe.init_moe(cfg, dev, g)} if moe_mlp
-                   else {"mlp": layers.init_mlp(cfg.d_model, cfg.d_ff, dt,
-                                                dev, g)})
-            return {"attn": layers.init_attention(cfg, dev, g), **mlp,
-                    "norm1": norm(), "norm2": norm()}
-
-        def mamba_layer():
-            return {"mamba": ssm.init_mamba(cfg, dev, g), "norm": norm()}
-
-        def dec_layer():
-            return {"self_attn": layers.init_attention(cfg, dev, g),
-                    "cross_attn": layers.init_attention(cfg, dev, g),
-                    "mlp": layers.init_mlp(cfg.d_model, cfg.d_ff, dt, dev,
-                                           g),
-                    "norm1": norm(), "norm2": norm(), "norm3": norm()}
-
-        n, fam = cfg.n_layers, cfg.family
-        if fam in ("dense", "moe"):
-            tree["layers"] = [dense_layer(fam == "moe") for _ in range(n)]
-        elif fam in ("ssm", "hybrid"):
-            tree["layers"] = [mamba_layer() for _ in range(n)]
-            if fam == "hybrid":  # ONE param set, reused at every site
-                tree["shared_attn"] = dense_layer()
-        else:  # encdec
-            tree["enc_layers"] = [dense_layer()
-                                  for _ in range(cfg.enc_layers)]
-            tree["layers"] = [dec_layer() for _ in range(n)]
-            tree["enc_final_norm"] = norm()
-        tree["final_norm"] = norm()
-        return self.load_params(tree)
+        return self.load_params(init_tree(self.cfg, self.device, generator))
 
     def load_params(self, tree: dict) -> "LM":
         """Take ``tree`` (the JAX pytree's structure, ``layers`` and
@@ -620,3 +633,301 @@ class LM(nn.Module):
                             core)
             x = x + layers.mlp(lp["mlp"], self._norm(lp, "norm3", x))
         return self._last_logits(x), cache
+
+
+# ---------------------------------------------------------------------------
+# The LM over a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+MESH_FAMILIES = ("dense", "moe")
+
+
+@dataclasses.dataclass
+class MeshCache:
+    """A decode cache in ``launch.sharding.cache_pspecs``'s layout:
+    ``parts[d][m]`` is position (d, m)'s :class:`DecodeCache`, its k/v (L,
+    B / data, S / model, Hkv, Dh) on its device, written in place;
+    ``specs`` the layout (a DecodeCache of specs)."""
+
+    parts: list
+    specs: DecodeCache
+    mesh: object
+    batch_size: int
+    seq_len: int
+
+    def gather(self, device) -> DecodeCache:
+        """The whole cache on ``device`` (tests and checks)."""
+        names = ("k", "v")
+        got = sharding.gather(
+            [[{f: getattr(c, f) for f in names} for c in row]
+             for row in self.parts],
+            {f: getattr(self.specs, f) for f in names}, self.mesh, device)
+        return DecodeCache(**got)
+
+
+class MeshLM:
+    """The dense and moe LMs over a (data, model) :class:`~repro_torch.
+    launch.mesh.Mesh`, in the layout of the reference's dry-run
+    (``launch.sharding``): ``params[d][m]`` is position (d, m)'s params
+    tree, each leaf its block (``param_specs``) on its device, the same
+    for every data row. One controller runs every rank's share, layer by
+    layer, and the ranks meet through the mesh's counted collectives
+    (``models.layers``' mesh sub-layers, ``moe.moe_mlp_mesh``): vocab rows
+    over ``model`` (the embedding ``psum``ed, the logits all-gathered),
+    attention heads and MLP hidden Megatron-split (``psum`` after wo and
+    w_down), experts over ``model`` or split inside, the batch over
+    ``data``, the decode cache's sequence over ``model``.
+
+      MeshLM(cfg, mesh).init(generator)   -> LM(cfg).init(generator)'s
+                                             weights, cut layer by layer
+      MeshLM.from_lm(lm, mesh)            -> a one-device LM's weights, cut
+      init_cache(batch_size, seq_len)     -> MeshCache
+      prefill(batch, cache)               -> (last-token logits (B, V) f32
+                                              on mesh.first, cache)
+      decode_step(cache, token, pos)      -> (logits, cache)
+
+    ``prefill`` and ``decode_step`` take the one-device arguments (tensors
+    on any device; each data row's share is copied to its ranks) and keep
+    :class:`LM`'s semantics. Only the dense and moe families; a batch that
+    does not divide over ``data`` (the reference then lays the cache's
+    sequence over every axis) and a cache length that does not divide over
+    ``model`` raise. Nothing reads a device value on the host.
+    """
+
+    def __init__(self, cfg: ModelConfig, mesh, *, attn_impl: str = "auto",
+                 q_chunk: int = 2048, kv_chunk: int = 2048,
+                 moe_capacity_factor: float = 1.25,
+                 moe_dispatch: str = "sort"):
+        if cfg.family not in MESH_FAMILIES:
+            raise NotImplementedError(
+                f"{cfg.name}: the {cfg.family} family over a mesh (its conv/"
+                "SSM or cross-attention caches) is a later slice; the mesh "
+                f"LM serves {MESH_FAMILIES}")
+        from repro_torch.launch import specs as shapes
+
+        self.cfg, self.mesh = cfg, mesh
+        self.lm = LM(cfg, attn_impl=attn_impl, q_chunk=q_chunk,
+                     kv_chunk=kv_chunk, device="meta")
+        self.moe_cf, self.moe_dispatch = moe_capacity_factor, moe_dispatch
+        self.specs = sharding.param_specs(shapes.param_shapes(self.lm), mesh)
+        lspec = self.specs["layers"][0]
+        self.heads = layers.head_plan(cfg, lspec["attn"], mesh.model_size)
+        split = lambda spec, dim: spec[dim] == "model"
+        self.vocab_split = split(self.specs["embed"], 0)
+        self.head_split = split(self.specs[
+            "embed" if cfg.tie_embeddings else "lm_head"], 0)
+        if cfg.family == "moe":
+            self.moe_mode = moe.moe_mesh_mode(lspec["moe"])
+            self.shared_split = ("shared" in lspec["moe"] and split(
+                lspec["moe"]["shared"]["w_gate"], -1))
+        else:
+            self.mlp_split = split(lspec["mlp"]["w_gate"], -1)
+        self.params = None
+
+    # ------------------------------------------------------------ weights
+
+    def load(self, tree: dict) -> "MeshLM":
+        """Cut a one-device params tree (``LM.params.tree()``) over the
+        mesh: a copy on each position's device; returns self."""
+        self.params = sharding.place(tree, self.specs, self.mesh)
+        return self
+
+    @classmethod
+    def from_lm(cls, lm: LM, mesh, **kwargs) -> "MeshLM":
+        kw = dict(attn_impl=lm.attn_impl, q_chunk=lm.q_chunk,
+                  kv_chunk=lm.kv_chunk, moe_capacity_factor=lm.moe_cf,
+                  moe_dispatch=lm.moe_dispatch, **kwargs)
+        return cls(lm.cfg, mesh, **kw).load(lm.params.tree())
+
+    def init(self, generator: torch.Generator, device=None) -> "MeshLM":
+        """:meth:`LM.init`'s weights (the same draws from ``generator`` on
+        ``device``, by default the mesh's first), each layer cut over the
+        mesh as soon as it is drawn: at most one layer is ever whole."""
+        mesh = self.mesh
+        grid = [[{} for _ in row] for row in mesh.devices]
+
+        def put(path, sub):
+            spec = self.specs[path[0]]
+            if len(path) > 1:
+                spec = spec[path[1]]
+            cut = sharding.place(sub, spec, mesh)
+            for row, cut_row in zip(grid, cut):
+                for tree, part in zip(row, cut_row):
+                    if len(path) > 1:
+                        tree.setdefault(path[0], []).append(part)
+                    else:
+                        tree[path[0]] = part
+
+        init_tree(self.cfg, torch.device(device or mesh.first), generator,
+                  put)
+        self.params = grid
+        return self
+
+    def gather_params(self, device) -> dict:
+        """The whole params tree on ``device`` (tests and checks)."""
+        return sharding.gather(self.params, self.specs, self.mesh, device)
+
+    # -------------------------------------------------------------- cache
+
+    def _rows(self, b: int, seq_len: int) -> int:
+        """The batch rows a data rank holds; raises where the reference's
+        layout is another slice's or does not divide."""
+        dp, mp = self.mesh.dp_size, self.mesh.model_size
+        if b % dp or b < dp:
+            raise NotImplementedError(
+                f"batch {b} over data {dp}: the reference lays the cache's "
+                "sequence over every axis (the batch-1 long-context layout), "
+                "which is the ssm/hybrid long-context slice")
+        if seq_len % mp:
+            raise ValueError(f"cache length {seq_len} does not divide over "
+                             f"model {mp}")
+        return b // dp
+
+    def init_cache(self, batch_size: int, seq_len: int,
+                   enc_len: int = 0) -> MeshCache:
+        """Zeros in the layout of ``cache_pspecs``: each position's k/v
+        (L, B / data, S / model, Hkv, Dh)."""
+        from repro_torch.launch import specs as shapes
+
+        self._rows(batch_size, seq_len)
+        specs = sharding.cache_pspecs(
+            shapes.cache_shapes(self.lm, batch_size, seq_len), self.mesh)
+        full = self.lm.init_cache(batch_size, seq_len, enc_len)
+        parts = sharding.place(
+            {"k": full.k, "v": full.v}, {"k": specs.k, "v": specs.v},
+            self.mesh, put=lambda blk, path, dev: torch.zeros(
+                blk.shape, dtype=blk.dtype, device=dev))
+        return MeshCache([[DecodeCache(**p) for p in row] for row in parts],
+                         specs, self.mesh, batch_size, seq_len)
+
+    # ----------------------------------------------------------- internals
+
+    def _norm(self, lp, name: str, xs: list) -> list:
+        return [layers.rmsnorm(p[name], x, self.cfg.norm_eps)
+                for p, x in zip(lp, xs)]
+
+    def _layer(self, i: int, d: int) -> list:
+        return [p["layers"][i] for p in self.params[d]]
+
+    def _mlps(self, i: int, xs: list) -> list:
+        """Layer i's MLP (dense or moe) with its residual, every row."""
+        ins = [self._norm(self._layer(i, d), "norm2", row)
+               for d, row in enumerate(xs)]
+        if self.cfg.family == "moe":
+            ys = moe.moe_mlp_mesh(
+                [[lp["moe"] for lp in self._layer(i, d)]
+                 for d in range(len(xs))], self.cfg, ins, self.moe_mode,
+                self.shared_split, self.mesh, capacity_factor=self.moe_cf,
+                dispatch=self.moe_dispatch)
+        else:
+            ys = [layers.mlp_mesh([lp["mlp"] for lp in self._layer(i, d)],
+                                  ins[d], self.mlp_split, self.mesh, d)
+                  for d in range(len(xs))]
+        return [[x + y for x, y in zip(xr, yr)] for xr, yr in zip(xs, ys)]
+
+    def _embed(self, tokens: torch.Tensor, b: int) -> list:
+        """Each data row's tokens (its batch rows, copied to its ranks) ->
+        embeddings, a row a list over its ranks."""
+        out = []
+        for d, row in enumerate(self.mesh.devices):
+            toks = [tokens[d * b:(d + 1) * b].to(dev) for dev in row]
+            out.append(layers.embed_mesh([p["embed"] for p in self.params[d]],
+                                         toks, self.vocab_split, self.mesh,
+                                         d))
+        return out
+
+    def _logits(self, xs: list) -> torch.Tensor:
+        """Every row's last position -> logits (B, V) f32 on mesh.first."""
+        head = "embed" if self.cfg.tie_embeddings else "lm_head"
+        rows = []
+        for d, xr in enumerate(xs):
+            ps = self.params[d]
+            h = self._norm(ps, "final_norm", [x[:, -1:] for x in xr])
+            got = layers.logits_mesh([p[head] for p in ps], h,
+                                     self.head_split, self.cfg.vocab,
+                                     self.mesh, d)
+            rows.append(got[0][:, 0])
+        return self.mesh.collect(rows, 0, "logits_out")
+
+    def _fill_kv(self, cache: MeshCache, i: int, d: int, kvs: list,
+                 s: int) -> None:
+        """Layer i's prompt K/V into row d's cache slices, positions past
+        the prompt zeroed. Where every rank holds every KV head, each keeps
+        its own positions; where each holds its own heads, one all-to-all
+        (K and V together) turns heads into positions."""
+        plan, parts = self.heads, cache.parts[d]
+        sc = cache.seq_len // self.mesh.model_size
+        span = lambda j: slice(min(j * sc, s), min((j + 1) * sc, s))
+        if plan.kv_split and not plan.gather_kv:
+            got = self.mesh.all_to_all(
+                d, [[torch.stack(kv)[:, :, span(j)] for j in range(len(kvs))]
+                    for kv in kvs], 3, "kv_reshard")
+            kvs = [(g[0], g[1]) for g in got]
+        else:
+            kvs = [(k[:, span(m)], v[:, span(m)])
+                   for m, (k, v) in enumerate(kvs)]
+        for c, (k, v) in zip(parts, kvs):
+            n = k.shape[1]
+            for dst, new in ((c.k, k), (c.v, v)):
+                dst[i, :, :n] = new.to(dst.dtype)
+                dst[i, :, n:] = 0
+
+    def _check(self, cache: MeshCache, b: int) -> int:
+        if cache.mesh is not self.mesh or cache.batch_size != b:
+            raise ValueError(f"a cache for batch {cache.batch_size} on "
+                             f"{cache.mesh!r}, given batch {b} on "
+                             f"{self.mesh!r}")
+        return self._rows(b, cache.seq_len)
+
+    # ------------------------------------------------------ prefill / decode
+
+    def prefill(self, batch: Batch, cache: MeshCache):
+        """The prompt over the mesh, filling ``cache``; returns (last-token
+        logits (B, V) f32 on mesh.first, cache), as :meth:`LM.prefill`."""
+        cfg, mesh = self.cfg, self.mesh
+        b = self._check(cache, batch.tokens.shape[0])
+        xs = self._embed(batch.tokens, b)
+        if batch.prefix_embeds is not None:  # the vision prefix, every rank
+            xs = [[torch.cat([batch.prefix_embeds[d * b:(d + 1) * b].to(
+                x.device, x.dtype), x], dim=1) for x in xr]
+                for d, xr in enumerate(xs)]
+        s = xs[0][0].shape[1]
+        if s > cache.seq_len:
+            raise ValueError(f"prompt of {s} past the cache's {cache.seq_len}")
+        kw = self.lm._attn_kwargs(s)
+        pos = [[torch.arange(s, device=x.device) for x in xr] for xr in xs]
+        for i in range(cfg.n_layers):
+            for d, xr in enumerate(xs):
+                lp = self._layer(i, d)
+                outs, kvs = layers.attention_mesh(
+                    [p["attn"] for p in lp], cfg, self._norm(lp, "norm1", xr),
+                    self.heads, mesh, d, positions=pos[d], **kw)
+                xs[d] = [x + o for x, o in zip(xr, outs)]
+                self._fill_kv(cache, i, d, kvs, s)
+            xs = self._mlps(i, xs)
+        return self._logits(xs), cache
+
+    def decode_step(self, cache: MeshCache, token: torch.Tensor, pos: int):
+        """One token a sequence at position ``pos`` (a host int: the rank
+        holding it is known without reading the card), token (B,) int;
+        returns (logits (B, V) f32 on mesh.first, cache updated in place)."""
+        cfg, mesh = self.cfg, self.mesh
+        pos = int(pos)
+        b = self._check(cache, token.shape[0])
+        if not 0 <= pos < cache.seq_len:
+            raise ValueError(f"position {pos} outside the cache's "
+                             f"{cache.seq_len}")
+        xs = [[x[:, None, :] for x in xr] for xr in self._embed(token, b)]
+        at = [[torch.arange(pos, pos + 1, device=x.device) for x in xr]
+              for xr in xs]
+        for i in range(cfg.n_layers):
+            for d, xr in enumerate(xs):
+                lp = self._layer(i, d)
+                outs = layers.attention_decode_mesh(
+                    [p["attn"] for p in lp], cfg, self._norm(lp, "norm1", xr),
+                    self.heads, mesh, d,
+                    caches=[(c.k[i], c.v[i]) for c in cache.parts[d]],
+                    pos=pos, positions=at[d])
+                xs[d] = [x + o for x, o in zip(xr, outs)]
+            xs = self._mlps(i, xs)
+        return self._logits(xs), cache

@@ -5,7 +5,10 @@ Token->expert assignments are packed into an (E, C, D) buffer, the experts
 run as batched products over it, and the outputs are gathered back and
 combined by the router's weights. Assignments past an expert's capacity
 are *dropped* (their residual passes through). The JAX package's
-expert-parallel mesh hook (``shard_group``) has no counterpart here.
+expert-parallel mesh hook (``shard_group``) has no counterpart here;
+``moe_mlp_mesh`` runs the layer over a mesh with the experts over
+``model`` (or split inside each expert), as ``launch.sharding`` lays
+them out.
 
 Every step is deterministic, on the card too: the router's top k come from
 a stable sort (the lower expert id first among equal probabilities, as
@@ -141,23 +144,7 @@ def moe_mlp(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     flat_e = experts.reshape(t * k)
     cap = capacity(capacity_factor, t, k, e)
     slot = torch.arange(t * k, device=x.device)
-    if dispatch == "sort":
-        order = torch.sort(flat_e, stable=True).indices  # (TK,)
-        # bincount (whose CUDA version reads the largest id back to the
-        # host) as an integer scatter-add: exact in any order.
-        counts = torch.zeros(e, dtype=torch.long, device=x.device
-                             ).scatter_add_(0, flat_e, torch.ones_like(flat_e))
-        starts = torch.cumsum(counts, 0) - counts
-        pos_sorted = slot - starts[flat_e[order]]
-        pos = torch.empty_like(pos_sorted)
-        pos[order] = pos_sorted
-    elif dispatch == "cumsum":
-        onehot = _onehot(flat_e, e)  # (TK, E)
-        pos_all = torch.cumsum(onehot, dim=0) - onehot  # exclusive
-        pos = torch.gather(pos_all, 1, flat_e[:, None])[:, 0]
-    else:
-        raise ValueError(dispatch)
-
+    pos = _positions(flat_e, e, dispatch)
     keep = pos < cap  # overflow drops
     _count(stats, keep)
     # Pack the assignments into the (E, C + 1, D) buffer. A dropped one
@@ -172,13 +159,45 @@ def moe_mlp(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     # sorted dispatch's scatter-add meets them by ascending expert id, the
     # cumsum one in slot order.
     y_slot = torch.where(keep[:, None], out_buf[flat_e, safe].float(), 0.0)
+    y = _shared(p, cfg, x2d, _weighted(y_slot, weights, experts, dispatch))
+    return y.reshape(b, s, d).to(x.dtype), aux
+
+
+def _positions(flat_e: torch.Tensor, e: int, dispatch: str) -> torch.Tensor:
+    """Each assignment's position among its expert's (TK,): "sort" (a
+    stable sort by expert, positions from the experts' counts) or "cumsum"
+    (an exclusive running count of each expert's assignments)."""
+    if dispatch == "sort":
+        order = torch.sort(flat_e, stable=True).indices  # (TK,)
+        # bincount (whose CUDA version reads the largest id back to the
+        # host) as an integer scatter-add: exact in any order.
+        counts = torch.zeros(e, dtype=torch.long, device=flat_e.device
+                             ).scatter_add_(0, flat_e, torch.ones_like(flat_e))
+        starts = torch.cumsum(counts, 0) - counts
+        slot = torch.arange(flat_e.numel(), device=flat_e.device)
+        pos = torch.empty_like(slot)
+        pos[order] = slot - starts[flat_e[order]]
+        return pos
+    if dispatch == "cumsum":
+        onehot = _onehot(flat_e, e)  # (TK, E)
+        pos_all = torch.cumsum(onehot, dim=0) - onehot  # exclusive
+        return torch.gather(pos_all, 1, flat_e[:, None])[:, 0]
+    raise ValueError(dispatch)
+
+
+def _weighted(y_slot, weights, experts, dispatch: str) -> torch.Tensor:
+    """(TK, D) f32 per-slot outputs -> (T, D), each token's k slots weighted
+    and combined in the order the reference's scatter-add meets them: by
+    ascending expert id for the sorted dispatch, in slot order for the
+    cumsum one."""
+    t, k = experts.shape
+    d = y_slot.shape[-1]
     contrib = (y_slot * weights.reshape(t * k, 1)).reshape(t, k, d)
     if dispatch == "sort":
         by_expert = torch.sort(experts, dim=1, stable=True).indices
         contrib = torch.gather(contrib, 1,
                                by_expert[..., None].expand(t, k, d))
-    y = _shared(p, cfg, x2d, _combine(contrib))
-    return y.reshape(b, s, d).to(x.dtype), aux
+    return _combine(contrib)
 
 
 def _moe_grouped(p, cfg, x2d, weights, experts, capacity_factor, groups,
@@ -227,3 +246,99 @@ def moe_mlp_dense_oracle(p: dict, cfg: ModelConfig, x: torch.Tensor):
         y = y + o.float() * w_e[:, None]
     y = _shared(p, cfg, x2d, y)
     return y.reshape(b, s, d).to(x.dtype), aux
+
+
+def moe_mesh_mode(specs: dict) -> str:
+    """How ``launch.sharding`` laid out an MoE layer's experts over
+    ``model``: "ep" (experts split), "tp" (each expert's hidden dim split)
+    or "replicated"."""
+    spec = specs["w_gate"]
+    return ("ep" if spec[0] == "model" else "tp" if spec[-1] == "model"
+            else "replicated")
+
+
+def moe_mlp_mesh(ps: list, cfg: ModelConfig, xs: list, mode: str,
+                 shared_split: bool, mesh, *, capacity_factor: float = 1.25,
+                 dispatch: str = "sort") -> list:
+    """:func:`moe_mlp` over a mesh: ``xs[d][m]`` (B/data, S, D) on position
+    (d, m), equal along a row; ``ps[d][m]`` its params; ``mode`` from
+    :func:`moe_mesh_mode`. Returns the outputs, ``out[d][m]``.
+
+    The router is replicated, so every rank of a row computes the same
+    routes. Dispatch is the reference's over the whole batch: the capacity
+    counts every data row's tokens, and an assignment's position among its
+    expert's adds the assignments of the rows before it (one all-gather of
+    each row's per-expert counts over ``data``). Under "ep" each rank packs
+    and runs only its experts' buffer rows; under "tp" every rank runs
+    every expert on its columns of gate/up and rows of down. The per-slot
+    outputs (under "ep" each non-zero on one rank, so their sum is exact),
+    and the shared experts' partial products when they are split, are
+    summed over the row in one ``psum`` before the fixed-order combine."""
+    k, e = cfg.top_k, cfg.n_experts
+    n_rows, n_ranks = len(xs), len(xs[0])
+    n_local = e // n_ranks if mode == "ep" else e
+    t_all = sum(r[0].shape[0] * r[0].shape[1] for r in xs)
+    cap = capacity(capacity_factor, t_all, k, e)
+    routed = [[] for _ in xs]
+    routes = [[] for _ in xs]
+    for d in range(n_rows):
+        for p, x in zip(ps[d], xs[d]):
+            weights, experts, _ = route(p["router"], x.reshape(-1, x.shape[2]),
+                                        k)
+            flat_e = experts.reshape(-1)
+            counts = torch.zeros(e, dtype=torch.long, device=x.device
+                                 ).scatter_add_(0, flat_e,
+                                                torch.ones_like(flat_e))
+            routes[d].append((weights, experts, flat_e,
+                              _positions(flat_e, e, dispatch), counts))
+    if n_rows > 1:  # the rows before each row: its positions' offsets
+        for m in range(n_ranks):
+            got = mesh.column_gather(m, [routes[d][m][4][None]
+                                         for d in range(n_rows)], 0,
+                                     "moe_counts")
+            for d in range(n_rows):
+                w, ex, fe, pos, c = routes[d][m]
+                before = got[d][:d].sum(dim=0)
+                routes[d][m] = (w, ex, fe, pos + before[fe], c)
+    shared = [[] for _ in xs]
+    for d in range(n_rows):
+        for m, (p, x) in enumerate(zip(ps[d], xs[d])):
+            _, _, flat_e, pos, _ = routes[d][m]
+            x2d = x.reshape(-1, x.shape[2])
+            e0 = m * n_local if mode == "ep" else 0
+            mine = (pos < cap) & (flat_e >= e0) & (flat_e < e0 + n_local)
+            # The rank's kept slots into its (n_local, C + 1, D) buffer;
+            # every other slot lands in the scratch row C of its first
+            # expert, which no output reads.
+            le = torch.where(mine, flat_e - e0, 0)
+            safe = torch.where(mine, pos, cap)
+            buf = torch.zeros((n_local, cap + 1, x.shape[2]), dtype=x.dtype,
+                              device=x.device)
+            slot = torch.arange(flat_e.numel(), device=x.device)
+            buf[le, safe] = x2d[slot // k].to(x.dtype)
+            routed[d].append(torch.where(
+                mine[:, None], _experts(p, buf)[le, safe].float(), 0.0))
+            shared[d].append(layers.mlp(p["shared"], x2d).float()
+                             if cfg.n_shared else None)
+    summed = (mode != "replicated", cfg.n_shared > 0 and shared_split)
+    outs = []
+    for d in range(n_rows):
+        if any(summed):
+            tk = routed[d][0].shape[0]
+            got = mesh.psum(d, [torch.cat([y for y, on in zip(pair, summed)
+                                           if on])
+                                for pair in zip(routed[d], shared[d])],
+                            "moe_out")
+            if summed[0]:
+                routed[d] = [g[:tk] for g in got]
+            if summed[1]:
+                shared[d] = [g[tk:] if summed[0] else g for g in got]
+        row = []
+        for x, y, sh, (w, ex, _, _, _) in zip(xs[d], routed[d], shared[d],
+                                              routes[d]):
+            out = _weighted(y, w, ex, dispatch)
+            if sh is not None:
+                out = out + sh
+            row.append(out.reshape(x.shape).to(x.dtype))
+        outs.append(row)
+    return outs
